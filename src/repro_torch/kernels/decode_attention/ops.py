@@ -1,0 +1,87 @@
+"""Decode attention wrappers: CUDA tensors launch the sm_90a kernels in
+``csrc/decode_attention.cu`` (which replace the Pallas `_decode_kernel`
+and `_paged_decode_kernel`), CPU tensors run the plain versions in
+``ref.py``. There is no fallback: a CUDA call builds and launches the
+kernel or raises. Each wrapper counts its kernel launches in its
+``launches`` attribute (and nowhere else)."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("decode_attention")
+    lib.decode_attention.argtypes = [_P, _P, _P, _P, _P] + [_I] * 6 \
+        + [_F, _I, _P]
+    lib.paged_decode_attention.argtypes = [_P] * 6 + [_I] * 8 \
+        + [_F, _I, _P]
+    lib.decode_attention.restype = _I
+    lib.paged_decode_attention.restype = _I
+    return lib
+
+
+def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               length, window: int = 0) -> torch.Tensor:
+    """q [B, H, hd]; caches [B, Hkv, S, hd]; `length` a scalar or a
+    per-row [B] vector of valid-prefix counts. Returns [B, H, hd] f32.
+    On the card a row of length 0 returns zeros (its slot is idle)."""
+    if not q.is_cuda:
+        return decode_attention_ref(q, k_cache, v_cache, length,
+                                    window=window).float()
+    B, H, hd = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    if k_cache.shape[0] != B or k_cache.shape[3] != hd or H % Hkv:
+        raise ValueError(f"gqa_decode: q {tuple(q.shape)} vs cache "
+                         f"{tuple(k_cache.shape)}")
+    code = build.attention_args("gqa_decode", q, k_cache, v_cache, hd)
+    lengths = build.int_rows(length, B, q.device)
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    st = _lib().decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        lengths.data_ptr(), B, Hkv, H // Hkv, S, hd, int(window),
+        1.0 / hd ** 0.5, code, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(st, "decode_attention")
+    gqa_decode.launches += 1
+    return out
+
+
+def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, tables, length,
+                     window: int = 0) -> torch.Tensor:
+    """q [B, H, hd]; pools [n_pages, Hkv, page, hd]; `tables` [B, n_lp]
+    per-slot page tables; `length` scalar or per-row [B] valid-prefix
+    counts. Returns [B, H, hd] f32."""
+    if not q.is_cuda:
+        return paged_decode_attention_ref(q, k_pool, v_pool, tables, length,
+                                          window=window).float()
+    B, H, hd = q.shape
+    n_pages, Hkv, page, _ = k_pool.shape
+    if k_pool.shape[3] != hd or H % Hkv:
+        raise ValueError(f"gqa_decode_paged: q {tuple(q.shape)} vs pool "
+                         f"{tuple(k_pool.shape)}")
+    code = build.attention_args("gqa_decode_paged", q, k_pool, v_pool, hd)
+    tbl = build.int_table(tables, B, q.device)
+    lengths = build.int_rows(length, B, q.device)
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    st = _lib().paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+        tbl.data_ptr(), lengths.data_ptr(), B, Hkv, H // Hkv, n_pages, page,
+        tbl.shape[1], hd, int(window), 1.0 / hd ** 0.5, code,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(st, "paged_decode_attention")
+    gqa_decode_paged.launches += 1
+    return out
+
+
+gqa_decode.launches = 0
+gqa_decode_paged.launches = 0

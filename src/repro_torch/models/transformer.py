@@ -1,0 +1,168 @@
+"""Decoder-only transformer LM, dense family — the port of
+`repro/models/transformer.py` (teacher-forced forward, per-slot decode,
+fused chunk prefill; dense and paged KV caches).
+
+The JAX package scans stacked `[L, ...]` parameters; here the layers are
+a list walked by a Python loop. The caches keep the stacked `[L, ...]`
+layout and are updated IN PLACE: `decode_step` and `prefill_step` write
+the new K/V columns into the tensors they are given and return those
+same tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.nn import resolve_device
+
+
+# ------------------------------------------------------------- specs
+def block_specs(cfg) -> dict:
+    s = {
+        "ln_attn": L.norm_specs(cfg.d_model, cfg.norm),
+        "attn": L.attention_specs(cfg),
+    }
+    if not cfg.parallel_block:
+        s["ln_mlp"] = L.norm_specs(cfg.d_model, cfg.norm)
+    if cfg.is_moe:
+        raise NotImplementedError("MoE blocks are not ported yet "
+                                  "(ROADMAP.md, P15)")
+    s["mlp"] = L.mlp_specs(cfg)
+    return s
+
+
+def model_specs(cfg) -> dict:
+    if cfg.frontend:
+        raise NotImplementedError("multimodal frontends are not ported yet "
+                                  "(ROADMAP.md, P15)")
+    return {
+        "embed": L.embed_specs(cfg.vocab_size, cfg.d_model),
+        "layers": [block_specs(cfg) for _ in range(cfg.n_layers)],
+        "ln_f": L.norm_specs(cfg.d_model, cfg.norm),
+    }
+
+
+# ------------------------------------------------------------- blocks
+def _mlp_residual(lp, x, h, attn, cfg):
+    if cfg.parallel_block:
+        return x + attn + L.apply_mlp(lp["mlp"], h)
+    x = x + attn
+    return x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln_mlp"], x, cfg.norm))
+
+
+def apply_block(lp, x, cfg, positions=None, causal=True, window: int = 0):
+    h = L.apply_norm(lp["ln_attn"], x, cfg.norm)
+    attn = L.attention_train(lp["attn"], h, cfg, positions, causal, window)
+    return _mlp_residual(lp, x, h, attn, cfg)
+
+
+def apply_block_decode(lp, x, cfg, ck, cv, index, window=0, pages=None,
+                       kept=None):
+    h = L.apply_norm(lp["ln_attn"], x, cfg.norm)
+    attn, ck, cv = L.attention_decode_slots(lp["attn"], h, cfg, ck, cv,
+                                            index, window, pages, kept)
+    return _mlp_residual(lp, x, h, attn, cfg), ck, cv
+
+
+def apply_block_prefill(lp, x, cfg, ck, cv, start, n_valid, window=0,
+                        pages=None, kept=None):
+    h = L.apply_norm(lp["ln_attn"], x, cfg.norm)
+    attn, ck, cv = L.attention_prefill_slots(lp["attn"], h, cfg, ck, cv,
+                                             start, n_valid, window, pages,
+                                             kept)
+    return _mlp_residual(lp, x, h, attn, cfg), ck, cv
+
+
+# ------------------------------------------------------------- forward
+def forward(params, batch: dict, cfg, window: int = 0) -> tuple:
+    """Full-sequence teacher-forced forward. Returns (logits, aux)."""
+    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for lp in params["layers"]:
+        x = apply_block(lp, x, cfg, positions, True, window)
+    x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    return L.unembed(params["embed"], x), {
+        "aux_loss": torch.zeros((), device=x.device)}
+
+
+# ------------------------------------------------------------- caches
+def init_cache_shapes(cfg, batch_size: int, seq_len: int):
+    shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, seq_len, cfg.hd)
+    axes = ("layers", "batch", "kv_heads", "kv_seq", None)
+    return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
+
+
+def init_cache(cfg, batch_size: int, seq_len: int, device="cuda") -> dict:
+    dev = resolve_device(device)
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, (shape, axes, dtype) in
+            init_cache_shapes(cfg, batch_size, seq_len).items()}
+
+
+def paged_cache_shapes(cfg, n_pages: int, page_size: int):
+    """Paged KV layout: fixed-size pages from one shared pool — no batch
+    axis; slots map logical columns onto pool pages via per-slot page
+    tables (serve/paging.py owns allocation)."""
+    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.hd)
+    axes = ("layers", None, "kv_heads", None, None)
+    return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
+
+
+def init_paged_cache(cfg, n_pages: int, page_size: int,
+                     device="cuda") -> dict:
+    dev = resolve_device(device)
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, (shape, axes, dtype) in
+            paged_cache_shapes(cfg, n_pages, page_size).items()}
+
+
+# ------------------------------------------------------------- steps
+def decode_step(params, cache: dict, token: torch.Tensor,
+                index: torch.Tensor, cfg, window: int = 0, pages=None,
+                active=None) -> tuple:
+    """token [B,1] int; index a per-slot [B] vector of write positions.
+    Returns (logits [B,1,V], cache) with the cache updated in place.
+
+    With `pages` = {"tables": [B,n_lp], "page_size": int, "active": [B]
+    bool or None} the cache leaves are the shared page pool from
+    `init_paged_cache`. `active` [B] bool (dense) or `pages["active"]`
+    (paged) selects the rows whose K/V write lands; the JAX package gets
+    the same effect for the dense cache by a batch select afterwards."""
+    B = token.shape[0]
+    index = index.reshape(B)
+    if pages is not None and pages.get("active") is not None:
+        active = pages["active"]
+    kept = L.kept_writes(active[:, None]) if active is not None \
+        else L._all_writes(B, 1, token.device)
+    x = L.embed_lookup(params["embed"], token, cfg.dtype)
+    for l, lp in enumerate(params["layers"]):
+        x, _, _ = apply_block_decode(lp, x, cfg, cache["k"][l],
+                                     cache["v"][l], index, window, pages,
+                                     kept)
+    x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    return L.unembed(params["embed"], x), cache
+
+
+def prefill_step(params, cache: dict, tokens: torch.Tensor,
+                 start: torch.Tensor, n_valid: torch.Tensor, cfg,
+                 window: int = 0, pages=None) -> tuple:
+    """Fused chunk prefill: tokens [B,C] — one prompt chunk per slot,
+    row b's chunk starting at cache position start[b] with n_valid[b]
+    real tokens (the rest padded tail, not written; a row with n_valid=0
+    is untouched). Returns (last_logits [B,V] fp32 — the logits of each
+    row's last valid chunk token — and the cache, updated in place)."""
+    B, C = tokens.shape
+    keep = torch.arange(C, device=tokens.device)[None, :] < n_valid[:, None]
+    if pages is not None and pages.get("active") is not None:
+        keep &= pages["active"][:, None]
+    kept = L.kept_writes(keep)
+    x = L.embed_lookup(params["embed"], tokens, cfg.dtype)
+    for l, lp in enumerate(params["layers"]):
+        x, _, _ = apply_block_prefill(lp, x, cfg, cache["k"][l],
+                                      cache["v"][l], start, n_valid, window,
+                                      pages, kept)
+    x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    last = (n_valid.long() - 1).clamp(0, C - 1)
+    xl = x[torch.arange(B, device=x.device), last][:, None]      # [B,1,d]
+    return L.unembed(params["embed"], xl)[:, 0].float(), cache

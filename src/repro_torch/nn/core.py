@@ -1,0 +1,126 @@
+"""Parameter declaration and initialisation — the port of `repro/nn/core.py`.
+
+Models declare a tree of :class:`Spec` leaves (shape + logical axes +
+initializer), exactly as in the JAX package. ``init_params`` turns the
+tree into a :class:`ParamDict`, an ``nn.Module`` whose dict nodes are
+submodules, list nodes ``nn.ModuleList``s and Spec leaves registered
+``nn.Parameter``s, so ``.to(device)`` moves the whole model. Layer code
+reads it like the JAX pytree (``p["wq"]["w"]``, ``"b" in p``).
+
+Initialisation draws from the caller's seeded ``torch.Generator``; it
+is not JAX's init bitwise. ``params_from_jax`` loads the JAX package's
+parameters (as numpy arrays) instead, which the parity tests use.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. CUDA is the default and is
+    never silently replaced by the CPU: asking for it without a GPU
+    raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain versions")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Declaration of one parameter leaf."""
+
+    shape: tuple
+    axes: tuple  # logical axis name (str) or None per dim
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | uniform | embed
+    dtype: Any = torch.float32
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def _init_leaf(spec: Spec, generator: torch.Generator,
+               device: torch.device) -> torch.Tensor:
+    kw = {"dtype": spec.dtype, "device": device}
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, **kw)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, **kw)
+    if spec.init in ("normal", "embed"):
+        return spec.scale * torch.randn(spec.shape, generator=generator, **kw)
+    if spec.init == "uniform":
+        lim = spec.scale
+        return (torch.rand(spec.shape, generator=generator, **kw)
+                * (2 * lim) - lim)
+    if spec.init == "fan_in":
+        fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[0], 1)
+        if len(spec.shape) >= 3:
+            fan_in = spec.shape[-2]
+        std = spec.scale / math.sqrt(fan_in)
+        return std * torch.randn(spec.shape, generator=generator, **kw)
+    raise ValueError(f"unknown init {spec.init}")
+
+
+class ParamDict(nn.Module):
+    """A parameter tree as a module: dict-style access over submodules
+    and parameters (inference-only, so ``requires_grad=False``)."""
+
+    def __init__(self, tree: dict, make_leaf):
+        super().__init__()
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                self.add_module(k, ParamDict(v, make_leaf))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(k, nn.ModuleList(
+                    ParamDict(x, make_leaf) for x in v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(make_leaf(v), requires_grad=False))
+
+    def __getitem__(self, k):
+        return getattr(self, k)
+
+    def __contains__(self, k) -> bool:
+        return k in self._parameters or k in self._modules
+
+
+def init_params(specs: dict, generator: torch.Generator,
+                device="cuda") -> ParamDict:
+    """Materialise a Spec tree on `device`, drawing every random leaf
+    from `generator` (which must live on that device) in sorted-key
+    order."""
+    dev = resolve_device(device)
+    return ParamDict(specs, lambda s: _init_leaf(s, generator, dev))
+
+
+def params_from_jax(np_tree: dict, cfg, device="cuda") -> ParamDict:
+    """The JAX package's transformer params, given as numpy arrays
+    (stacked ``[L, ...]`` layer leaves, ``embed.table``, ``ln_f``), as
+    the port's `ParamDict`: the stacked layers become a list of
+    per-layer subtrees."""
+    dev = resolve_device(device)
+
+    def unstack(t, l):
+        return {k: unstack(v, l) if isinstance(v, dict) else v[l]
+                for k, v in t.items()}
+
+    tree = dict(np_tree)
+    tree["layers"] = [unstack(np_tree["layers"], l)
+                      for l in range(cfg.n_layers)]
+    return ParamDict(tree, lambda a: torch.from_numpy(
+        np.array(a, copy=True)).to(dev))
+
+
+def count_params(params: nn.Module) -> int:
+    return int(sum(p.numel() for p in params.parameters()))
