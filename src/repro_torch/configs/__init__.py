@@ -2,4 +2,5 @@
 configurations ported so far; ROADMAP.md lists the rest)."""
 from repro_torch.configs.base import (ArchConfig, ShapeConfig, WirelessConfig,
                                       get_arch)
+from repro_torch.configs import paper_tinylstm  # noqa: F401
 from repro_torch.configs import qwen1_5_0_5b  # noqa: F401

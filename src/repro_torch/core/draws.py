@@ -12,11 +12,26 @@ draws (the parity tests do). The names a send uses:
   "ge_init"   [n] uniforms                      Gilbert-Elliott start
   "ge_chain"  [n_packets, n] uniforms           Gilbert-Elliott steps
 
+The packed wire (core/wire.py) draws "arq" (its per-packet fades, with
+or without ARQ), "flip" ([n, R, C] words), the Gilbert-Elliott names
+and, behind the in-kernel generator flag, "kernel_seed" (one word).
+It also asks the seam for the bit error probability of each packet
+(`bit_error_prob`): the float32 erfc of two libraries may differ in the
+last ulp, so a caller that must reproduce another implementation's
+flips hands in that implementation's p with its draws.
+
+A `Key` names a stream by a path of integers and folds like a JAX key
+(`key.fold_in(i)`); `key.draws()` is that stream's `Draws`, with one
+generator per draw name, so a replay of only the "arq" draw (the SL
+billing replay) gets exactly the fades the crossing used.
+
 Words are int64 tensors holding values in [0, 2^32): torch has no
 `>>` or `<` on uint32 on the CPU, so bit work is done in int64 masked
 to 32 bits.
 """
 from __future__ import annotations
+
+import zlib
 
 import torch
 
@@ -37,13 +52,66 @@ class Draws:
         return torch.randint(0, 1 << 32, tuple(shape),
                              generator=self.generator, dtype=torch.int64)
 
+    def bit_error_prob(self, snr_db, f2) -> torch.Tensor:
+        """p of each packet from its fade: the port's own BPSK formula."""
+        from repro_torch.core.channel import bpsk_bit_error_prob
+        return bpsk_bit_error_prob(snr_db, f2)
+
+
+def _mix(ints) -> int:
+    seed = 0
+    for i in ints:
+        seed = (seed * 1_000_003 + int(i) + 1) % (1 << 63)
+    return seed
+
 
 def seeded(*ints: int) -> Draws:
     """`Draws` on a generator seeded from a tuple of integers (stream,
     request, leg, attempt, ...), so each crossing gets its own stream."""
     g = torch.Generator(device="cpu")
-    seed = 0
-    for i in ints:
-        seed = (seed * 1_000_003 + int(i) + 1) % (1 << 63)
-    g.manual_seed(seed)
+    g.manual_seed(_mix(ints))
     return Draws(g)
+
+
+class KeyDraws(Draws):
+    """The `Draws` of one `Key`: each name draws from its own CPU
+    generator seeded from (path, name), in call order within the name.
+    CPU generators give the same numbers whatever device the consumer
+    runs on, so a run on the card and one on the CPU see one stream."""
+
+    def __init__(self, path: tuple):
+        self.path = path
+        self._gens: dict = {}
+
+    def _gen(self, name: str) -> torch.Generator:
+        g = self._gens.get(name)
+        if g is None:
+            g = torch.Generator(device="cpu")
+            g.manual_seed(_mix(self.path + (zlib.crc32(name.encode()),)))
+            self._gens[name] = g
+        return g
+
+    def uniform(self, name: str, shape, lo: float, hi: float):
+        self.generator = self._gen(name)
+        return super().uniform(name, shape, lo, hi)
+
+    def words(self, name: str, shape):
+        self.generator = self._gen(name)
+        return super().words(name, shape)
+
+
+class Key:
+    """A stream named by a path of integers; `fold_in` extends the path
+    (the JAX package's `jax.random.fold_in`), `draws()` opens it."""
+
+    def __init__(self, *path: int):
+        self.path = tuple(int(i) for i in path)
+
+    def fold_in(self, i: int) -> "Key":
+        return Key(*self.path, int(i))
+
+    def draws(self) -> KeyDraws:
+        return KeyDraws(self.path)
+
+    def __repr__(self) -> str:
+        return f"Key{self.path}"

@@ -1,0 +1,5 @@
+from repro_torch.data.sentiment import (SentimentConfig, make_dataset,
+                                        make_splits, partition_users)
+
+__all__ = ["SentimentConfig", "make_dataset", "make_splits",
+           "partition_users"]

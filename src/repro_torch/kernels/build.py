@@ -33,6 +33,8 @@ SOURCES = {
         KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu",
     "prefill_attention":
         KERNELS_DIR / "prefill_attention" / "csrc" / "prefill_attention.cu",
+    "quant_channel":
+        KERNELS_DIR / "quant_channel" / "csrc" / "quant_channel.cu",
 }
 
 

@@ -1,0 +1,224 @@
+"""Packed-wire wrappers: CUDA tensors launch the sm_90a kernels in
+``csrc/quant_channel.cu`` (which replace the Pallas `packed_wire_2d`,
+`packed_wire_mean_2d`, `quant_channel_2d` and `packed_wire_2d`'s
+in-kernel-RNG mode), CPU tensors run the plain versions in ``ref.py``.
+There is no fallback: a CUDA call builds and launches the kernel or
+raises. Each wrapper counts its kernel launches in its ``launches``
+attribute (and nowhere else).
+
+Random words enter as 32-bit patterns: int64 tensors holding [0, 2^32)
+(what `Draws.words` gives) or int32 bit patterns; `words_u32` turns
+either into the int32 view the kernels read as uint32.
+
+`DEVICE_KERNEL_RNG` (off by default) makes the packed wire draw its
+words inside the kernel (K6) from one seed word per send instead of a
+host-drawn word per element: a different stream, so host-vs-card parity
+holds only with it off. It exists only on the card; on the CPU, where
+nothing runs a kernel, the K6 wrapper raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.quant_channel.ref import (BLOCK_M, BLOCK_N,
+                                                   packed_wire_mean_ref,
+                                                   packed_wire_ref,
+                                                   quant_channel_ref)
+
+DEVICE_KERNEL_RNG = False
+
+_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_uint
+_CODE_BYTES = {"float32": 4, "int8": 1, "int4": 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("quant_channel")
+    lib.packed_wire.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _P]
+    lib.packed_wire_philox.argtypes = [_P] * 4 + [_LL, _I, _I, _I, _U, _P]
+    lib.packed_wire_mean.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.quant_channel.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    for f in (lib.packed_wire, lib.packed_wire_philox, lib.packed_wire_mean,
+              lib.quant_channel):
+        f.restype = _I
+    return lib
+
+
+def words_u32(rand: torch.Tensor, device=None) -> torch.Tensor:
+    """32-bit words (int64 in [0, 2^32) or int32 patterns) as a
+    contiguous int32 tensor on `device` (default: where they are),
+    converted before the copy so that half the bytes move."""
+    if rand.dtype == torch.int64:
+        rand = torch.where(rand >= 2 ** 31, rand - 2 ** 32, rand) \
+            .to(torch.int32)
+    elif rand.dtype != torch.int32:
+        raise ValueError(f"rand words must be int64 or int32, got "
+                         f"{rand.dtype}")
+    return rand.to(device if device is not None else rand.device) \
+        .contiguous()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(what: str, bits: int, wire_dtype: str, buf, rows_vecs=(),
+           words=None):
+    if wire_dtype not in _CODE_BYTES:
+        raise ValueError(f"{what}: unknown wire_dtype {wire_dtype!r}")
+    if not 1 <= bits <= (8 if _CODE_BYTES[wire_dtype] == 1 else 31):
+        raise ValueError(f"{what}: {bits} bits on a {wire_dtype} wire")
+    if buf.ndim != 2 or buf.dtype != torch.float32 or buf.shape[1] % 4:
+        raise ValueError(f"{what}: buf must be [R, C] float32 with C a "
+                         f"multiple of 4, got {tuple(buf.shape)} "
+                         f"{buf.dtype}")
+    for name, t in rows_vecs:
+        if t.shape != (buf.shape[0], 1) or t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be [{buf.shape[0]}, 1] "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    for t in (buf, words) + tuple(t for _, t in rows_vecs):
+        if t is None:
+            continue
+        if t.device != buf.device or not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous on "
+                             f"{buf.device}")
+    if words is not None and (words.shape != buf.shape
+                              or words.dtype != torch.int32):
+        raise ValueError(f"{what}: rand must be int32 words of "
+                         f"{tuple(buf.shape)} (see words_u32)")
+
+
+def packed_wire_2d(buf: torch.Tensor, rand: torch.Tensor,
+                   scale_row: torch.Tensor, p_row: torch.Tensor, bits: int,
+                   wire_dtype: str = "float32") -> torch.Tensor:
+    """K1. buf [R, C] f32, rand [R, C] 32-bit words, scale_row/p_row
+    [R, 1] f32 -> [R, C] f32: per-row b-bit quantize, flip, dequantize
+    (the `wire_dtype` picks the codeword width: uint32, or uint8 for
+    int8 and int4). One launch per tree, or per stacked N-user upload."""
+    if not buf.is_cuda:
+        return packed_wire_ref(buf, rand, scale_row, p_row, bits,
+                               wire_dtype)
+    rand = words_u32(rand)
+    _check("packed_wire_2d", bits, wire_dtype, buf,
+           (("scale_row", scale_row), ("p_row", p_row)), rand)
+    out = torch.empty_like(buf)
+    st = _lib().packed_wire(buf.data_ptr(), rand.data_ptr(),
+                            scale_row.data_ptr(), p_row.data_ptr(),
+                            out.data_ptr(), buf.numel(), buf.shape[1], bits,
+                            _CODE_BYTES[wire_dtype], _stream(buf))
+    build.check(st, "packed_wire")
+    packed_wire_2d.launches += 1
+    return out
+
+
+def packed_wire_2d_philox(buf: torch.Tensor, scale_row: torch.Tensor,
+                          p_row: torch.Tensor, bits: int, seed: int,
+                          wire_dtype: str = "float32") -> torch.Tensor:
+    """K6: K1 with the words drawn in the kernel by Philox4x32-10 from
+    `seed` (`ref.philox_words` gives the same words). Card only."""
+    if not buf.is_cuda:
+        raise ValueError(
+            "packed_wire_2d_philox draws its words inside the CUDA kernel "
+            "and has no CPU path; the CPU keeps host-drawn words "
+            "(DEVICE_KERNEL_RNG off)")
+    _check("packed_wire_2d_philox", bits, wire_dtype, buf,
+           (("scale_row", scale_row), ("p_row", p_row)))
+    out = torch.empty_like(buf)
+    st = _lib().packed_wire_philox(
+        buf.data_ptr(), scale_row.data_ptr(), p_row.data_ptr(),
+        out.data_ptr(), buf.numel(), buf.shape[1], bits,
+        _CODE_BYTES[wire_dtype], int(seed) & 0xFFFFFFFF, _stream(buf))
+    build.check(st, "packed_wire_philox")
+    packed_wire_2d_philox.launches += 1
+    return out
+
+
+def packed_wire_mean_2d(buf: torch.Tensor, rand: torch.Tensor,
+                        scale_row: torch.Tensor, p_row: torch.Tensor,
+                        w_row: torch.Tensor, bits: int, n: int,
+                        wire_dtype: str = "float32") -> torch.Tensor:
+    """K2. buf/rand [N*R, C] (users stacked along rows), scale_row/
+    p_row/w_row [N*R, 1] -> [R, C]: the weighted sum over users, in
+    ascending order, of the received rows — the [N, R, C] received
+    buffer never exists."""
+    if not buf.is_cuda:
+        return packed_wire_mean_ref(buf, rand, scale_row, p_row, w_row,
+                                    bits, n, wire_dtype)
+    rand = words_u32(rand)
+    _check("packed_wire_mean_2d", bits, wire_dtype, buf,
+           (("scale_row", scale_row), ("p_row", p_row), ("w_row", w_row)),
+           rand)
+    nr, c = buf.shape
+    if n < 1 or nr % n:
+        raise ValueError(f"packed_wire_mean_2d: {nr} rows for {n} users")
+    out = torch.empty((nr // n, c), dtype=torch.float32, device=buf.device)
+    st = _lib().packed_wire_mean(
+        buf.data_ptr(), rand.data_ptr(), scale_row.data_ptr(),
+        p_row.data_ptr(), w_row.data_ptr(), out.data_ptr(), nr // n, c, n,
+        bits, _CODE_BYTES[wire_dtype], _stream(buf))
+    build.check(st, "packed_wire_mean")
+    packed_wire_mean_2d.launches += 1
+    return out
+
+
+def quant_channel_2d(x: torch.Tensor, rand: torch.Tensor, p: torch.Tensor,
+                     bits: int) -> torch.Tensor:
+    """K5. x [M, N] f32, rand [M, N] words, p [1] f32 (bit error
+    probability): one amax scale per (min(128, M) x min(512, N)) tile."""
+    M, N = x.shape
+    bm, bn = min(BLOCK_M, M), min(BLOCK_N, N)
+    if M % bm or N % bn:
+        raise ValueError(f"quant_channel_2d: {M} x {N} is not a whole "
+                         f"number of {bm} x {bn} tiles")
+    if not x.is_cuda:
+        return quant_channel_ref(x, rand, p, bits)
+    rand = words_u32(rand)
+    p = p.reshape(1).float().contiguous()
+    if x.dtype != torch.float32 or not x.is_contiguous() \
+            or rand.shape != x.shape or p.device != x.device \
+            or rand.device != x.device or not 1 <= bits <= 31:
+        raise ValueError("quant_channel_2d: x [M, N] float32, rand [M, N] "
+                         "and p [1] on one device, 1 <= bits <= 31")
+    out = torch.empty_like(x)
+    st = _lib().quant_channel(x.data_ptr(), rand.data_ptr(), p.data_ptr(),
+                              out.data_ptr(), M, N, bm, bn, bits,
+                              _stream(x))
+    build.check(st, "quant_channel")
+    quant_channel_2d.launches += 1
+    return out
+
+
+def transmit(draws, x: torch.Tensor, bits: int = 8, snr_db: float = 20.0,
+             fading: bool = True) -> torch.Tensor:
+    """Quantize+channel+dequantize `x` (any shape, float) through K5
+    with per-BLOCK scales: one Rayleigh fade ("fade", a scalar), one
+    word per padded element ("flip")."""
+    dev = x.device
+    if fading:
+        f2 = -torch.log(draws.uniform("fade", (), 1e-12, 1.0))
+    else:
+        f2 = torch.tensor(1.0)
+    p = draws.bit_error_prob(snr_db, f2).reshape(1).float().to(dev)
+    flat = x.reshape(-1).float()
+    n = flat.shape[0]
+    cols = BLOCK_N if n >= BLOCK_N else n
+    rows = -(-n // cols)
+    bm = min(BLOCK_M, rows)
+    rows_p = rows + (-rows) % bm
+    x2 = torch.zeros(rows_p * cols, dtype=torch.float32, device=dev)
+    x2[:n] = flat
+    x2 = x2.reshape(rows_p, cols)
+    rand = draws.words("flip", x2.shape)
+    y = quant_channel_2d(x2, words_u32(rand, dev), p, bits)
+    return y.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
+
+
+packed_wire_2d.launches = 0
+packed_wire_2d_philox.launches = 0
+packed_wire_mean_2d.launches = 0
+quant_channel_2d.launches = 0

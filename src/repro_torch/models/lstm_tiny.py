@@ -1,0 +1,108 @@
+"""The paper's exact 89,673-parameter sentiment model (Section III-A) —
+the port of `repro/models/lstm_tiny.py`:
+
+    Embedding(10,001 -> 8)  -> Conv1D(32 filters, k=3, valid) + ReLU
+    -> MaxPool1D(2) -> LSTM(32) -> Dense(16, ReLU, L2) -> Dense(1, sigmoid)
+
+The model is layered so the SL split point (after conv+pool, paper Sec.
+III-A2) is a first-class boundary: `user_forward` / `server_forward`.
+
+The conv is the JAX package's three shifted matmuls and the LSTM a plain
+loop over time in gate order i, f, g, o, not `nn.Conv1d`/`nn.LSTM`
+(cuDNN kernels): the hand-written ports of the conv+pool and LSTM
+kernels are later work (ROADMAP.md). Parameters are a plain tree
+(`nn.core.init_tree`). The streaming cache/decode step waits for the
+tiny serving family.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import linear, linear_specs
+from repro_torch.nn import Spec
+
+EMBED = 8
+CONV_F = 32
+CONV_K = 3
+LSTM_H = 32
+DENSE = 16
+SEQ = 30
+
+
+def model_specs(cfg=None, compress_factor: int = 0) -> dict:
+    vocab = 10_001 if cfg is None else cfg.vocab_size
+    s = {
+        "embed": Spec((vocab, EMBED), ("vocab", "embed"), init="embed",
+                      scale=0.05),
+        "conv_w": Spec((CONV_K, EMBED, CONV_F), ("conv", None, None),
+                       init="fan_in"),
+        "conv_b": Spec((CONV_F,), (None,), init="zeros"),
+        # LSTM weights: input + recurrent for 4 gates (i, f, g, o)
+        "lstm_wx": Spec((CONV_F, 4 * LSTM_H), (None, None), init="fan_in"),
+        "lstm_wh": Spec((LSTM_H, 4 * LSTM_H), (None, None), init="fan_in"),
+        "lstm_b": Spec((4 * LSTM_H,), (None,), init="lstm_forget1"),
+        "dense": linear_specs(LSTM_H, DENSE, (None, None), bias=True),
+        "out": linear_specs(DENSE, 1, (None, None), bias=True),
+    }
+    if compress_factor:
+        c = CONV_F // compress_factor
+        # identity warm start (see core/semantic.py)
+        s["sem_enc"] = {"w": Spec((CONV_F, c), (None, None), init="eye"),
+                        "b": Spec((c,), (None,), init="zeros")}
+        s["sem_dec"] = {"w": Spec((c, CONV_F), (None, None), init="eye"),
+                        "b": Spec((CONV_F,), (None,), init="zeros")}
+    return s
+
+
+# ------------------------------------------------- user side (split point)
+def user_forward(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding -> Conv1D(valid) + ReLU -> MaxPool(2). The paper's
+    user-side partition. Returns smashed data [B, T', CONV_F]."""
+    x = params["embed"][tokens.long()]                       # [B,S,8]
+    w, b = params["conv_w"], params["conv_b"]
+    S = tokens.shape[1]
+    out = x[:, 0:S - CONV_K + 1] @ w[0]
+    for i in range(1, CONV_K):
+        out = out + x[:, i:S - CONV_K + 1 + i] @ w[i]
+    out = torch.relu(out + b)                                 # [B,S-2,32]
+    T = out.shape[1] - out.shape[1] % 2
+    return out[:, :T].reshape(out.shape[0], T // 2, 2, CONV_F).amax(dim=2)
+
+
+def lstm_scan(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [B,T,F] -> final hidden state [B,H]: the fused-gate cell, one
+    step per time index."""
+    B = x.shape[0]
+    h = torch.zeros((B, LSTM_H), dtype=x.dtype, device=x.device)
+    c = h
+    for t in range(x.shape[1]):
+        gates = x[:, t] @ params["lstm_wx"] + h @ params["lstm_wh"] \
+            + params["lstm_b"]
+        i, f, g, o = torch.split(gates, LSTM_H, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+    return h
+
+
+def server_forward(params: dict, smashed: torch.Tensor) -> torch.Tensor:
+    """LSTM -> Dense(16, ReLU) -> Dense(1). Returns logits [B, 1]."""
+    h = lstm_scan(params, smashed)
+    h = torch.relu(linear(params["dense"], h))
+    return linear(params["out"], h)
+
+
+def forward(params: dict, batch: dict, cfg=None, window: int = 0):
+    logits = server_forward(params, user_forward(params, batch["tokens"]))
+    return logits, {"aux_loss": torch.zeros((), device=logits.device)}
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy on sigmoid logits."""
+    z = logits[:, 0].float()
+    y = labels.float()
+    return torch.mean(torch.clamp(z, min=0) - z * y
+                      + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return ((logits[:, 0] > 0).to(labels.dtype) == labels).float().mean()

@@ -1,5 +1,7 @@
 from repro_torch.nn.core import (ParamDict, Spec, count_params, init_params,
-                                 params_from_jax, resolve_device)
+                                 init_tree, params_from_jax, resolve_device,
+                                 tree_leaves, tree_map, tree_unflatten)
 
-__all__ = ["ParamDict", "Spec", "count_params", "init_params",
-           "params_from_jax", "resolve_device"]
+__all__ = ["ParamDict", "Spec", "count_params", "init_params", "init_tree",
+           "params_from_jax", "resolve_device", "tree_leaves", "tree_map",
+           "tree_unflatten"]

@@ -7,6 +7,14 @@ submodules, list nodes ``nn.ModuleList``s and Spec leaves registered
 ``nn.Parameter``s, so ``.to(device)`` moves the whole model. Layer code
 reads it like the JAX pytree (``p["wq"]["w"]``, ``"b" in p``).
 
+Training takes a plain tree instead (``init_tree``): nested dicts of
+tensors, flattened in sorted-key order as JAX flattens a dict pytree
+(``tree_leaves``/``tree_map``/``tree_unflatten``), so the packed wire
+lays leaves out, and draws their fades, in the JAX package's order.
+Its leaves are ordinary tensors; a train step differentiates detached
+copies (runtime/train_step.py), so the tree is trainable without being
+a module.
+
 Initialisation draws from the caller's seeded ``torch.Generator``; it
 is not JAX's init bitwise. ``params_from_jax`` loads the JAX package's
 parameters (as numpy arrays) instead, which the parity tests use.
@@ -62,6 +70,16 @@ def _init_leaf(spec: Spec, generator: torch.Generator,
         lim = spec.scale
         return (torch.rand(spec.shape, generator=generator, **kw)
                 * (2 * lim) - lim)
+    if spec.init == "eye":
+        # (truncated) identity — the semantic codec's warm start
+        return spec.scale * torch.eye(*spec.shape, **kw)
+    if spec.init == "lstm_forget1":
+        # Keras unit_forget_bias: zeros except the forget-gate quarter
+        # (gate order i, f, g, o), which is 1.0
+        b = torch.zeros(spec.shape, **kw)
+        h = spec.shape[-1] // 4
+        b[..., h:2 * h] = 1.0
+        return b
     if spec.init == "fan_in":
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[0], 1)
         if len(spec.shape) >= 3:
@@ -104,12 +122,16 @@ def init_params(specs: dict, generator: torch.Generator,
     return ParamDict(specs, lambda s: _init_leaf(s, generator, dev))
 
 
-def params_from_jax(np_tree: dict, cfg, device="cuda") -> ParamDict:
-    """The JAX package's transformer params, given as numpy arrays
-    (stacked ``[L, ...]`` layer leaves, ``embed.table``, ``ln_f``), as
-    the port's `ParamDict`: the stacked layers become a list of
-    per-layer subtrees."""
+def params_from_jax(np_tree: dict, cfg, device="cuda"):
+    """The JAX package's params, given as numpy arrays. Transformer
+    params (stacked ``[L, ...]`` layer leaves, ``embed.table``,
+    ``ln_f``) become the port's `ParamDict` with the stacked layers as
+    a list of per-layer subtrees; the tiny family's become a trainable
+    tree (``init_tree``'s layout)."""
     dev = resolve_device(device)
+    if cfg.family == "tiny":
+        return tree_map(lambda a: torch.from_numpy(
+            np.array(a, dtype=np.float32, copy=True)).to(dev), np_tree)
 
     def unstack(t, l):
         return {k: unstack(v, l) if isinstance(v, dict) else v[l]
@@ -122,5 +144,46 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> ParamDict:
         np.array(a, copy=True)).to(dev))
 
 
-def count_params(params: nn.Module) -> int:
-    return int(sum(p.numel() for p in params.parameters()))
+# --------------------------------------------------------- plain trees
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict in sorted-key order (JAX's dict-pytree
+    order); an empty dict has none."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like `like` holding `leaves` (tree_leaves order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over corresponding leaves of trees of the same structure."""
+    leaves = [fn(*xs) for xs in zip(tree_leaves(tree),
+                                    *map(tree_leaves, rest))]
+    return tree_unflatten(tree, leaves)
+
+
+def init_tree(specs: dict, generator: torch.Generator,
+              device="cuda") -> dict:
+    """Materialise a Spec tree as a trainable plain tree on `device`,
+    drawing every random leaf from `generator` in sorted-key order on
+    the generator's own device (a CPU generator gives the same weights
+    whatever `device` is)."""
+    dev = resolve_device(device)
+    return tree_map(lambda s: _init_leaf(s, generator,
+                                         generator.device).to(dev), specs)
+
+
+def count_params(params) -> int:
+    """Parameter count of a `ParamDict`, a plain tree or a Spec tree."""
+    if isinstance(params, nn.Module):
+        return int(sum(p.numel() for p in params.parameters()))
+    return int(sum(math.prod(x.shape) for x in tree_leaves(params)))

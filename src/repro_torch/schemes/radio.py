@@ -1,11 +1,11 @@
 """`Radio` — the one owner of the channel knobs, and `Delivery`, what a
-send returns: the port of `repro/schemes/radio.py`, token path only
-(`send_tree` / `send_stacked` / `bill_counts` come with the wire slice).
+send returns: the port of `repro/schemes/radio.py`.
 
 Bills are host-side float64 arithmetic in the JAX package's order, so
 the same drawn fades give the same `Delivery` bit for bit. Random
 numbers come from the caller's `Draws` (core/draws.py) in place of a
-JAX key.
+JAX key. `send_tree`/`send_stacked` go through the packed wire, which
+launches the quant_channel kernel on the card (core/wire.py).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.core import channel as CH
 from repro_torch.core import energy as EN
 from repro_torch.core import wire as W
 from repro_torch.core.centralized import token_bits
+from repro_torch.nn.core import tree_leaves
 
 
 @functools.lru_cache(maxsize=64)
@@ -88,6 +89,29 @@ class Radio:
                        rounding=str(wcfg.rounding))
         return dataclasses.replace(base, **overrides) if overrides else base
 
+    # ----------------------------------------------------------- account
+    def expected_tx(self) -> float:
+        """Analytic expected transmissions per packet under outage-ARQ
+        (bounded ARQ: the cap replaces `arq_attempts`; Gilbert-Elliott
+        mixes the two link states)."""
+        a = self.arq_max_tx if self.arq_max_tx > 0 else self.arq_attempts
+        base = W.expected_arq_tx(a, self.arq_min_f2, self.fading,
+                                 self.perfect)
+        if self.ge_p_gb > 0.0 and not self.perfect:
+            pi_bad = self.ge_p_gb / (self.ge_p_gb + self.ge_p_bg)
+            return pi_bad * float(a) + (1.0 - pi_bad) * base
+        return base
+
+    def wire_width(self) -> int:
+        """Billed on-air bits per codeword (wire.wire_width)."""
+        return W.wire_width(self.wire_dtype, self.quant_bits)
+
+    def payload_bits(self, tree) -> float:
+        """Analytic one-transmission payload of `tree` at this radio's
+        quantization, billed at the wire container width."""
+        return W.payload_bits(tree, self.quant_bits,
+                              wire_dtype=self.wire_dtype)
+
     def rate_bps(self) -> float:
         """Expected link rate E_f[C] in bits/s (cached per link budget)."""
         return _expected_capacity(self.bandwidth_hz, self.snr_db,
@@ -96,6 +120,72 @@ class Radio:
     def energy_j(self, bits: float) -> float:
         """Comm energy of `bits` on this link: bits * P / E[C]."""
         return float(bits) * self.tx_power_w / self.rate_bps()
+
+    def bill_counts(self, n_tx, sizes, erased=None) -> Delivery:
+        """`Delivery` reduction without a payload: bill a (stacked) send
+        from its drawn per-(user, packet) transmission counts and
+        erasure mask, exactly as `send_stacked` bills its own."""
+        return self._deliver(None, n_tx, sizes, erased)
+
+    def _impl(self) -> str:
+        return "kernel" if (self.use_kernel and not self.perfect) \
+            else "packed"
+
+    def _deliver(self, payload, n_tx, sizes, erased=None) -> Delivery:
+        n_tx = np.asarray(n_tx, np.float64)
+        sizes = np.asarray(sizes, np.float64)
+        width = float(self.wire_width())
+        bits = width * float((sizes * n_tx).sum())
+        user_bits = user_n_tx = user_erased = None
+        if n_tx.ndim == 2:      # stacked send: keep the per-user split
+            user_bits = tuple(float(b) for b in
+                              width * (sizes * n_tx).sum(axis=1))
+            user_n_tx = tuple(float(t) for t in n_tx.sum(axis=1))
+        erased_bits = 0.0
+        user_erased_bits = None
+        if erased is not None and self.arq_max_tx > 0:
+            e = np.asarray(erased, bool)
+            erased_bits = width * float((sizes * n_tx * e).sum())
+            if n_tx.ndim == 2:
+                user_erased = tuple(bool(x) for x in e.any(axis=1))
+                user_erased_bits = tuple(
+                    float(b) for b in
+                    width * (sizes * n_tx * e).sum(axis=1))
+        outage_s = W.backoff_s(n_tx, self.arq_backoff_s)
+        return Delivery(payload, bits, self.energy_j(bits),
+                        float(n_tx.sum()), user_bits, user_n_tx,
+                        erased_bits, float(outage_s), user_erased,
+                        user_erased_bits)
+
+    # -------------------------------------------------------------- send
+    def _link(self) -> dict:
+        return dict(fading=self.fading, perfect=self.perfect,
+                    arq_attempts=self.arq_attempts,
+                    arq_min_f2=self.arq_min_f2, impl=self._impl(),
+                    return_diag=True, wire_dtype=self.wire_dtype,
+                    arq_max_tx=self.arq_max_tx, ge_p_gb=self.ge_p_gb,
+                    ge_p_bg=self.ge_p_bg, rounding=self.rounding)
+
+    def send_tree(self, draws, tree) -> Delivery:
+        """Transmit every leaf of a tree (one packet per tensor) through
+        the packed wire. SL legs, single-user weight uploads."""
+        payload, diag = W.transmit_tree(draws, tree, self.quant_bits,
+                                        self.snr_db, **self._link())
+        sizes = [int(l.numel()) for l in tree_leaves(tree)]
+        return self._deliver(payload, diag["n_tx"].numpy(), sizes,
+                             diag["erased"].numpy())
+
+    def send_stacked(self, draws, tree) -> Delivery:
+        """Transmit a tree whose leaves carry a leading user axis
+        [N, ...] — FL's whole N-user upload in one pass, one packet
+        (fade + scale) per (user, tensor). The payload keeps the user
+        axis; aggregation is the scheme's job."""
+        leaves = tree_leaves(tree)
+        payload, diag = W.transmit_stacked(draws, tree, self.quant_bits,
+                                           self.snr_db, **self._link())
+        sizes = [int(l.numel()) // int(l.shape[0]) for l in leaves]
+        return self._deliver(payload, diag["n_tx"].numpy(), sizes,
+                             diag["erased"].numpy())
 
     # the JAX package's disjoint key fold for the per-row token ARQ draw
     # (its draws are the "arq"/"ge_*" names of the same `Draws` here)

@@ -125,3 +125,141 @@ def test_engine_paged_equals_dense_on_card(cuda_device):
     rows = [[(r.rid, r.tokens, r.bits, r.energy_j, r.n_tx)
              for r in rep.results] for rep in reps.values()]
     assert rows[0] == rows[1]
+
+
+# ------------------------------------------------ the packed wire (K1-K6)
+def _wire_case(rows, bits, seed, dev, n_users=1):
+    from repro_torch.kernels.quant_channel import ops as qc
+    rng = np.random.default_rng(seed)
+    buf = (rng.standard_normal((rows, 256))
+           * rng.uniform(0.01, 3.0, (rows, 1))).astype(np.float32)
+    rand = torch.from_numpy(rng.integers(0, 2 ** 32, (rows, 256),
+                                         dtype=np.int64))
+    amax = torch.from_numpy(np.abs(buf).max(axis=1, keepdims=True))
+    from repro_torch.core import quantization as Q
+    scale = Q.scale_from_amax(amax, bits)
+    p = torch.from_numpy(rng.uniform(0, 0.2, (rows, 1)).astype(np.float32))
+    t = dict(buf=torch.from_numpy(buf), rand=rand, scale=scale, p=p)
+    return {k: v.to(dev) for k, v in t.items()}, qc
+
+
+@pytest.mark.parametrize("wire_dtype,bits", [("float32", 8),
+                                             ("float32", 16),
+                                             ("int8", 8), ("int4", 4)])
+@pytest.mark.parametrize("rows", [224, 1080])
+def test_packed_wire_kernel_equals_plain(wire_dtype, bits, rows,
+                                         cuda_device):
+    """K1 in each code width at the SL leg and FL upload shapes:
+    bit-exact against its plain version on the same device."""
+    from repro_torch.kernels.quant_channel import ref as qref
+    t, qc = _wire_case(rows, bits, rows + bits, cuda_device)
+    got = qc.packed_wire_2d(t["buf"], t["rand"], t["scale"], t["p"], bits,
+                            wire_dtype=wire_dtype)
+    want = qref.packed_wire_ref(t["buf"], t["rand"], t["scale"], t["p"],
+                                bits, wire_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not torch.equal(got, t["buf"])
+
+
+def test_packed_wire_mean_kernel_equals_plain(cuda_device):
+    """K2 at the FL upload's [3 x 360, 256], one user weighted out."""
+    from repro_torch.kernels.quant_channel import ref as qref
+    t, qc = _wire_case(1080, 8, 5, cuda_device)
+    w = torch.tensor([0.5, 0.0, 0.5], device=cuda_device) \
+        .repeat_interleave(360)[:, None].contiguous()
+    got = qc.packed_wire_mean_2d(t["buf"], t["rand"], t["scale"], t["p"], w,
+                                 8, 3)
+    want = qref.packed_wire_mean_ref(t["buf"], t["rand"], t["scale"],
+                                     t["p"], w, 8, 3)
+    assert torch.equal(got, want)
+
+
+def test_quant_channel_kernel_equals_plain(cuda_device):
+    """K5 through `ops.transmit` of an 89,673-element vector."""
+    from repro_torch.core.draws import Key
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.kernels.quant_channel import ref as qref
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (256, 512)).astype(np.float32)).to(cuda_device)
+    rand = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 2 ** 32, (256, 512), dtype=np.int64)).to(cuda_device)
+    p = torch.tensor([0.04], device=cuda_device)
+    assert torch.equal(qc.quant_channel_2d(x, rand, p, 8),
+                       qref.quant_channel_ref(x, rand, p, 8))
+    v = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        89_673).astype(np.float32))
+    on_card = qc.transmit(Key(1).draws(), v.to(cuda_device), 8, 10.0)
+    on_cpu = qc.transmit(Key(1).draws(), v, 8, 10.0)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def test_kernel_rng_flip_share(cuda_device):
+    """K6: with x = 0 and p = 0.05 at Q8, the share of changed outputs is
+    1 - (1 - p)^8 within 0.02; it equals its plain Philox version and
+    differs from the host-word stream."""
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.kernels.quant_channel import ref as qref
+    rows = 1080
+    buf = torch.zeros((rows, 256), device=cuda_device)
+    scale = torch.ones((rows, 1), device=cuda_device)
+    p = torch.full((rows, 1), 0.05, device=cuda_device)
+    got = qc.packed_wire_2d_philox(buf, scale, p, 8, seed=1234)
+    share = float((got != 0).float().mean())
+    assert abs(share - (1 - 0.95 ** 8)) < 0.02
+    assert torch.equal(got, qref.packed_wire_philox_ref(buf, scale, p, 8,
+                                                        1234))
+    rand = torch.randint(0, 2 ** 32, (rows, 256), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(0))
+    host = qc.packed_wire_2d(buf, rand.to(cuda_device), scale, p, 8)
+    assert not torch.equal(got, host)
+
+
+def test_fl_cycle_bills_on_card_equal_cpu(cuda_device):
+    """One FL cycle (reduced corpus) on the card and on the CPU: the same
+    draw stream gives identical bills, one K1 launch for the sync, and
+    nearly the same weights: sums in another order move a weight by
+    ulps, which can move a few synced weights across a quantization
+    rounding boundary (one level); all others agree within 1e-4."""
+    from repro_torch.configs import WirelessConfig
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.schemes import Experiment, build_scheme
+    runs = {}
+    for dev in (cuda_device, "cpu"):
+        qc.packed_wire_2d.launches = 0
+        scheme = build_scheme(WirelessConfig(mode="fl", quant_bits=8),
+                              device=dev)
+        exp = Experiment(scheme, cycles=1, seed=0, n_train=1536,
+                         n_test=256)
+        res = exp.run()
+        runs[str(dev)] = (exp, res, qc.packed_wire_2d.launches)
+    (ec, rc, lc), (eh, rh, lh) = runs["cuda"], runs["cpu"]
+    assert lc == 1 and lh == 0
+    assert rc.total_bits == rh.total_bits == 717_384.0
+    assert [r.n_tx for r in ec.reports] == [r.n_tx for r in eh.reports]
+    wc = ec.final_state.train.trainable["model"]
+    wh = eh.final_state.train.trainable["model"]
+    from repro_torch.nn import tree_leaves
+    far = sum(int(((a.cpu() - b).abs() > 1e-4).sum())
+              for a, b in zip(tree_leaves(wc), tree_leaves(wh)))
+    assert far <= 16
+
+
+def test_wire_routes_to_kernel_rng_behind_its_flag(cuda_device,
+                                                   monkeypatch):
+    """With `DEVICE_KERNEL_RNG` on, a send on the card launches K6 (and
+    not K1) and draws no host words; the bill is unchanged."""
+    from repro_torch.core import wire as W
+    from repro_torch.core.draws import Key
+    from repro_torch.kernels.quant_channel import ops as qc
+    x = torch.randn((512, 14, 8), generator=torch.Generator().manual_seed(0))
+    k1, k6 = qc.packed_wire_2d.launches, qc.packed_wire_2d_philox.launches
+    off, d_off = W.transmit_tree(Key(4).draws(), x.to(cuda_device), 8, 10.0,
+                                 return_diag=True)
+    monkeypatch.setattr(qc, "DEVICE_KERNEL_RNG", True)
+    on, d_on = W.transmit_tree(Key(4).draws(), x.to(cuda_device), 8, 10.0,
+                               return_diag=True)
+    assert qc.packed_wire_2d.launches == k1 + 1
+    assert qc.packed_wire_2d_philox.launches == k6 + 1
+    assert torch.equal(d_on["n_tx"], d_off["n_tx"])
+    assert torch.isfinite(on).all() and not torch.equal(on, off)
