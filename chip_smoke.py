@@ -42,7 +42,8 @@ Run from the root of a checkout, on a machine with a CUDA card. It
 5. trains the paper's 89,673-parameter model at full size (24,576 /
    2,560 rows, batch 512): FL (Q8, 20 dB, 3 users, J 5) for 2 cycles,
    fused SL (Q8, 20 dB, compress 4) for 1 cycle, CL for 1 cycle, with
-   the launch counters set to 0 before and read after. It checks that
+   the launch counters set to 0 before and read after (FL records the
+   privacy capture, which phase 7 reads). It checks that
    FL bills exactly 8 x 89,673 = 717,384 bits per user per cycle, that
    K1 launched once per FL cycle and twice per SL training step (the SL
    eval's crossings counted apart), that the same runs on the CPU (the
@@ -55,9 +56,32 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    on the CPU with 1, 2, 4 and the default number of threads, and the
    card must lie within 0.01 in accuracy, 2e-3 in test-set loss and 16
    synced weights more than 1e-4 apart of the nearest of those runs
-   (the CPU runs' own spread printed beside it). It traces one FL cycle
-   for the device idle share;
-6. prints one JSON line of the kernels' numbers, the card's name and
+   (the CPU runs' own spread printed beside it). It checks that every
+   eval (one slice of 2,048 test rows) launched K3 and K4 once each and
+   that no training round launched either. It traces one FL cycle for
+   the device idle share;
+6. holds the tiny model's kernels against their plain versions on the
+   card within 2e-5 abs + rel (the JAX suite's tolerance): K3
+   `user_conv_pool` at the eval slice [2048, 30, 8], a batch [512, 30,
+   8] and ragged B 1 and 7 and T 29; K4 `lstm_final_state` at [2048, 14,
+   128], [512, 14, 128], B 1 and 7, T 1 and 30, H 8. It times both at the
+   eval slice beside their bounds and plain versions, and the library's
+   nearest calls: conv1d -> relu -> max_pool1d (three calls) for K3, one
+   cuDNN `nn.LSTM` call (input product included, against `lstm_layer`)
+   for K4;
+7. drives the privacy study and two-party SL at full size, counters set
+   to 0 before and read after: two-party SL (Q8, 20 dB, compress 4),
+   fused SL (Q16, 20 dB, compress 4, capture every 8 steps) and CL over a
+   20 dB link, one cycle each, with capture. It checks the launches per
+   round and eval (K3 once per two-party uplink and per capture step, K3
+   and K4 once per eval slice, neither under autograd), the two-party
+   bills against the same run on the CPU bit for bit and its loss and
+   accuracy within phase 5's gates, and the captures' shapes; then it
+   computes benchmarks/table2.py's reconstruction errors (CL direct read,
+   FL per-sample protocol from phase 5's FL captures, SL 600 adversary
+   steps, also on the CPU from the same draws: within 5 % relative) and
+   requires err_SL > err_CL; it prints the Table II rows;
+8. prints one JSON line of the kernels' numbers, the card's name and
    power limit, and as the last line {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
@@ -514,6 +538,168 @@ def check_wire_kernels(seed: int) -> tuple:
     return rows, failures
 
 
+# ------------------------------------------- the tiny model's K3 and K4
+CP_SRC = "src/repro_torch/kernels/conv_pool/csrc/conv_pool.cu"
+LC_SRC = "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu"
+# the JAX suite's tolerance for both kernels (tests/test_kernels.py:124,
+# :200), abs and rel: float32 products summed in another order
+TINY_TOL = 2e-5
+# (B, T, E, K, F): the SL eval slice and a training batch through the
+# paper's conv (E 8, K 3, F 32), then ragged batches and an odd T
+K3_CASES = [(2048, 30, 8, 3, 32), (512, 30, 8, 3, 32), (1, 30, 8, 3, 32),
+            (7, 30, 8, 3, 32), (7, 29, 8, 3, 32)]
+# (B, T, H): the eval slice and a training batch through the paper's LSTM
+# (T 14 pooled positions, H 32), then ragged batches, T 1 and 30, H 8
+K4_CASES = [(2048, 14, 32), (512, 14, 32), (1, 14, 32), (7, 14, 32),
+            (7, 1, 32), (7, 30, 32), (7, 14, 8)]
+# operations per LSTM (row, step, unit) besides the 8H of the recurrent
+# dot: 4 adds of xw, 3 sigmoids (negate, exp, add, divide), 2 tanh, and
+# the 4 products and sums of the c and h updates
+LSTM_GATE_OPS = 4 + 3 * 4 + 2 + 4
+
+
+def _tiny_close(tag: str, got, want, failures: list) -> float:
+    """max |got - want|; a failure unless every element lies within
+    TINY_TOL + TINY_TOL * |want| and all are finite."""
+    import torch
+    d = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and \
+        bool((d <= TINY_TOL + TINY_TOL * want.abs()).all())
+    err = float(d.max()) if d.numel() else 0.0
+    print(f"  check {tag}: max_abs_err {err:.3e} (tol {TINY_TOL:g} abs + "
+          f"rel) {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        failures.append(tag)
+    return err
+
+
+def check_tiny_kernels(seed: int) -> tuple:
+    """K3 and K4 against their plain versions on the card at the path's
+    shapes and ragged ones, within TINY_TOL; times at the eval slice
+    beside the bound, the plain version and the library's calls.
+    Returns (rows for the JSON line, summary, failures)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.conv_pool import ref as cref
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.kernels.lstm_cell import ref as lref
+    rng = np.random.default_rng(seed + 2)
+    dev = torch.device("cuda")
+    failures, summary = [], {}
+
+    def randn(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    def copies_of(args):
+        per = sum(a.numel() * a.element_size() for a in args)
+        n = max(2, math.ceil(2 * L2_BYTES / per))
+        return [tuple(a.clone() for a in args) for _ in range(n)]
+
+    # K3: inputs at the embedding's scale, taps at the fan-in init's
+    err3, row3 = 0.0, None
+    for B, T, E, K, Fo in K3_CASES:
+        x = randn((B, T, E), 0.05)
+        w = randn((K, E, Fo), 1.0 / math.sqrt(E))
+        b = randn((Fo,), 0.01)
+        got = cp.user_conv_pool(x, w, b)
+        err3 = max(err3, _tiny_close(
+            f"user_conv_pool [{B}, {T}, {E}] x [{K}, {E}, {Fo}]", got,
+            cref.conv_pool_ref(x, w, b), failures))
+        if row3 is None:            # the eval slice: timed
+            t_out, P = T - K + 1, (T - K + 1) // 2
+            cps = copies_of((x, w, b))
+            row3 = dict(ms=device_ms(cp.user_conv_pool, cps),
+                        plain_ms=device_ms(cref.conv_pool_ref, cps),
+                        library_ms=None)
+            row3["bound_ms"], row3["bound_by"] = bound_ms(
+                4 * (x.numel() + w.numel() + b.numel() + B * P * Fo),
+                B * t_out * Fo * (2 * K * E + 2) + B * P * Fo,
+                torch.float32)
+            # the library's nearest: three calls in its own [B, C, T]
+            # layout (inputs transposed outside the timing)
+            wt = w.permute(2, 1, 0).contiguous()
+            tri = [(c[0].transpose(1, 2).contiguous(),) for c in cps]
+
+            def triple(xt):
+                return F.max_pool1d(torch.relu(F.conv1d(xt, wt, b)), 2)
+            tri_err = float((triple(tri[0][0]).transpose(1, 2)
+                             - cp.user_conv_pool(*cps[0])).abs().max())
+            summary["conv_pool_triple"] = dict(
+                ms=device_ms(triple, tri), max_abs_err=tri_err)
+            del cps, tri
+    print(f"  time  user_conv_pool [2048, 30, 8]: kernel {row3['ms']:.5f} "
+          f"ms, plain {row3['plain_ms']:.5f} ms, bound "
+          f"{row3['bound_ms']:.5f} ms ({row3['bound_by']}); no single "
+          f"PyTorch call computes conv + ReLU + pool: conv1d -> relu -> "
+          f"max_pool1d (three calls) {summary['conv_pool_triple']['ms']:.5f}"
+          f" ms (max_abs_err "
+          f"{summary['conv_pool_triple']['max_abs_err']:.2e})", flush=True)
+
+    # K4: gate inputs of unit scale, Wh at the fan-in init's
+    err4, row4 = 0.0, None
+    for B, T, H in K4_CASES:
+        xw = randn((B, T, 4 * H))
+        wh = randn((H, 4 * H), 1.0 / math.sqrt(H))
+        h, c = lc.lstm_final_state(xw, wh)
+        hr, cr = lref.lstm_final_state_ref(xw, wh)
+        tag = f"lstm_final_state [{B}, {T}, {4 * H}]"
+        err4 = max(err4, _tiny_close(tag + " h", h, hr, failures),
+                   _tiny_close(tag + " c", c, cr, failures))
+        if row4 is None:
+            cps = copies_of((xw, wh))
+            row4 = dict(ms=device_ms(lc.lstm_final_state, cps),
+                        plain_ms=device_ms(lref.lstm_final_state_ref, cps))
+            row4["bound_ms"], row4["bound_by"] = bound_ms(
+                4 * (xw.numel() + wh.numel() + 2 * B * H),
+                B * T * H * (8 * H + LSTM_GATE_OPS), torch.float32)
+            del cps
+            # the layer: x @ Wx + b, then the recurrence, against one
+            # cuDNN LSTM call (TF32 off) on the same weights
+            Fi = 32
+            x = randn((B, T, Fi))
+            wx = randn((Fi, 4 * H), 1.0 / math.sqrt(Fi))
+            bb = randn((4 * H,), 0.1)
+            lstm = torch.nn.LSTM(Fi, H, batch_first=True).to(dev).eval()
+            with torch.no_grad():
+                lstm.weight_ih_l0.copy_(wx.T)
+                lstm.weight_hh_l0.copy_(wh.T)
+                lstm.bias_ih_l0.copy_(bb)
+                lstm.bias_hh_l0.zero_()
+            lstm.flatten_parameters()
+
+            def cudnn(x):
+                with torch.no_grad():
+                    return lstm(x)[1][0][0]
+            cps = copies_of((x,))
+            layer_ms = device_ms(lambda x: lc.lstm_layer(x, wx, wh, bb), cps)
+            lib_ms = device_ms(cudnn, cps)
+            lib_err = float((cudnn(x) - lc.lstm_layer(x, wx, wh, bb))
+                            .abs().max())
+            row4["library_ms"] = lib_ms
+            summary["lstm_layer"] = dict(ms=layer_ms, cudnn_ms=lib_ms,
+                                         cudnn_max_abs_err=lib_err)
+            del cps
+    print(f"  time  lstm_final_state [2048, 14, 128]: kernel "
+          f"{row4['ms']:.5f} ms, plain {row4['plain_ms']:.5f} ms, bound "
+          f"{row4['bound_ms']:.5f} ms ({row4['bound_by']}); the layer "
+          f"(x @ Wx + b, then K4) {summary['lstm_layer']['ms']:.5f} ms vs "
+          f"one cuDNN nn.LSTM call {row4['library_ms']:.5f} ms "
+          f"(max_abs_err "
+          f"{summary['lstm_layer']['cudnn_max_abs_err']:.2e})", flush=True)
+    torch.cuda.empty_cache()
+    kdir = "src/repro/kernels"
+    rows = [dict(name="conv_pool", route="cuda", source=CP_SRC,
+                 replaces=f"{kdir}/conv_pool/kernel.py:43", launches=None,
+                 max_abs_err=err3, **row3),
+            dict(name="lstm_final_state", route="cuda", source=LC_SRC,
+                 replaces=f"{kdir}/lstm_cell/kernel.py:43", launches=None,
+                 max_abs_err=err4, **row4)]
+    return rows, summary, failures
+
+
 # -------------------------------------------------------- the main path
 def serve_phase(seed: int) -> tuple:
     """Serve qwen1.5-0.5b at full width, paged then dense. Returns
@@ -675,35 +861,83 @@ def _wire_counters():
             "packed_wire_2d_philox": qc.packed_wire_2d_philox}
 
 
-def _train_run(mode: str, cycles: int, device: str, seed: int) -> dict:
-    """One scheme through `Experiment` at the paper's full size; counts
-    K1 launches inside each round and inside each eval apart, times each
-    cycle (round + eval) on the host clock, and scores the model's
-    test-set loss after each cycle (CL, FL). FL keeps each cycle's
-    upload (draw path, sent weights, delivered weights, on the host)
-    and synced model."""
-    import torch
+def _runs() -> dict:
+    """name -> (WirelessConfig, scheme options) of every training run: FL,
+    fused SL and CL at phase 5's settings (FL recording the privacy
+    capture), and the privacy phase's two-party SL, fused SL at Q16 with
+    capture, and CL over a 20 dB link with capture (benchmarks/table2.py's
+    settings for the last two)."""
     from repro_torch.configs import WirelessConfig
+    sl8 = WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
+                         compress_factor=4)
+    return {
+        "fl": (WirelessConfig(mode="fl", quant_bits=8, snr_db=20.0,
+                              n_users=3, local_steps=5), dict(capture=True)),
+        "sl": (sl8, {}),
+        "cl": (None, {}),
+        "sl_two_party": (sl8, dict(protocol="two_party", capture=True)),
+        "sl_q16_capture": (WirelessConfig(mode="sl", quant_bits=16,
+                                          snr_db=20.0, compress_factor=4),
+                           dict(capture=True, capture_every=8)),
+        "cl_20db_capture": (WirelessConfig(mode="cl", snr_db=20.0),
+                            dict(capture=True)),
+    }
+
+
+def _tiny_counts() -> tuple:
+    """The launch counters of K1, K3 and K4."""
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
     from repro_torch.kernels.quant_channel import ops as qc
+    return (qc.packed_wire_2d.launches, cp.user_conv_pool.launches,
+            lc.lstm_final_state.launches)
+
+
+def two_party_scores(sess) -> tuple:
+    """(accuracy, loss) of a two-party session on the test set, through
+    `SLSession.predict` on the eval keys (the scheme's convention)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.draws import Key
+    from repro_torch.models import lstm_tiny as LT
+    from repro_torch.schemes.base import corpus
+    from repro_torch.schemes.split import EVAL_KEY
+    xte, yte = corpus()[1]
+    dev = sess.user_params["embed"].device
+    accs, losses = [], []
+    for i in range(0, max(len(xte) - 2048 + 1, 1), 2048):
+        logits = sess.predict(torch.from_numpy(xte[i:i + 2048]).to(dev),
+                              Key(EVAL_KEY + i))
+        y = torch.from_numpy(yte[i:i + 2048]).to(dev)
+        accs.append(float(LT.accuracy(logits, y)))
+        losses.append(float(LT.bce_loss(logits, y)))
+    return float(np.mean(accs)), float(np.mean(losses))
+
+
+def _train_run(name: str, cycles: int, device: str, seed: int) -> dict:
+    """One scheme of `_runs()` through `Experiment` at the paper's full
+    size; counts K1, K3 and K4 launches inside each round and inside each
+    eval apart, times each cycle (round + eval) on the host clock, and
+    scores the model's test-set loss after each cycle (CL, FL, two-party
+    SL). FL keeps each cycle's upload (draw path, sent weights, delivered
+    weights, on the host) and synced model."""
+    import torch
     from repro_torch.nn import tree_map
     from repro_torch.schemes import Experiment, build_scheme
     from repro_torch.schemes.base import corpus, evaluate
-    wcfg = {"fl": WirelessConfig(mode="fl", quant_bits=8, snr_db=20.0,
-                                 n_users=3, local_steps=5),
-            "sl": WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
-                                 compress_factor=4),
-            "cl": None}[mode]
-    scheme = build_scheme(wcfg, device=device)
+    wcfg, opts = _runs()[name]
+    mode = "cl" if wcfg is None else wcfg.mode
+    scheme = build_scheme(wcfg, device=device, **opts)
     rounds, evals, walls = [], [], []
     orig_round, orig_eval = scheme.round, scheme.evaluate
 
     def counted(fn, out):
         def run(*a):
-            n0 = qc.packed_wire_2d.launches
+            n0 = _tiny_counts()
             r = fn(*a)
             if device == "cuda":
                 torch.cuda.synchronize()
-            out.append(qc.packed_wire_2d.launches - n0)
+            out.append(tuple(b - a for a, b in zip(n0, _tiny_counts())))
             return r
         return run
 
@@ -726,7 +960,9 @@ def _train_run(mode: str, cycles: int, device: str, seed: int) -> dict:
 
     def on_cycle(cyc, acc, rep):
         walls.append(time.perf_counter() - t[0])
-        if mode != "sl":          # SL's deployed function is scored apart
+        if name == "sl_two_party":
+            test_losses.append(two_party_scores(exp.final_state.train)[1])
+        elif mode != "sl":        # fused SL's deployed function: apart
             params = exp.final_state.train.trainable["model"]
             if mode == "fl":
                 params = tree_map(lambda p: p[0], params)
@@ -736,8 +972,11 @@ def _train_run(mode: str, cycles: int, device: str, seed: int) -> dict:
 
     exp = Experiment(scheme, cycles=cycles, seed=seed, on_cycle=on_cycle)
     res = exp.run()
-    return dict(mode=mode, device=device, wcfg=wcfg, exp=exp, res=res,
-                round_launches=rounds, eval_launches=evals, walls=walls,
+    return dict(mode=mode, name=name, device=device, wcfg=wcfg, exp=exp,
+                res=res, round_launches=[r[0] for r in rounds],
+                eval_launches=[e[0] for e in evals],
+                round_k34=[r[1:] for r in rounds],
+                eval_k34=[e[1:] for e in evals], walls=walls,
                 test_losses=test_losses, uploads=uploads, synced=synced)
 
 
@@ -797,8 +1036,8 @@ def fl_cpu_runs(seed: int, threads) -> dict:
 def train_phase(seed: int) -> tuple:
     """FL 2 cycles, SL 1, CL 1 on the card (the main path: counters set to
     0 before, read after), the same runs for one cycle on the CPU, and one
-    traced FL cycle. Returns ({kernel name: launches}, summary,
-    failures)."""
+    traced FL cycle. Returns ({kernel name: launches}, summary, failures,
+    the card's FL run)."""
     from repro_torch.schemes.base import BATCH, N_TRAIN
     counters = _wire_counters()
     for f in counters.values():
@@ -817,13 +1056,22 @@ def train_phase(seed: int) -> tuple:
               f"{[r.bits for r in exp.reports]} (init "
               f"{exp.init_delivery.bits if exp.init_delivery else 0.0}); "
               f"K1 launches per round {run['round_launches']}, per eval "
-              f"{run['eval_launches']}", flush=True)
+              f"{run['eval_launches']}; (K3, K4) per round "
+              f"{run['round_k34']}, per eval {run['eval_k34']}", flush=True)
         summary[m] = dict(wall_per_cycle_s=run["walls"],
                           accuracy=res.accuracy, loss=res.loss,
                           bits=[r.bits for r in exp.reports],
                           steps=[r.steps for r in exp.reports],
                           k1_round_launches=run["round_launches"],
-                          k1_eval_launches=run["eval_launches"])
+                          k1_eval_launches=run["eval_launches"],
+                          k34_round_launches=run["round_k34"],
+                          k34_eval_launches=run["eval_k34"])
+        # each eval is one slice of 2,048 rows: K3 and K4 once each, and
+        # never inside a training round (autograd runs the plain ops)
+        if any(k != (0, 0) for k in run["round_k34"]) or \
+                any(k != (1, 1) for k in run["eval_k34"]):
+            failures.append(f"{m}: (K3, K4) launches per round "
+                            f"{run['round_k34']}, per eval {run['eval_k34']}")
     fl = card["fl"]
     for r in fl["exp"].reports:
         if r.bits / 3 != FL_BITS_PER_USER:
@@ -898,6 +1146,221 @@ def train_phase(seed: int) -> tuple:
     if not gap <= STEP_TOL:
         failures.append(f"three local steps: card vs CPU weights {gap}")
     summary["profile_fl_cycle"] = profile_train(seed)
+    return launches, summary, failures, card["fl"]
+
+
+# ------------------------------------- two-party SL and the privacy study
+# the SL adversary trained on the card against the same adversary (same
+# observations, initial weights and batch rows) trained on the CPU:
+# relative gap of the held-out errors
+RECON_REL_TOL = 0.05
+ADV_STEPS = 600                 # benchmarks/table2.py's adversary steps
+FL_PROJ, FL_PER = 1024, 64      # table2's FL projection and samples/user
+
+
+def privacy_phase(seed: int, fl_run: dict, card_name: str) -> tuple:
+    """The slice's main path, with every counter set to 0 before and read
+    after: two-party SL (Q8, 20 dB), fused SL at Q16 with capture and CL
+    over a 20 dB link with capture, one cycle each on the card. Then
+    two-party SL on the CPU on the same draws, and the Table II rows from
+    the captures (FL's from phase 5's card run). Returns ({kernel name:
+    launches}, summary, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import energy as EN
+    from repro_torch.core import privacy as PRIV
+    from repro_torch.data.sentiment import partition_users
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.schemes.base import BATCH, CFG, N_TRAIN, corpus
+    counters = dict(_wire_counters(), conv_pool=cp.user_conv_pool,
+                    lstm_final_state=lc.lstm_final_state)
+    for f in counters.values():
+        f.launches = 0
+    card = {n: _train_run(n, 1, "cuda", seed)
+            for n in ("sl_two_party", "sl_q16_capture", "cl_20db_capture")}
+    launches = {k: f.launches for k, f in counters.items()}
+    failures, summary = [], {}
+    steps = N_TRAIN // BATCH
+    n_cap = -(-steps // 8)              # capture_every 8
+    # (K1, K3, K4) per round and per eval, and the steps of the round
+    want = {"sl_two_party": ((2 * steps, steps, 0), (1, 1, 1)),
+            "sl_q16_capture": ((2 * steps + n_cap, n_cap, 0), (1, 1, 1)),
+            "cl_20db_capture": ((0, 0, 0), (0, 1, 1))}
+    for n, run in card.items():
+        res, exp = run["res"], run["exp"]
+        got = ((run["round_launches"][0],) + run["round_k34"][0],
+               (run["eval_launches"][0],) + run["eval_k34"][0])
+        print(f"privacy {n} on the card: wall {run['walls'][0]:.3f} s; "
+              f"accuracy {res.accuracy[0]:.4f}; loss {res.loss[0]:.4f}; "
+              f"bits {exp.reports[0].bits} (init "
+              f"{exp.init_delivery.bits if exp.init_delivery else 0.0}); "
+              f"(K1, K3, K4) launches per round {got[0]}, per eval {got[1]}"
+              f" (want {want[n]})", flush=True)
+        summary[n] = dict(wall_s=run["walls"][0], accuracy=res.accuracy[0],
+                          loss=res.loss[0], bits=exp.reports[0].bits,
+                          launches_round=got[0], launches_eval=got[1])
+        if got != want[n] or exp.reports[0].steps != steps:
+            failures.append(f"{n}: (K1, K3, K4) launches {got}, want "
+                            f"{want[n]}, over {exp.reports[0].steps} steps")
+        if not (math.isfinite(res.accuracy[0]) and
+                math.isfinite(res.loss[0])):
+            failures.append(f"{n}: non-finite accuracy or loss")
+    if not (launches["conv_pool"] and launches["lstm_final_state"]):
+        failures.append(f"K3/K4 not launched on the path: {launches}")
+
+    # two-party SL on the CPU, the same draws: equal bills, close training
+    tp, th = card["sl_two_party"], _train_run("sl_two_party", 1, "cpu",
+                                              seed)
+    bills = [[(r.bits, r.n_tx, r.erased_bits, r.energy_j)
+              for r in run["exp"].reports] for run in (tp, th)]
+    da = abs(tp["res"].accuracy[0] - th["res"].accuracy[0])
+    dl = abs(tp["res"].loss[0] - th["res"].loss[0])
+    dt = abs(tp["test_losses"][0] - th["test_losses"][0])
+    print(f"privacy sl_two_party card vs CPU: bills equal "
+          f"{bills[0] == bills[1]} ({bills[0]}); |d train loss| {dl:.2e} "
+          f"(tol {LOSS_TOL}), |d accuracy| {da:.5f} (tol {ACC_TOL}), |d "
+          f"test loss| {dt:.2e} (tol {TEST_LOSS_TOL}); CPU wall "
+          f"{th['walls'][0]:.2f} s", flush=True)
+    summary["sl_two_party"].update(
+        cpu_bills_equal=bills[0] == bills[1], cpu_abs_d_loss=dl,
+        cpu_abs_d_accuracy=da, cpu_abs_d_test_loss=dt,
+        cpu_wall_s=th["walls"][0])
+    if bills[0] != bills[1]:
+        failures.append("two-party SL: card and CPU bills differ")
+    if dl > LOSS_TOL or da > ACC_TOL or dt > TEST_LOSS_TOL:
+        failures.append(f"two-party SL card vs CPU: loss {dl}, accuracy "
+                        f"{da}, test loss {dt}")
+
+    # the captures' shapes and counts
+    caps = {n: card[n]["res"].captures for n in card}
+    caps["fl"] = fl_run["res"].captures
+    n_sync = len(fl_run["exp"].reports)
+    shapes = {
+        "cl_20db_capture": [(k, [caps["cl_20db_capture"][k].shape],
+                             [(N_TRAIN, 30)]) for k in ("received",
+                                                        "original")],
+        "fl": [("deltas", [d.shape for d in caps["fl"]["deltas"]],
+                [(3, 89_673)] * n_sync),
+               ("targets", [t.shape for t in caps["fl"]["targets"]],
+                [(3, 30)] * n_sync)],
+        "sl_q16_capture": [("smashed", [z.shape for z in
+                                        caps["sl_q16_capture"]["smashed"]],
+                            [(BATCH, 14, 8)] * n_cap),
+                           ("original", [o.shape for o in
+                                         caps["sl_q16_capture"]["original"]],
+                            [(BATCH, 30)] * n_cap)],
+        "sl_two_party": [("smashed", [z.shape for z in
+                                      caps["sl_two_party"]["smashed"]],
+                          [(BATCH, 14, 8)] * n_cap),
+                         ("original", [o.shape for o in
+                                       caps["sl_two_party"]["original"]],
+                          [(BATCH, 30)] * n_cap)]}
+    for n, items in shapes.items():
+        for k, got, want_s in items:
+            ok = [tuple(g) for g in got] == want_s
+            print(f"privacy capture {n} {k}: {len(got)} x "
+                  f"{tuple(got[0]) if got else None} "
+                  f"{'ok' if ok else 'FAILED (want %s)' % want_s[:1]}",
+                  flush=True)
+            if not ok:
+                failures.append(f"capture {n} {k} shapes {got}")
+
+    # Table II: pair observations and targets as benchmarks/table2.py
+    def norm(t):
+        return np.asarray(t).astype(np.float32) / float(CFG.vocab_size)
+    draws = PRIV.AdversaryDraws(seed + 11)
+    c = caps["cl_20db_capture"]
+    err = {"central": PRIV.direct_error(norm(c["received"][:4096]),
+                                        norm(c["original"][:4096]))}
+    t0 = time.perf_counter()
+    deltas = caps["fl"]["deltas"]
+    rngp = np.random.default_rng(0)
+    proj = rngp.standard_normal((deltas[0].shape[1], FL_PROJ)) \
+        .astype(np.float32)
+    proj /= np.sqrt(deltas[0].shape[1])
+    (xtr, _), _ = corpus()
+    shards = partition_users(xtr, np.zeros(len(xtr), np.int32), 3)
+    obs_b, tgt_b = [], []
+    for d in deltas:
+        for u in range(3):
+            idx = rngp.integers(0, len(shards[u][0]), FL_PER)
+            obs_b.append(np.repeat((d[u] @ proj)[None], FL_PER, axis=0))
+            tgt_b.append(shards[u][0][idx])
+    err["fl_q8"] = PRIV.reconstruction_error(
+        draws, np.concatenate(obs_b), norm(np.concatenate(tgt_b)),
+        steps=ADV_STEPS)
+    sl_obs = {}
+    for n in ("sl_q16_capture", "sl_two_party"):
+        obs = np.concatenate(caps[n]["smashed"], axis=0)
+        obs = obs.reshape(len(obs), -1)[:20_000]
+        sl_obs[n] = (obs, norm(np.concatenate(caps[n]["original"]))[
+            :len(obs)])
+    err["sl"] = PRIV.reconstruction_error(draws, *sl_obs["sl_q16_capture"],
+                                          steps=ADV_STEPS)
+    t_adv = time.perf_counter() - t0
+    obs = sl_obs["sl_q16_capture"][0]
+    t0 = time.perf_counter()
+    err_sl_cpu = PRIV.reconstruction_error(
+        draws, *sl_obs["sl_q16_capture"], steps=ADV_STEPS, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    rel = abs(err["sl"] - err_sl_cpu) / err_sl_cpu
+    print(f"privacy SL adversary ({ADV_STEPS} steps on {len(obs)} "
+          f"observations): card {err['sl']:.6g}, CPU {err_sl_cpu:.6g}, "
+          f"relative gap {rel:.3e} (tol {RECON_REL_TOL}); adversaries on "
+          f"the card {t_adv:.2f} s (FL projection included), on the CPU "
+          f"{t_cpu:.2f} s", flush=True)
+    summary["sl_adversary"] = dict(card=err["sl"], cpu=err_sl_cpu,
+                                   rel_gap=rel, card_s=t_adv, cpu_s=t_cpu)
+    if not rel <= RECON_REL_TOL:
+        failures.append(f"SL reconstruction error card {err['sl']} vs CPU "
+                        f"{err_sl_cpu}")
+    if not err["sl"] > err["central"]:
+        failures.append(f"privacy: err_SL {err['sl']} <= err_CL "
+                        f"{err['central']}")
+    err["sl_two_party_q8"] = PRIV.reconstruction_error(
+        draws, *sl_obs["sl_two_party"], steps=ADV_STEPS)
+
+    rows = {}
+    for name, res, wcfg in (
+            ("central", card["cl_20db_capture"]["res"],
+             _runs()["cl_20db_capture"][0]),
+            ("fl_q8", fl_run["res"], _runs()["fl"][0]),
+            ("sl", card["sl_q16_capture"]["res"],
+             _runs()["sl_q16_capture"][0]),
+            ("sl_two_party_q8", tp["res"], _runs()["sl_two_party"][0])):
+        comp = EN.comp_energy_j(res.user_flops)
+        comm = EN.comm_energy_j(res.total_bits, wcfg)
+        rows[name] = dict(total_bits_M=res.total_bits / 1e6,
+                          accuracy=res.final_accuracy,
+                          recon_error=err[name], comp_energy_j=comp,
+                          comm_energy_j=comm, total_energy_j=comp + comm,
+                          co2_kg=EN.co2_kg(comp + comm),
+                          cycles=len(res.accuracy))
+        r = rows[name]
+        print(f"table2 {name} ({card_name}; {r['cycles']} cycles): "
+              f"{r['total_bits_M']:.6f} Mbit, accuracy {r['accuracy']:.4f},"
+              f" recon error {r['recon_error']:.6g}, comp "
+              f"{r['comp_energy_j']:.6g} J, comm {r['comm_energy_j']:.6g} "
+              f"J, total {r['total_energy_j']:.6g} J, CO2 "
+              f"{r['co2_kg']:.6g} kg", flush=True)
+    # the error of an adversary that guesses each position's mean token
+    guess = float(sl_obs["sl_q16_capture"][1].var(axis=0).mean())
+    ratios = dict(sl_over_fl=err["sl"] / err["fl_q8"],
+                  sl_over_cl=err["sl"] / err["central"],
+                  fl_over_cl=err["fl_q8"] / err["central"])
+    print(f"table2 orderings (printed, not gated; the paper's 20 / 7 / 35 "
+          f"cycles give SL ~4x FL ~18x CL): err_SL / err_FL "
+          f"{ratios['sl_over_fl']:.3f}, err_SL / err_CL "
+          f"{ratios['sl_over_cl']:.3f}, err_FL / err_CL "
+          f"{ratios['fl_over_cl']:.3f}; guessing each position's mean "
+          f"token scores {guess:.6g} on SL's targets; comm SL > FL "
+          f"{rows['sl']['comm_energy_j'] > rows['fl_q8']['comm_energy_j']};"
+          f" comp SL < FL "
+          f"{rows['sl']['comp_energy_j'] < rows['fl_q8']['comp_energy_j']}",
+          flush=True)
+    summary["table2"] = dict(rows=rows, ratios=ratios,
+                             mean_guess_error=guess)
     return launches, summary, failures
 
 
@@ -1093,24 +1556,39 @@ def main() -> None:
           flush=True)
     wire_rows, wire_failures = check_wire_kernels(args.seed)
     failures += wire_failures
+    print("K3 / K4 checks at the tiny model's shapes", flush=True)
+    tiny_rows, tiny_summary, tiny_failures = check_tiny_kernels(args.seed)
+    failures += tiny_failures
     launches, summary, serve_failures = serve_phase(args.seed)
     failures += serve_failures
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
     t_train = time.perf_counter()
-    train_launches, train_summary, train_failures = train_phase(args.seed)
+    train_launches, train_summary, train_failures, fl_run = \
+        train_phase(args.seed)
     print(f"training phase: {time.perf_counter() - t_train:.1f} s; "
           f"launches on the training path {train_launches}", flush=True)
     failures += train_failures
     for r in wire_rows:
         r["launches"] = train_launches.get(r["name"], 0)
     rows += wire_rows
+    t_priv = time.perf_counter()
+    priv_launches, priv_summary, priv_failures = privacy_phase(
+        args.seed, fl_run, card)
+    print(f"privacy phase: {time.perf_counter() - t_priv:.1f} s; launches "
+          f"on its path {priv_launches}", flush=True)
+    failures += priv_failures
+    for r in tiny_rows:
+        r["launches"] = priv_launches.get(r["name"], 0)
+    rows += tiny_rows
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"card": card, "kernels": rows,
                                    "serve": summary,
                                    "train": train_summary,
+                                   "tiny_kernels": tiny_summary,
+                                   "privacy": priv_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

@@ -29,10 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo")
 
 SOURCES = {
+    "conv_pool": KERNELS_DIR / "conv_pool" / "csrc" / "conv_pool.cu",
     "decode_attention":
         KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu",
     "prefill_attention":
         KERNELS_DIR / "prefill_attention" / "csrc" / "prefill_attention.cu",
+    "lstm_cell": KERNELS_DIR / "lstm_cell" / "csrc" / "lstm_cell.cu",
     "quant_channel":
         KERNELS_DIR / "quant_channel" / "csrc" / "quant_channel.cu",
 }

@@ -7,10 +7,14 @@ the port of `repro/models/lstm_tiny.py`:
 The model is layered so the SL split point (after conv+pool, paper Sec.
 III-A2) is a first-class boundary: `user_forward` / `server_forward`.
 
-The conv is the JAX package's three shifted matmuls and the LSTM a plain
-loop over time in gate order i, f, g, o, not `nn.Conv1d`/`nn.LSTM`
-(cuDNN kernels): the hand-written ports of the conv+pool and LSTM
-kernels are later work (ROADMAP.md). Parameters are a plain tree
+Two routes compute the same function. A forward without autograd on
+the card (evaluation, the two-party SL uplink and inference, the SL
+privacy capture) runs the hand-written kernels: conv+ReLU+pool through
+K3 (`kernels/conv_pool`) and the recurrence through K4
+(`kernels/lstm_cell`). Every other forward (training under autograd,
+and the CPU) runs the plain ops: the JAX package's three shifted
+matmuls and a loop over time in gate order i, f, g, o, not
+`nn.Conv1d`/`nn.LSTM` (cuDNN kernels). Parameters are a plain tree
 (`nn.core.init_tree`). The streaming cache/decode step waits for the
 tiny serving family.
 """
@@ -18,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.conv_pool.ops import user_conv_pool
+from repro_torch.kernels.lstm_cell.ops import lstm_layer
 from repro_torch.models.layers import linear, linear_specs
 from repro_torch.nn import Spec
 
@@ -54,12 +60,22 @@ def model_specs(cfg=None, compress_factor: int = 0) -> dict:
     return s
 
 
+def _on_kernels(x: torch.Tensor) -> bool:
+    """Whether this forward runs K3/K4: on the card, and only without
+    autograd, because neither kernel has a backward (the JAX package's
+    Pallas kernels have no VJP either). Training keeps the plain ops
+    under autograd; the CPU always runs them."""
+    return x.is_cuda and not torch.is_grad_enabled()
+
+
 # ------------------------------------------------- user side (split point)
 def user_forward(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding -> Conv1D(valid) + ReLU -> MaxPool(2). The paper's
     user-side partition. Returns smashed data [B, T', CONV_F]."""
     x = params["embed"][tokens.long()]                       # [B,S,8]
     w, b = params["conv_w"], params["conv_b"]
+    if _on_kernels(x):
+        return user_conv_pool(x, w.contiguous(), b.contiguous())
     S = tokens.shape[1]
     out = x[:, 0:S - CONV_K + 1] @ w[0]
     for i in range(1, CONV_K):
@@ -71,7 +87,10 @@ def user_forward(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def lstm_scan(params: dict, x: torch.Tensor) -> torch.Tensor:
     """x [B,T,F] -> final hidden state [B,H]: the fused-gate cell, one
-    step per time index."""
+    step per time index (K4 through `lstm_layer` where `_on_kernels`)."""
+    if _on_kernels(x):
+        return lstm_layer(x, params["lstm_wx"], params["lstm_wh"],
+                          params["lstm_b"])
     B = x.shape[0]
     h = torch.zeros((B, LSTM_H), dtype=x.dtype, device=x.device)
     c = h

@@ -122,14 +122,16 @@ def init_params(specs: dict, generator: torch.Generator,
     return ParamDict(specs, lambda s: _init_leaf(s, generator, dev))
 
 
-def params_from_jax(np_tree: dict, cfg, device="cuda"):
+def params_from_jax(np_tree: dict, cfg=None, device="cuda"):
     """The JAX package's params, given as numpy arrays. Transformer
     params (stacked ``[L, ...]`` layer leaves, ``embed.table``,
     ``ln_f``) become the port's `ParamDict` with the stacked layers as
-    a list of per-layer subtrees; the tiny family's become a trainable
-    tree (``init_tree``'s layout)."""
+    a list of per-layer subtrees; the tiny family's, and with `cfg`
+    None any plain tree (the privacy adversary's MLP, an `SLSession`'s
+    model and codec), become a trainable tree (``init_tree``'s
+    layout)."""
     dev = resolve_device(device)
-    if cfg.family == "tiny":
+    if cfg is None or cfg.family == "tiny":
         return tree_map(lambda a: torch.from_numpy(
             np.array(a, dtype=np.float32, copy=True)).to(dev), np_tree)
 

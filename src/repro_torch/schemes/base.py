@@ -161,7 +161,7 @@ class RunResult:
     total_bits: float       # payload that crossed the radio
     user_flops: float       # user-side computation (fwd+bwd share)
     server_flops: float
-    captures: dict          # privacy-eval observations (not ported)
+    captures: dict          # privacy-eval observations (capture=True)
 
     @property
     def final_accuracy(self) -> float:

@@ -2,7 +2,9 @@
 the port of `repro/schemes/centralized.py`. The raw dataset crosses the
 channel ONCE at `init` (bit errors corrupt token ids directly — paper
 Fig. 3d); the server then trains normally, one epoch per round. The
-token uplink has no kernel of its own (`Radio.send_tokens`)."""
+token uplink has no kernel of its own (`Radio.send_tokens`). With
+`capture=True` the scheme keeps the received corpus and the original
+(the privacy study's direct read)."""
 from __future__ import annotations
 
 import numpy as np
@@ -32,14 +34,11 @@ class CentralizedScheme:
 
     def __init__(self, wcfg=None, capture: bool = False, device="cuda",
                  key=Key):
-        if capture:
-            raise NotImplementedError(
-                "CentralizedScheme: privacy capture is not ported yet "
-                "(see ROADMAP.md)")
         self.wcfg = wcfg
         self.device = resolve_device(device)
         self.key = key
         self.radio = Radio.from_wcfg(wcfg)
+        self.capture = capture
         self.captures: dict = {}
 
     # ------------------------------------------------------------- setup
@@ -49,6 +48,9 @@ class CentralizedScheme:
             self.key(seed + UPLOAD_STREAM).draws(), clean, CFG.vocab_size,
             labels=torch.from_numpy(np.asarray(ytr)))
         xtr_rx = dlv.payload.cpu().numpy()
+        if self.capture:
+            self.captures = {"received": xtr_rx.copy(),
+                             "original": np.asarray(xtr).copy()}
         g = torch.Generator().manual_seed(seed)
         state = init_train_state(g, CFG, None, "sgd", MOMENTUM, self.device)
         return SchemeState(train=state, data=(xtr_rx, np.asarray(ytr))), dlv

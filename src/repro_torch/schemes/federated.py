@@ -5,9 +5,11 @@ One `round` = J local epochs per user, one quantized N-user weight
 upload through the packed wire (`radio.send_stacked`: one pass, one
 packet per (user, tensor), one kernel launch on the card), FedAvg
 (Eq. 3), broadcast back. Bounded-ARQ erasures and the quorum rule are
-handled as in the JAX package. DP uploads, FedProx, privacy capture,
-sampling with replacement and the coordinate-median aggregate are
-still to port (ROADMAP.md) and raise.
+handled as in the JAX package. Privacy capture (`capture=True`) records
+each sync's received weight deltas off the same stacked payload the
+average uses, so capturing never perturbs the trajectory. DP uploads,
+FedProx, sampling with replacement and the coordinate-median aggregate
+are still to port (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.configs.base import WirelessConfig
 from repro_torch.core import federated as FED
 from repro_torch.core.draws import Key
 from repro_torch.data.sentiment import partition_users
-from repro_torch.nn import resolve_device, tree_map
+from repro_torch.nn import resolve_device, tree_leaves, tree_map
 from repro_torch.runtime.fl_runtime import (SYNC_KEY_FOLD,
                                             make_local_step_tiny)
 from repro_torch.runtime.train_step import TrainState, init_train_state
@@ -52,6 +54,25 @@ def draw_local_epochs(xu, yu, local_epochs: int, rng):
     return toks, labs
 
 
+def flat_uploads(received, pre_broadcast) -> np.ndarray:
+    """[N, P] received weight deltas (against the cycle's broadcast
+    weights), leaves in the tree's order: the FL privacy observation."""
+    return torch.cat([(r - p[None]).reshape(r.shape[0], -1)
+                      for r, p in zip(tree_leaves(received),
+                                      tree_leaves(pre_broadcast))],
+                     dim=1).cpu().numpy()
+
+
+def fl_capture(captures, received, broadcast, user_tokens) -> None:
+    """Record one FL sync's privacy observations: the received weight
+    deltas (`flat_uploads`) and, as the reconstruction target, each
+    user's mean token vector over the round (numpy's float64 mean, as in
+    the JAX package). `user_tokens`: the round's tokens per user."""
+    captures["deltas"].append(flat_uploads(received, broadcast))
+    captures["targets"].append(np.stack(
+        [t.reshape(-1, t.shape[-1]).mean(0) for t in user_tokens]))
+
+
 def _not_ported(what: str):
     raise NotImplementedError(f"FederatedScheme: {what} is not ported yet "
                               f"(see ROADMAP.md)")
@@ -64,12 +85,13 @@ class FederatedScheme:
                  dp_sigma: float = 0.0, prox_mu: float = 0.0,
                  sample_with_replacement: bool = False,
                  quorum: float = 0.0, device="cuda", key=Key):
+        if capture and dp_sigma > 0:
+            raise ValueError("capture=True is not supported with "
+                             "dp_sigma > 0 (DP uploads are not observed)")
         if dp_sigma > 0:
             _not_ported("DP-FedAvg (dp_sigma > 0)")
         if prox_mu > 0:
             _not_ported("FedProx (prox_mu > 0)")
-        if capture:
-            _not_ported("privacy capture (capture=True)")
         if sample_with_replacement:
             _not_ported("sample_with_replacement=True")
         self.wcfg = wcfg or WirelessConfig(mode="fl")
@@ -83,7 +105,8 @@ class FederatedScheme:
         self.local_epochs = self.wcfg.local_steps
         self.epochs_per_cycle = self.local_epochs
         self.bits_normalizer = float(self.n_users)   # report per-user bits
-        self.captures: dict = {}
+        self.capture = capture
+        self.captures = {"deltas": [], "targets": []} if capture else {}
 
     # ------------------------------------------------------------- setup
     def init(self, seed: int, xtr, ytr):
@@ -122,6 +145,9 @@ class FederatedScheme:
         user_params = states.trainable["model"]
         dlv = self.radio.send_stacked(key.fold_in(SYNC_KEY_FOLD).draws(),
                                       user_params)
+        if self.capture:
+            fl_capture(self.captures, dlv.payload, broadcast,
+                       [batch["tokens"][u] for u in range(self.n_users)])
         # users whose upload was erased (bounded ARQ) carry zero weight;
         # below quorum the sync is abandoned and everyone re-anchors on
         # the cycle's broadcast weights

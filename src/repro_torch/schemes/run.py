@@ -29,8 +29,10 @@ from repro_torch.schemes.split import SplitScheme
 def build_scheme(wcfg=None, capture: bool = False, clients=None,
                  cfg=None, **kwargs):
     """(WirelessConfig, arch) -> Scheme. None wcfg means the no-radio CL
-    baseline. Extra kwargs go to the scheme constructor (`device`,
-    `key`; FL's `quorum`)."""
+    baseline. `capture=True` records each scheme's privacy observations
+    into `RunResult.captures`. Extra kwargs go to the scheme constructor
+    (`device`, `key`; FL's `quorum`; SL's `protocol` and
+    `capture_every`)."""
     if clients is not None:
         raise NotImplementedError(
             "build_scheme: populations and fleets (clients=) are not "

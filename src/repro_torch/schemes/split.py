@@ -1,16 +1,24 @@
-"""SplitScheme: the paper's SL (Alg. 2) behind the Scheme API, fused
-protocol — the port of `repro/schemes/split.py`. The two-party protocol
-(`SLSession`) is still to port (ROADMAP.md) and raises.
+"""SplitScheme: the paper's SL (Alg. 2) behind the Scheme API — the port
+of `repro/schemes/split.py`. Two protocols, one interface:
 
-One fused step sends the compressed activation up and the tau-clipped
-gradient down through the packed wire (`core/channel.channel_crossing`:
-one kernel launch per leg on the card). Its bill is replayed outside
-the step from the same keys (`sl_cycle_drawn_diag`): the fade/ARQ draw
-of each leg is the "arq" draw of the leg's key, so the replay bills
-exactly what the step drew.
+* ``protocol="fused"`` (default): one fused step sends the compressed
+  activation up and the tau-clipped gradient down through the packed
+  wire (`core/channel.channel_crossing`: one K1 launch per leg on the
+  card). Its bill is replayed outside the step from the same keys
+  (`sl_cycle_drawn_diag`): the fade/ARQ draw of each leg is the "arq"
+  draw of the leg's key, so the replay bills exactly what the step drew.
+* ``protocol="two_party"``: user and server are separate parties
+  exchanging explicit `Delivery` messages (`runtime/sl_runtime.py`
+  `SLSession`), billed as they are sent, on the same lr schedule.
 
-Eval: the deployed function transmits through the REAL channel with
-fixed eval keys (`evaluate_sl`).
+Eval (both protocols): the deployed function transmits through the REAL
+channel with fixed eval keys (`evaluate_sl`, `SLSession.predict`); on the
+card it runs the no-grad kernels K3 and K4 once per eval slice.
+
+Privacy capture (`capture=True`) records what the server receives on the
+uplink every `capture_every` steps, with the raw tokens it came from:
+the fused protocol runs the user side again and sends it over its own
+key (`sl_observe`), the two-party protocol keeps the uplink's payload.
 """
 from __future__ import annotations
 
@@ -18,11 +26,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import WirelessConfig
+from repro_torch.core import semantic
 from repro_torch.core import wire as W
 from repro_torch.core.draws import Key
 from repro_torch.core.split import split_forward
 from repro_torch.models import lstm_tiny
-from repro_torch.nn import resolve_device
+from repro_torch.nn import init_tree, resolve_device
+from repro_torch.runtime import sl_runtime
 from repro_torch.runtime.train_step import init_train_state, make_train_step
 from repro_torch.schemes.base import (BATCH, CFG, LR0, MOMENTUM, RoundReport,
                                       SchemeState, batches_of, step_flops,
@@ -31,6 +41,7 @@ from repro_torch.schemes.base import (BATCH, CFG, LR0, MOMENTUM, RoundReport,
 from repro_torch.schemes.radio import Radio
 
 EVAL_KEY = 999     # slice i of the test set is scored on Key(999 + i)
+CAPTURE_FOLD = 12345   # a fused capture sends on its step key's fold
 
 
 def sl_train_step(wcfg, lr: float):
@@ -101,38 +112,68 @@ def evaluate_sl(trainable, wcfg, xte, yte, batch: int = 2048,
     return float(np.mean(accs))
 
 
+@torch.no_grad()
+def evaluate_two_party(sess, xte, yte, batch: int = 2048,
+                       key=Key) -> float:
+    """`evaluate_sl` for the two-party protocol: each slice through
+    `SLSession.predict` on key(999 + slice_start)."""
+    dev = sess.user_params["embed"].device
+    accs = []
+    for i in range(0, max(len(xte) - batch + 1, 1), batch):
+        tokens = torch.from_numpy(np.ascontiguousarray(
+            xte[i:i + batch])).to(dev)
+        labels = torch.from_numpy(np.ascontiguousarray(
+            yte[i:i + batch])).to(dev)
+        logits = sess.predict(tokens, key(EVAL_KEY + i))
+        accs.append(float(lstm_tiny.accuracy(logits, labels)))
+    return float(np.mean(accs))
+
+
+@torch.no_grad()
+def sl_observe(trainable, tokens, key, wcfg):
+    """What the SERVER receives on the SL uplink: the user partition
+    (K3 on the card), the encoder, then the same packed-wire crossing
+    the fused step uses, on `key`'s stream."""
+    smashed = lstm_tiny.user_forward(trainable["model"], tokens)
+    z = semantic.encode(trainable["codec"], smashed)
+    return W.transmit_tree(key.draws(), z, bits=wcfg.quant_bits,
+                           snr_db=wcfg.snr_db, fading=wcfg.fading,
+                           perfect=wcfg.perfect_channel)
+
+
 class SplitScheme:
     mode = "sl"
     epochs_per_cycle = 1
     bits_normalizer = 1.0
 
     def __init__(self, wcfg=None, capture: bool = False,
-                 protocol: str = "fused", device="cuda", key=Key):
-        if protocol == "two_party":
-            raise NotImplementedError(
-                "SplitScheme: the two-party protocol (SLSession, "
-                "runtime/sl_runtime.py) is not ported yet (see ROADMAP.md)")
-        if protocol != "fused":
+                 capture_every: int = 8, protocol: str = "fused",
+                 device="cuda", key=Key):
+        if protocol not in ("fused", "two_party"):
             raise ValueError(protocol)
-        if capture:
-            raise NotImplementedError(
-                "SplitScheme: privacy capture is not ported yet "
-                "(see ROADMAP.md)")
         self.wcfg = wcfg or WirelessConfig(mode="sl", quant_bits=16)
         self.device = resolve_device(device)
         self.key = key
         self.radio = Radio.from_wcfg(self.wcfg)
         self.protocol = protocol
-        self.captures: dict = {}
+        self.capture = capture
+        self.capture_every = capture_every
+        self.captures = {"smashed": [], "original": []} if capture else {}
         self.bits_per_batch = sl_bits_per_step(self.wcfg,
                                                self.radio.quant_bits)
 
     # ------------------------------------------------------------- setup
     def init(self, seed: int, xtr, ytr):
         g = torch.Generator().manual_seed(seed)
-        state = init_train_state(g, CFG, self.wcfg, "sgd", MOMENTUM,
-                                 self.device)
-        return SchemeState(train=state, data=(np.asarray(xtr),
+        if self.protocol == "two_party":
+            params = init_tree(lstm_tiny.model_specs(
+                CFG, self.wcfg.compress_factor), g, self.device)
+            train = sl_runtime.SLSession(CFG, self.wcfg, params,
+                                         lr=LR0, momentum=MOMENTUM)
+        else:
+            train = init_train_state(g, CFG, self.wcfg, "sgd", MOMENTUM,
+                                     self.device)
+        return SchemeState(train=train, data=(np.asarray(xtr),
                                               np.asarray(ytr))), None
 
     def cycle_batches(self, state, rng, cycle):
@@ -143,9 +184,23 @@ class SplitScheme:
         return self.key(seed + 2)
 
     # ------------------------------------------------------------- round
+    def _keep(self, z, tokens) -> None:
+        self.captures["smashed"].append(z.cpu().numpy())
+        self.captures["original"].append(tokens.cpu().numpy())
+
+    def _capture_step(self, steps, st, b, kb):
+        if steps % self.capture_every == 0:
+            self._keep(sl_observe(st.trainable, b["tokens"],
+                                  kb.fold_in(CAPTURE_FOLD), self.wcfg),
+                       b["tokens"])
+
     def round(self, state, batch, key, lr):
-        st, m, steps = sl_cycle(sl_train_step(self.wcfg, lr), state.train,
-                                batch, key, state.steps)
+        if self.protocol == "two_party":
+            return self._round_two_party(state, batch, key, lr)
+        st, m, steps = sl_cycle(
+            sl_train_step(self.wcfg, lr), state.train, batch, key,
+            state.steps, on_step=self._capture_step if self.capture
+            else None)
         n = steps - state.steps
         new = SchemeState(st, state.data, steps, state.epoch + 1)
         n_tx, n_er, bo = sl_cycle_drawn_diag(key, state.steps, n,
@@ -158,8 +213,28 @@ class SplitScheme:
             erased_bits=n_er * self.radio.arq_max_tx * leg_bits,
             outage_s=bo * self.radio.arq_backoff_s)
 
+    def _round_two_party(self, state, batch, key, lr):
+        sess, steps = state.train, state.steps
+        bits0, n_tx = sess.total_bits, 0.0
+        for b in batch:
+            kb = key.fold_in(steps)
+            up = sess.user_uplink(b["tokens"], kb)
+            down = sess.server_step(up, b["labels"], kb.fold_in(1), lr=lr)
+            sess.user_downlink(down, lr=lr)
+            n_tx += up.n_tx + down.n_tx
+            if self.capture and steps % self.capture_every == 0:
+                self._keep(up.payload, b["tokens"])
+            steps += 1
+        bits = sess.total_bits - bits0
+        new = SchemeState(sess, state.data, steps, state.epoch + 1)
+        return new, RoundReport(
+            loss=float(sess.last_loss), steps=steps - state.steps,
+            bits=bits, n_tx=n_tx, energy_j=self.radio.energy_j(bits))
+
     # -------------------------------------------------------------- eval
     def evaluate(self, state, xte, yte) -> float:
+        if self.protocol == "two_party":
+            return evaluate_two_party(state.train, xte, yte, key=self.key)
         return evaluate_sl(state.train.trainable, self.wcfg, xte, yte,
                            key=self.key)
 

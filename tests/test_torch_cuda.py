@@ -263,3 +263,105 @@ def test_wire_routes_to_kernel_rng_behind_its_flag(cuda_device,
     assert qc.packed_wire_2d_philox.launches == k6 + 1
     assert torch.equal(d_on["n_tx"], d_off["n_tx"])
     assert torch.isfinite(on).all() and not torch.equal(on, off)
+
+
+# ------------------------------------- the tiny model's kernels (K3, K4)
+# 2e-5 abs/rel: the JAX suite's tolerance for both kernels
+# (tests/test_kernels.py); kernel and plain version sum their float32
+# products in another order.
+TINY_TOL = 2e-5
+
+
+@pytest.mark.parametrize("b,t,e,f", [(2048, 30, 8, 32), (512, 30, 8, 32),
+                                     (1, 30, 8, 32), (7, 29, 8, 32),
+                                     (5, 64, 16, 64), (3, 10, 8, 32)])
+def test_conv_pool_kernel_equals_plain(b, t, e, f, cuda_device):
+    from repro_torch.kernels.conv_pool import ops, ref
+    rng = np.random.default_rng(b + t)
+    x = torch.from_numpy(rng.standard_normal((b, t, e)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, e, f)) * 0.2)
+                         .astype(np.float32))
+    bias = torch.from_numpy((rng.standard_normal(f) * 0.1)
+                            .astype(np.float32))
+    x, w, bias = (a.to(cuda_device) for a in (x, w, bias))
+    n0 = ops.user_conv_pool.launches
+    got = ops.user_conv_pool(x, w, bias)
+    torch.cuda.synchronize()
+    assert ops.user_conv_pool.launches == n0 + 1
+    assert got.shape == (b, (t - 2) // 2, f)
+    torch.testing.assert_close(got, ref.conv_pool_ref(x, w, bias),
+                               rtol=TINY_TOL, atol=TINY_TOL)
+
+
+@pytest.mark.parametrize("b,t,h", [(2048, 14, 32), (512, 14, 32),
+                                   (1, 14, 32), (7, 30, 32), (4, 1, 32),
+                                   (16, 7, 8)])
+def test_lstm_kernel_equals_plain(b, t, h, cuda_device):
+    from repro_torch.kernels.lstm_cell import ops, ref
+    rng = np.random.default_rng(b + t + h)
+    xw = torch.from_numpy(rng.standard_normal((b, t, 4 * h))
+                          .astype(np.float32)).to(cuda_device)
+    wh = torch.from_numpy((rng.standard_normal((h, 4 * h)) * 0.1)
+                          .astype(np.float32)).to(cuda_device)
+    n0 = ops.lstm_final_state.launches
+    h_k, c_k = ops.lstm_final_state(xw, wh)
+    torch.cuda.synchronize()
+    assert ops.lstm_final_state.launches == n0 + 1
+    h_r, c_r = ref.lstm_final_state_ref(xw, wh)
+    torch.testing.assert_close(h_k, h_r, rtol=TINY_TOL, atol=TINY_TOL)
+    torch.testing.assert_close(c_k, c_r, rtol=TINY_TOL, atol=TINY_TOL)
+
+
+def test_tiny_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
+    x = torch.zeros((4, 30, 8), device=cuda_device)
+    w = torch.zeros((3, 8, 32), device=cuda_device)
+    b = torch.zeros(32, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        cp.user_conv_pool(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError, match="shared memory"):
+        cp.user_conv_pool(torch.zeros((4, 30, 512), device=cuda_device),
+                          torch.zeros((9, 512, 32), device=cuda_device), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        cp.user_conv_pool(x.transpose(0, 1).contiguous().transpose(0, 1),
+                          w, b)
+    with pytest.raises(ValueError, match="no output"):
+        cp.user_conv_pool(x[:, :3].contiguous(), w, b)
+    xw = torch.zeros((4, 14, 128), device=cuda_device)
+    wh = torch.zeros((32, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        lc.lstm_final_state(xw.half(), wh.half())
+    with pytest.raises(ValueError, match="shared memory"):
+        lc.lstm_final_state(torch.zeros((4, 14, 512), device=cuda_device),
+                            torch.zeros((128, 512), device=cuda_device))
+    with pytest.raises(ValueError, match="4H"):
+        lc.lstm_final_state(xw, torch.zeros((32, 96), device=cuda_device))
+
+
+def test_tiny_forward_runs_the_kernels_only_without_grad(cuda_device):
+    """A no-grad forward of the paper model on the card launches K3 once
+    and K4 once and agrees with the plain forward within 2e-5; a forward
+    under autograd (training) launches neither."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.models import lstm_tiny as LT
+    from repro_torch.nn import init_tree
+    params = init_tree(LT.model_specs(get_arch("paper-tinylstm")),
+                       torch.Generator().manual_seed(0), cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, 10_000, (64, 30)).astype(np.int32)).to(cuda_device)
+    n3, n4 = cp.user_conv_pool.launches, lc.lstm_final_state.launches
+    with torch.no_grad():
+        fast, _ = LT.forward(params, {"tokens": tokens})
+    assert (cp.user_conv_pool.launches, lc.lstm_final_state.launches) == \
+        (n3 + 1, n4 + 1)
+    from repro_torch.nn import tree_map
+    trainable = tree_map(lambda p: p.detach().requires_grad_(), params)
+    plain, _ = LT.forward(trainable, {"tokens": tokens})
+    assert plain.grad_fn is not None
+    assert (cp.user_conv_pool.launches, lc.lstm_final_state.launches) == \
+        (n3 + 1, n4 + 1)
+    torch.testing.assert_close(fast, plain.detach(), rtol=TINY_TOL,
+                               atol=TINY_TOL)

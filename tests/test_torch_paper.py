@@ -367,8 +367,6 @@ def test_unported_paths_raise_and_name_the_roadmap():
                                       device="cpu", dp_sigma=1.0),
                  lambda: build_scheme(WirelessConfig(mode="fl"),
                                       device="cpu", prox_mu=0.1),
-                 lambda: build_scheme(WirelessConfig(mode="sl"),
-                                      device="cpu", protocol="two_party"),
                  lambda: build_scheme(WirelessConfig(mode="fl"),
                                       clients=[]),
                  lambda: build_scheme(WirelessConfig(mode="fl"),
@@ -379,8 +377,6 @@ def test_unported_paths_raise_and_name_the_roadmap():
                  lambda: FED.fedavg_through_channel(
                      Key(0).draws(), {"w": torch.zeros(3, 4)},
                      WirelessConfig(mode="fl", aggregate="median")),
-                 lambda: build_scheme(WirelessConfig(mode="fl"),
-                                      device="cpu", capture=True),
                  lambda: build_scheme(WirelessConfig(mode="fl"),
                                       device="cpu",
                                       sample_with_replacement=True),
