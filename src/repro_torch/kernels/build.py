@@ -112,13 +112,16 @@ HEAD_DIMS = (64,)
 
 def attention_args(what: str, q, k, v, hd: int) -> int:
     """Validate the float operands of an attention launch (all on one
-    CUDA device, one dtype, contiguous, a supported head dim). Returns
-    the kernel's dtype code."""
+    CUDA device, one dtype, contiguous, 16-byte aligned for the kernels'
+    vector loads, a supported head dim). Returns the kernel's dtype
+    code."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{what}: {name} must be on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
         if t.dtype != q.dtype:
             raise ValueError(f"{what}: {name} is {t.dtype}, q is {q.dtype}")
     if v.shape != k.shape:

@@ -1,6 +1,9 @@
-// Shared body of the four serving attention kernels (dense / paged decode,
-// dense / paged chunk prefill): a block of query rows of one (slot b,
-// KV head h) attends its causal span of KV columns with an online softmax.
+// Shared body of the paged serving attention kernels (paged decode, paged
+// chunk prefill) and of f32 dense chunk prefill: a block of query rows of
+// one (slot b, KV head h) attends its causal span of KV columns with an
+// online softmax. Dense decode (split-KV) and bf16 dense prefill (tensor
+// cores) have their own bodies in decode_attention.cu and
+// prefill_attention.cu.
 //
 // Replaces the TPU kernels' per-grid-step body (`_decode_kernel`,
 // `_paged_decode_kernel` in repro/kernels/decode_attention/kernel.py and
@@ -30,8 +33,8 @@
 // H100's bf16 tensor cores, not HBM, would be the limit, so the least time
 // is the K/V prefix over 3.35 TB/s. The design reads every K/V element of
 // the span once per CTA, coalesced, into shared memory, and does the
-// arithmetic on CUDA cores in f32. It does not use wgmma/TMA or split the
-// KV span across SMs (flash-decoding); those are later work.
+// arithmetic on CUDA cores in f32. It does not split the KV span across
+// SMs or use the tensor cores, as the dense bodies do.
 #pragma once
 
 #include <cuda_bf16.h>

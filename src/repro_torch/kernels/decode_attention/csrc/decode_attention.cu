@@ -6,25 +6,293 @@
 //   paged_decode_attention replaces repro/kernels/decode_attention/kernel.py
 //                          :paged_decode_attention (`_paged_decode_kernel`)
 //
-// One CTA per (slot b, KV head h) (and per 16 head-group rows when G > 16):
-// at the serving shape, B*Hkv = 8*16 = 128 CTAs, about one wave on 132 SMs.
-// Row g of the CTA is query head h*G + g at position length[b] - 1, so it
-// attends columns [length - window, length); the loop reads exactly those
-// columns, page by page through the slot's own table row in the paged
-// case, and stops at ceil(length / TILE) tiles. Bound by the bytes of the
-// K/V prefix (see flash_tile.cuh).
+// Dense decode: split-KV ("flash-decoding"). What bounds it is the bytes
+// of the K/V prefix: each K/V element meets G query rows (1 at the serving
+// shape), far below the ~295 operations per byte at which the tensor cores
+// would be the limit. So the design is about keeping bytes in flight on
+// every SM:
+//   - grid (B, Hkv * n_gblk, n_split): the valid span of row b, [len - win,
+//     len) clipped to [0, S), is cut into n_split equal contiguous ranges,
+//     one per CTA (a range may be empty). The wrapper picks n_split from
+//     the shapes alone, so nothing is read back to the host. n_gblk
+//     blocks of GB head-group rows cover G.
+//   - no CTA-wide barrier in the column loop. The GB query rows live in
+//     registers. Each warp walks its own columns with 16-byte loads: LPC
+//     lanes (8 in bf16, 16 in f32) hold one column's head dim, so a warp
+//     load covers CPW = 32 / LPC neighbouring columns (512 contiguous
+//     bytes), and U loads of K and of V per lane are issued before any of
+//     them is used. q.k is reduced by shuffles inside each LPC-lane group;
+//     each group keeps its own online softmax (m, l) and f32 acc.
+//   - the groups merge by shuffles, the warps once through shared memory,
+//     both in a fixed order. With n_split = 1 the CTA writes the output;
+//     otherwise it writes an unnormalised partial (acc, m, l) to a
+//     workspace [B, H, n_split, HD + 2] f32, and a second small launch
+//     merges the partials in split order 0..n_split-1.
+// No float atomics anywhere: the same inputs give the same bits. What it
+// computes is the Pallas kernel's: s = (q . k) * scale in f32; running
+// (m, l, acc) in f32; p = exp(s - m); l sums the unrounded p; p rounded to
+// V's dtype before p . V; out = acc / max(l, 1e-30) in f32. A row with no
+// valid column (an idle slot, length 0) returns 0.
+//
+// Paged decode (K8) still runs the shared body of flash_tile.cuh: one CTA
+// per (slot, KV head) walking its pages through the slot's table row.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
 #include "flash_tile.cuh"
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(flash::THREADS)
-    decode_kernel(const void* q, const void* k, const void* v, float* out,
-                  const int* lengths, int Hkv, int G, int S, int window,
-                  float scale) {
-  flash::attend_rows<T, HD>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, flash::DenseCols{S}, Hkv, G, 1,
-      lengths[blockIdx.x] - 1, window, scale);
+namespace gqa {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+
+// 16 bytes of T as floats (8 bf16 or 4 f32)
+__device__ __forceinline__ void unpack16(const uint4& r, float (&x)[8]) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
+__device__ __forceinline__ void unpack16(const uint4& r, float (&x)[4]) {
+  x[0] = __uint_as_float(r.x);
+  x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z);
+  x[3] = __uint_as_float(r.w);
+}
+
+// One CTA: head-group rows [g0, g0 + GB) of (slot b, KV head h), columns
+// of split blockIdx.z.
+template <typename T, int HD, int GB>
+__global__ void __launch_bounds__(THREADS)
+    split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ ws, const int* __restrict__ lengths,
+                        int Hkv, int G, int S, int n_split, int window,
+                        float scale) {
+  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr int LPC = HD / VEC;         // lanes per column
+  constexpr int CPW = 32 / LPC;         // columns per warp load
+  constexpr int U = GB == 1 ? 4 : 2;    // loads in flight per lane, K and V
+  constexpr int STEP = WARPS * CPW * U; // columns per CTA iteration
+  static_assert(HD % VEC == 0 && 32 % LPC == 0, "head dim vs warp");
+
+  __shared__ float sm_acc[WARPS][GB][HD];
+  __shared__ float sm_m[WARPS][GB], sm_l[WARPS][GB];
+
+  const int n_gblk = (G + GB - 1) / GB;
+  const int b = blockIdx.x, h = blockIdx.y / n_gblk;
+  const int g0 = (blockIdx.y % n_gblk) * GB, split = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = lane / LPC, d0 = (lane % LPC) * VEC;
+  const int H = Hkv * G;
+
+  // valid span of the row, then this split's share of it
+  const int len = lengths[b];
+  const int hi = min(len, S);
+  const int lo = window > 0 ? max(len - window, 0) : 0;
+  const int span = max(hi - lo, 0);
+  const int chunk = (span + n_split - 1) / n_split;
+  const int c_lo = lo + split * chunk;
+  const int c_hi = min(c_lo + chunk, hi);
+
+  float qv[GB][VEC];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    if (g0 + g < G) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+          q + ((long long)b * H + h * G + g0 + g) * HD + d0));
+      unpack16(raw, qv[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[g][e] = 0.f;
+    }
+  }
+
+  float m[GB], l[GB], acc[GB][VEC];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = flash::NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+  }
+
+  const long long kv0 = (long long)(b * Hkv + h) * S;
+  for (int base = c_lo; base < c_hi; base += STEP) {
+    uint4 kr[U], vr[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + (u * WARPS + warp) * CPW + slot;
+      ok[u] = c < c_hi;
+      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      if (ok[u]) {
+        const long long off = (kv0 + c) * HD + d0;
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(k + off));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(v + off));
+      }
+    }
+    float s[U][GB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kx[VEC];
+      unpack16(kr[u], kx);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part += qv[g][e] * kx[e];
+#pragma unroll
+        for (int o = 1; o < LPC; o <<= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, o);
+        s[u][g] = part * scale;
+      }
+    }
+    float vx[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) unpack16(vr[u], vx[u]);
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float m_new = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ok[u]) m_new = fmaxf(m_new, s[u][g]);
+      const float corr = expf(m[g] - m_new);
+      float p[U], psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = ok[u] ? expf(s[u][g] - m_new) : 0.f;
+        psum += p[u];
+      }
+      l[g] = l[g] * corr + psum;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float a = acc[g][e] * corr;
+#pragma unroll
+        for (int u = 0; u < U; ++u) a += flash::round_as<T>(p[u]) * vx[u][e];
+        acc[g][e] = a;
+      }
+      m[g] = m_new;
+    }
+  }
+
+  // merge the CPW lane groups of the warp (butterfly over the slot bits)
+#pragma unroll
+  for (int o = LPC; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mx = fmaxf(m[g], mo);
+      const float ca = expf(m[g] - mx), cb = expf(mo - mx);
+      l[g] = l[g] * ca + lo_ * cb;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+        acc[g][e] = acc[g][e] * ca + ao * cb;
+      }
+      m[g] = mx;
+    }
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // merge the warps in order 0..WARPS-1; one thread per (row, dim)
+  for (int i = threadIdx.x; i < GB * HD; i += THREADS) {
+    const int g = i / HD, d = i % HD;
+    if (g0 + g >= G) continue;
+    float mx = flash::NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = expf(sm_m[w][g] - mx);
+      lsum += sm_l[w][g] * c;
+      a += sm_acc[w][g][d] * c;
+    }
+    const long long row = (long long)b * H + h * G + g0 + g;
+    if (n_split == 1) {
+      out[row * HD + d] = a / fmaxf(lsum, 1e-30f);
+    } else {
+      float* p = ws + (row * n_split + split) * (HD + 2);
+      p[d] = a;
+      if (d == 0) {
+        p[HD] = mx;
+        p[HD + 1] = lsum;
+      }
+    }
+  }
+}
+
+// out[row, d] from the n_split partials of `row`, in split order.
+template <int HD>
+__global__ void __launch_bounds__(256)
+    merge_splits_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                        int rows, int n_split) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * HD) return;
+  const int row = i / HD, d = i % HD;
+  const float* p = ws + (long long)row * n_split * (HD + 2);
+  float mx = flash::NEG_INF;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, p[s * (HD + 2) + HD]);
+  float lsum = 0.f, a = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float* ps = p + s * (HD + 2);
+    const float c = expf(ps[HD] - mx);
+    lsum += ps[HD + 1] * c;
+    a += ps[d] * c;
+  }
+  out[i] = a / fmaxf(lsum, 1e-30f);
+}
+
+template <typename T, int HD, int GB>
+int launch_split(const void* q, const void* k, const void* v, float* out,
+                 float* ws, const int* lengths, int B, int Hkv, int G, int S,
+                 int n_split, int window, float scale, cudaStream_t st) {
+  const dim3 grid(B, Hkv * ((G + GB - 1) / GB), n_split);
+  split_decode_kernel<T, HD, GB><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), out, ws, lengths, Hkv, G, S, n_split, window,
+      scale);
+  if (n_split > 1) {
+    const int rows = B * Hkv * G;
+    merge_splits_kernel<HD><<<(rows * HD + 255) / 256, 256, 0, st>>>(
+        ws, out, rows, n_split);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_gb(int gb, const void* q, const void* k, const void* v,
+                float* out, float* ws, const int* lengths, int B, int Hkv,
+                int G, int S, int n_split, int window, float scale,
+                cudaStream_t st) {
+  if (gb == 1)
+    return launch_split<T, 64, 1>(q, k, v, out, ws, lengths, B, Hkv, G, S,
+                                  n_split, window, scale, st);
+  if (gb == 2)
+    return launch_split<T, 64, 2>(q, k, v, out, ws, lengths, B, Hkv, G, S,
+                                  n_split, window, scale, st);
+  if (gb == 4)
+    return launch_split<T, 64, 4>(q, k, v, out, ws, lengths, B, Hkv, G, S,
+                                  n_split, window, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace gqa
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(flash::THREADS)
@@ -39,15 +307,25 @@ __global__ void __launch_bounds__(flash::THREADS)
       lengths[blockIdx.x] - 1, window, scale);
 }
 
+// gb (1, 2 or 4 head-group rows per CTA) and n_split come from the
+// wrapper (`ops.decode_splits`). `ws` holds B * Hkv * G * n_split *
+// (hd + 2) floats when n_split > 1 and is not read otherwise. Two
+// launches when n_split > 1 (partials, merge).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                float* out, const int* lengths, int B,
-                                int Hkv, int G, int S, int hd, int window,
-                                float scale, int dtype, void* stream) {
-  const dim3 grid(B, Hkv, (G + flash::ROWS - 1) / flash::ROWS);
+                                float* out, float* ws, const int* lengths,
+                                int B, int Hkv, int G, int S, int hd, int gb,
+                                int n_split, int window, float scale,
+                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(decode_kernel, grid, st, q, k, v, out, lengths, Hkv, G, S,
-                 window, scale);
-  return (int)cudaGetLastError();
+  if (hd != 64 || n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return gqa::dispatch_gb<float>(gb, q, k, v, out, ws, lengths, B, Hkv, G,
+                                   S, n_split, window, scale, st);
+  if (dtype == 1)
+    return gqa::dispatch_gb<__nv_bfloat16>(gb, q, k, v, out, ws, lengths, B,
+                                           Hkv, G, S, n_split, window, scale,
+                                           st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int paged_decode_attention(const void* q, const void* k_pool,

@@ -3,7 +3,8 @@
 and `_paged_decode_kernel`), CPU tensors run the plain versions in
 ``ref.py``. There is no fallback: a CUDA call builds and launches the
 kernel or raises. Each wrapper counts its kernel launches in its
-``launches`` attribute (and nowhere else)."""
+``launches`` attribute (and nowhere else): one per call, also where the
+dense split-KV kernel adds its merge launch."""
 from __future__ import annotations
 
 import ctypes
@@ -16,13 +17,33 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the dense kernel aims for three CTAs per SM of the H100's 132 (at the
+# serving shape, 8 slots x 16 KV heads, that is 4 splits, which beat 1, 2,
+# 3, 6 and 9 in chip_smoke.py's sweep), and gives each split at least
+# MIN_SPLIT_COLS columns of a full-length row
+TARGET_CTAS = 3 * 132
+MIN_SPLIT_COLS = 32
+
+
+def group_rows(G: int) -> int:
+    """Head-group rows per CTA of the dense kernel (1, 2 or 4; a G above
+    4 takes ceil(G / 4) CTAs per KV head and split)."""
+    return G if G <= 2 else 4
+
+
+def decode_splits(B: int, Hkv: int, G: int, S: int) -> int:
+    """KV splits per (slot, KV head, head-group block) of the dense
+    kernel: the least n with B * Hkv * ceil(G / group_rows(G)) * n >=
+    TARGET_CTAS, capped at ceil(S / MIN_SPLIT_COLS). Shapes only, so no
+    per-slot length is ever read back to the host."""
+    units = B * Hkv * -(-G // group_rows(G))
+    return max(1, min(-(-TARGET_CTAS // units), -(-S // MIN_SPLIT_COLS)))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("decode_attention")
-    lib.decode_attention.argtypes = [_P, _P, _P, _P, _P] + [_I] * 6 \
-        + [_F, _I, _P]
+    lib.decode_attention.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
     lib.paged_decode_attention.argtypes = [_P] * 6 + [_I] * 8 \
         + [_F, _I, _P]
     lib.decode_attention.restype = _I
@@ -34,7 +55,9 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                length, window: int = 0) -> torch.Tensor:
     """q [B, H, hd]; caches [B, Hkv, S, hd]; `length` a scalar or a
     per-row [B] vector of valid-prefix counts. Returns [B, H, hd] f32.
-    On the card a row of length 0 returns zeros (its slot is idle)."""
+    On the card a row of length 0 returns zeros (its slot is idle). The
+    kernel splits each row's span over `decode_splits` CTAs and merges
+    their partials, in split order, from a workspace allocated here."""
     if not q.is_cuda:
         return decode_attention_ref(q, k_cache, v_cache, length,
                                     window=window).float()
@@ -46,10 +69,15 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     code = build.attention_args("gqa_decode", q, k_cache, v_cache, hd)
     lengths = build.int_rows(length, B, q.device)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    G = H // Hkv
+    n_split = decode_splits(B, Hkv, G, S)
+    ws = torch.empty((B, H, n_split, hd + 2) if n_split > 1 else (0,),
+                     dtype=torch.float32, device=q.device)
     st = _lib().decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), B, Hkv, H // Hkv, S, hd, int(window),
-        1.0 / hd ** 0.5, code, torch.cuda.current_stream(q.device).cuda_stream)
+        ws.data_ptr(), lengths.data_ptr(), B, Hkv, G, S, hd, group_rows(G),
+        n_split, int(window), 1.0 / hd ** 0.5, code,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(st, "decode_attention")
     gqa_decode.launches += 1
     return out

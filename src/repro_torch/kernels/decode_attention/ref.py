@@ -50,3 +50,50 @@ def paged_decode_attention_ref(q, k_pool, v_pool, tables, length,
     return decode_attention_ref(q, paged_view(k_pool, tables),
                                 paged_view(v_pool, tables), length,
                                 window=window)
+
+
+def decode_split_ranges(length, S: int, window: int, n_split: int):
+    """The dense kernel's column ranges: the valid span of each row,
+    [length - window, length) clipped to [0, S), cut into n_split equal
+    contiguous ranges. Returns (lo, hi) int64 tensors [B, n_split]; a
+    range with lo >= hi holds no column."""
+    lth = torch.as_tensor(length).reshape(-1).long()
+    hi = lth.clamp(max=S)
+    lo = (lth - window).clamp(min=0) if window else torch.zeros_like(lth)
+    span = (hi - lo).clamp(min=0)
+    chunk = (span + n_split - 1) // n_split
+    c_lo = lo[:, None] + torch.arange(n_split)[None] * chunk[:, None]
+    return c_lo, torch.minimum(c_lo + chunk[:, None], hi[:, None])
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, length, window: int = 0,
+                               n_split: int = 1):
+    """Plain mirror of the dense decode kernel's algorithm, for the
+    tests: per split an unnormalised partial (m, l, acc) over its own
+    column range (an empty range gives m = NEG_INF, l = 0, acc = 0), then
+    the partials merged in split order 0..n_split-1. p is rounded to V's
+    dtype before p . V and l sums the unrounded p. Returns [B, H, hd]
+    f32; a row with no valid column returns 0."""
+    B, Hkv, S, hd = k_cache.shape
+    H = q.shape[1]
+    G = H // Hkv
+    qf = q.float().reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, k_cache.float()) / math.sqrt(hd)
+    c_lo, c_hi = decode_split_ranges(length, S, window, n_split)
+    pos = torch.arange(S)
+    parts = []
+    for i in range(n_split):
+        ok = (pos[None] >= c_lo[:, i:i + 1]) & (pos[None] < c_hi[:, i:i + 1])
+        ok = ok[:, None, None, :]                       # [B, 1, 1, S]
+        m = s.masked_fill(~ok, NEG_INF).amax(-1, keepdim=True)
+        p = torch.where(ok, torch.exp(s - m), torch.zeros(()))
+        acc = torch.einsum("bhgs,bhsd->bhgd",
+                           p.to(v_cache.dtype).float(), v_cache.float())
+        parts.append((m, p.sum(-1, keepdim=True), acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum, acc = 0.0, 0.0
+    for m, l, a in parts:
+        c = torch.exp(m - mx)
+        lsum = lsum + l * c
+        acc = acc + a * c
+    return (acc / lsum.clamp(min=1e-30)).reshape(B, H, hd)

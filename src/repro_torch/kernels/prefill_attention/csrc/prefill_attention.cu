@@ -8,12 +8,349 @@
 //                           kernel.py:paged_prefill_attention
 //                           (`_paged_prefill_kernel`)
 //
-// One CTA per (slot b, KV head h, block of 16 of the C*G query rows). Row
-// r sits at position start[b] + r / G and attends columns
-// (qpos - window, qpos]; the loop covers the block's union of those spans
-// and stops at the block's last causal column, so nothing past the chunk
-// is read. Bound by the bytes of the K/V span (see flash_tile.cuh).
+// Dense prefill in bf16 runs on the tensor cores through
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), which is what the Pallas
+// kernel's dots compute (`preferred_element_type=jnp.float32`). Rows are
+// the C*G (chunk position, head-group member) pairs of (slot b, KV head h):
+// row r sits at position start[b] + r / G and attends columns
+// (qpos - window, qpos], clipped to [0, S). Why mma.sync and not wgmma:
+// wgmma works on 64-row tiles, and the serving shape has C*G = 32 rows per
+// (slot, head), so half of such a tile would idle.
+//
+// Design. One CTA of 4 warps per (b, h, block of 16 * WR rows): WR warps
+// each own 16 rows, and the KS = 4 / WR warps of one row group take every
+// KS-th 64-column tile of the group's span, so the CTA keeps its 4 warps
+// busy even at 16 rows. A warp's Q fragments stay in registers for the
+// whole loop. Each warp stages its own K/V tiles in bf16 in shared memory
+// with cp.async (16 bytes a lane), double-buffered, rows XOR-swizzled in
+// 16-byte chunks so that ldmatrix (and ldmatrix.trans for V) is free of
+// bank conflicts; columns outside the group's span are zero-filled, never
+// read. So the column loop has no CTA-wide barrier. Each tile:
+//   S = Q.K^T by mma; scale; mask from qpos; row max and sum in registers
+//   (quad shuffles); P converted to bf16 (this is the reference's
+//   p.astype(v.dtype)); O += P.V by mma.
+// Tiles wholly past the group's last causal column are never visited. At
+// the end the KS partial (m, l, O) of a row group merge through shared
+// memory in warp order, and out = O / max(l, 1e-30) is written in f32. No
+// atomics: the same inputs give the same bits. A row with no valid column
+// returns 0.
+//
+// f32 inputs (not on the serving path; the checks run them at the JAX
+// tolerance of 2e-4, which TF32 mma would break) are dispatched, by dtype,
+// to the CUDA-core body of flash_tile.cuh, as is the paged prefill (K10).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
 #include "flash_tile.cuh"
+
+namespace gqa {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int TILE = 64;                          // KV columns per tile
+constexpr int HD = 64;                            // head dim
+constexpr int TILE_ELEMS = TILE * HD;             // one K or V tile
+constexpr int WARP_SMEM = 2 * 2 * TILE_ELEMS * 2; // 2 stages of K and V
+constexpr int SMEM = WARPS * WARP_SMEM;           // 128 KB
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a . b for one m16n8k16 tile
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// element offset of (row, 16-byte chunk ch) in a swizzled 64-wide tile
+__device__ __forceinline__ int swz(int row, int ch) {
+  return row * HD + ((ch ^ (row & 7)) << 3);
+}
+
+template <int WR>
+__global__ void __launch_bounds__(THREADS, 1)
+    prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       float* __restrict__ out, const int* __restrict__ start,
+                       int Hkv, int G, int C, int S, int window, float scale) {
+  constexpr int KS = WARPS / WR;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp % WR, ks = warp / WR;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int H = Hkv * G, R = C * G;
+  const int r0 = blockIdx.z * 16 * WR + wr * 16;  // first row of the warp
+  const int st = start[b];
+
+  // Q fragments of rows r0 + gid and r0 + gid + 8, straight from global
+  unsigned qf[4][4];
+  long long qrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + gid + 8 * i;
+    qrow[i] = r < R ? ((long long)b * C + r / G) * H + h * G + r % G : -1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // a0..a3: (row i, col half)
+      const int i = j & 1, half = j >> 1;
+      unsigned x = 0;
+      if (qrow[i] >= 0)
+        x = __ldg(reinterpret_cast<const unsigned*>(
+            q + qrow[i] * HD + 16 * kk + 8 * half + 2 * tig));
+      qf[kk][j] = x;
+    }
+  }
+
+  // span of the warp's rows, in columns and in tiles
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qp[i] = st + (r0 + gid + 8 * i) / G;
+  const int r_last = min(r0 + 15, R - 1);
+  const int hi = r0 < R ? min(st + r_last / G + 1, S) : 0;
+  const int lo = window > 0 ? max(st + r0 / G - window + 1, 0) : 0;
+  const int t_lo = lo / TILE;
+  const int t_hi = hi > lo ? (hi + TILE - 1) / TILE : t_lo;
+  const int n_my = t_hi - t_lo > ks ? (t_hi - t_lo - ks + KS - 1) / KS : 0;
+
+  __nv_bfloat16* wbuf = smem + warp * (WARP_SMEM / 2);
+  const long long kv0 = (long long)(b * Hkv + h) * S;
+
+  // stage tile t of K and V into buffer `stage` (zero outside [lo, hi))
+  auto load_tile = [&](int t, int stage) {
+    __nv_bfloat16* ks_ = wbuf + stage * 2 * TILE_ELEMS;
+    __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
+#pragma unroll
+    for (int it = 0; it < TILE * HD / 8 / 32; ++it) {
+      const int i = it * 32 + lane, row = i >> 3, ch = i & 7;
+      const int c = t * TILE + row;
+      const bool in = c >= lo && c < hi;
+      const long long off = in ? (kv0 + c) * HD + ch * 8 : 0;
+      cp_async16(smem_u32(ks_ + swz(row, ch)), k + off, in ? 16 : 0);
+      cp_async16(smem_u32(vs_ + swz(row, ch)), v + off, in ? 16 : 0);
+    }
+  };
+
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {flash::NEG_INF, flash::NEG_INF}, l[2] = {0.f, 0.f};
+
+  if (n_my > 0) load_tile(t_lo + ks, 0);
+  cp_async_commit();
+  for (int i = 0; i < n_my; ++i) {
+    const int t = t_lo + ks + i * KS;
+    if (i + 1 < n_my) load_tile(t + KS, (i + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncwarp();
+    const __nv_bfloat16* ks_ = wbuf + (i & 1) * 2 * TILE_ELEMS;
+    const __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
+
+    // S = Q . K^T: 8 column blocks of 8, 4 depth steps of 16
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        unsigned bk[4];
+        const int row = 8 * n + (lane & 7), ch = 4 * kp + (lane >> 3);
+        ldsm_x4(smem_u32(ks_ + swz(row, ch)), bk);
+        mma16816(s[n], qf[2 * kp], bk[0], bk[1]);
+        mma16816(s[n], qf[2 * kp + 1], bk[2], bk[3]);
+      }
+    }
+
+    // scale, mask, online softmax for rows gid (e 0, 1) and gid + 8 (e 2, 3)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1, c = t * TILE + 8 * n + 2 * tig + (e & 1);
+        const bool ok = qrow[i2] >= 0 && c < S && c <= qp[i2] &&
+                        (window <= 0 || c > qp[i2] - window);
+        const float x = s[n][e] * scale;
+        s[n][e] = ok ? x : -INFINITY;
+        if (ok) mx[i2] = fmaxf(mx[i2], x);
+      }
+    }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 1));
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 2));
+      corr[i2] = expf(m[i2] - mx[i2]);
+      m[i2] = mx[i2];
+    }
+    unsigned pa[4][4];   // P as the A operand of 4 depth steps of 16
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1;
+        p[e] = s[n][e] == -INFINITY ? 0.f : expf(s[n][e] - m[i2]);
+        rs[i2] += p[e];
+      }
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      rs[i2] += __shfl_xor_sync(0xffffffffu, rs[i2], 1);
+      rs[i2] += __shfl_xor_sync(0xffffffffu, rs[i2], 2);
+      l[i2] = l[i2] * corr[i2] + rs[i2];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P . V: 4 depth steps of 16 columns, 8 blocks of 8 dims
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {
+        unsigned bv[4];
+        const int row = 16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int ch = 2 * dp + (lane >> 4);
+        ldsm_x4_t(smem_u32(vs_ + swz(row, ch)), bv);
+        mma16816(o[2 * dp], pa[kk], bv[0], bv[1]);
+        mma16816(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
+      }
+    }
+    __syncwarp();
+  }
+  cp_async_wait0();
+
+  // merge the KS warps of each row group in warp order, then write
+  float* red = reinterpret_cast<float*>(smem_raw);   // reuses the stages
+  constexpr int PART = 16 * HD + 32;                  // floats per warp
+  if (KS > 1) {
+    __syncthreads();
+    float* mine = red + warp * PART;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[(gid + 8 * (e >> 1)) * HD + 8 * n + 2 * tig + (e & 1)] = o[n][e];
+    if (tig == 0) {
+      mine[16 * HD + gid] = m[0];
+      mine[16 * HD + gid + 8] = m[1];
+      mine[16 * HD + 16 + gid] = l[0];
+      mine[16 * HD + 16 + gid + 8] = l[1];
+    }
+    __syncthreads();
+    if (ks != 0) return;
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int r = gid + 8 * i2;
+      float mm = flash::NEG_INF;
+#pragma unroll
+      for (int s2 = 0; s2 < KS; ++s2)
+        mm = fmaxf(mm, red[(wr + s2 * WR) * PART + 16 * HD + r]);
+      float ll = 0.f, c[KS];
+#pragma unroll
+      for (int s2 = 0; s2 < KS; ++s2) {
+        const float* p = red + (wr + s2 * WR) * PART;
+        c[s2] = expf(p[16 * HD + r] - mm);
+        ll += p[16 * HD + 16 + r] * c[s2];
+      }
+      l[i2] = ll;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * n + 2 * tig + e;
+          float a = 0.f;
+#pragma unroll
+          for (int s2 = 0; s2 < KS; ++s2)
+            a += red[(wr + s2 * WR) * PART + r * HD + d] * c[s2];
+          o[n][2 * i2 + e] = a;
+        }
+    }
+  }
+#pragma unroll
+  for (int i2 = 0; i2 < 2; ++i2) {
+    if (qrow[i2] < 0) continue;
+    const float inv = 1.f / fmaxf(l[i2], 1e-30f);
+    float* dst = out + qrow[i2] * HD;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n + 2 * tig) =
+          make_float2(o[n][2 * i2] * inv, o[n][2 * i2 + 1] * inv);
+  }
+}
+
+template <int WR>
+int launch_mma(const void* q, const void* k, const void* v, float* out,
+               const int* start, int B, int Hkv, int G, int C, int S,
+               int window, float scale, cudaStream_t st) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_mma_kernel<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(B, Hkv, (C * G + 16 * WR - 1) / (16 * WR));
+  prefill_mma_kernel<WR><<<grid, THREADS, SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, start, Hkv, G, C, S, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gqa
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(flash::THREADS)
@@ -39,15 +376,30 @@ __global__ void __launch_bounds__(flash::THREADS)
       start[blockIdx.x], window, scale);
 }
 
+// bf16: the tensor-core kernel, with WR = the row warps a CTA needs (1, 2
+// or 4 groups of 16 of the C*G rows); f32: the CUDA-core body.
 extern "C" int prefill_attention(const void* q, const void* k,
                                  const void* v, float* out, const int* start,
                                  int B, int Hkv, int G, int C, int S, int hd,
                                  int window, float scale, int dtype,
                                  void* stream) {
-  const dim3 grid(B, Hkv, (C * G + flash::ROWS - 1) / flash::ROWS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(prefill_kernel, grid, st, q, k, v, out, start, Hkv, G, C, S,
-                 window, scale);
+  if (hd != 64) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int groups = (C * G + 15) / 16;
+    if (groups <= 1)
+      return gqa::launch_mma<1>(q, k, v, out, start, B, Hkv, G, C, S, window,
+                                scale, st);
+    if (groups == 2)
+      return gqa::launch_mma<2>(q, k, v, out, start, B, Hkv, G, C, S, window,
+                                scale, st);
+    return gqa::launch_mma<4>(q, k, v, out, start, B, Hkv, G, C, S, window,
+                              scale, st);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, Hkv, (C * G + flash::ROWS - 1) / flash::ROWS);
+  prefill_kernel<float, 64><<<grid, flash::THREADS, 0, st>>>(
+      q, k, v, out, start, Hkv, G, C, S, window, scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Prefill attention wrappers: CUDA tensors launch the sm_90a kernels in
 ``csrc/prefill_attention.cu`` (which replace the Pallas `_prefill_kernel`
-and `_paged_prefill_kernel`), CPU tensors run the plain versions in
-``ref.py``. There is no fallback: a CUDA call builds and launches the
+and `_paged_prefill_kernel`; dense bf16 runs on the tensor cores),
+CPU tensors run the plain versions in ``ref.py``. There is no fallback: a CUDA call builds and launches the
 kernel or raises. Each wrapper counts its kernel launches in its
 ``launches`` attribute (and nowhere else)."""
 from __future__ import annotations

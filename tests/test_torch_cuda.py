@@ -69,6 +69,87 @@ def test_kernel_matches_plain(kind, g, window, dtype, cuda_device):
                                atol=TOL[dtype])
 
 
+# ragged rows of the redesigned dense kernels (K7 split-KV decode, K9
+# tensor-core prefill): lengths / chunk starts 0, 1, 31, 32, 33 and the
+# last; S not a multiple of the 64-column tile
+RAGGED_S = 100
+
+
+def _dense_case(kind, g, c, window, dtype, dev, seed=0):
+    b, hkv = 6, 2
+    q, k, v = attn_fixture(seed, b, hkv, g, RAGGED_S, 64,
+                           c=None if kind == "decode" else c)
+    last = RAGGED_S if kind == "decode" else RAGGED_S - c
+    rows = torch.tensor([0, 1, 31, 32, 33, last], dtype=torch.int32,
+                        device=dev)
+    q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in (q, k, v))
+    fn, plain = ((dec.gqa_decode, dec_ref.decode_attention_ref)
+                 if kind == "decode"
+                 else (pre.gqa_prefill, pre_ref.prefill_attention_ref))
+    return (lambda: fn(q, k, v, rows, window=window),
+            lambda: plain(q, k, v, rows, window=window).float(), rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_split_decode_matches_plain_at_ragged_lengths(g, window, dtype,
+                                                      cuda_device):
+    """K7 against its plain version at lengths 0/1/31/32/33/S; a row of
+    length 0 is 0 (the plain version averages V there)."""
+    run, plain, rows = _dense_case("decode", g, None, window, dtype,
+                                   cuda_device)
+    before = dec.gqa_decode.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert dec.gqa_decode.launches == before + 1
+    live = rows > 0
+    assert torch.all(got[~live] == 0)
+    torch.testing.assert_close(got[live], plain()[live], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("c", [1, 4, 17, 32])
+def test_mma_prefill_matches_plain_at_ragged_starts(c, g, window, dtype,
+                                                    cuda_device):
+    """K9 against its plain version with chunks starting at 0/1/31/32/33
+    and ending at S."""
+    run, plain, _ = _dense_case("prefill", g, c, window, dtype, cuda_device)
+    before = pre.gqa_prefill.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert pre.gqa_prefill.launches == before + 1
+    torch.testing.assert_close(got, plain(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_dense_kernels_are_bitwise_deterministic(kind, dtype, cuda_device):
+    """Two calls on the same inputs give the same bits (no float atomics;
+    the split partials merge in a fixed order). The serving shape: 8
+    slots, 16 KV heads, S 272, chunk 32."""
+    rng = np.random.default_rng(5)
+    c = None if kind == "decode" else 32
+    qshape = (8, 16, 64) if c is None else (8, c, 16, 64)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(cuda_device, dtype)
+        for sh in (qshape, (8, 16, 272, 64), (8, 16, 272, 64)))
+    if c is None:
+        rows = torch.from_numpy(rng.integers(1, 273, 8).astype(np.int32))
+        fn = dec.gqa_decode
+    else:
+        rows = torch.from_numpy(rng.integers(0, 241, 8).astype(np.int32))
+        fn = pre.gqa_prefill
+    rows = rows.to(cuda_device)
+    a, b = fn(q, k, v, rows), fn(q, k, v, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def test_idle_decode_row_is_zero(cuda_device):
     """A slot of length 0 attends nothing: the kernel returns 0 there
     (the engine discards the row)."""
