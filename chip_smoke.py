@@ -9,30 +9,36 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    versions, and builds the port's CUDA kernels from the checkout's
    sources (one nvcc per source, started together), printing the build
    time and each kernel function's registers and spills; a spill in the
-   dense decode / prefill kernels (namespace `gqa`) fails the run;
+   decode / prefill kernels of namespace `gqa` (dense and paged
+   instances, both of which must be there) fails the run;
 2. holds each serving attention kernel against its plain PyTorch version
    on the card: at the main path's shapes (bf16, 16 KV heads, G 1,
    head dim 64, page 16, ragged lengths, chunks of 4..32), in f32 at the
    same shapes, with GQA (G 4) and with a sliding window. Tolerance
    2e-4 in f32 (the JAX suite's attention tolerance), 2e-2 in bf16 (the
    plain version rounds its logits and output to bf16, each ~2^-8
-   relative). Every variant is run twice and must give the same bits.
-   It prints the dense decode kernel's split count, times each kernel,
-   the dense decode kernel also at split counts 1-9, its plain version
-   and, for the dense layouts,
-   `F.scaled_dot_product_attention` on the same inputs, and computes
-   each kernel's bound from the bytes and operations the inputs need;
+   relative). Every variant is run twice and must give the same bits,
+   and each paged kernel must give its dense twin's bits on the same
+   data (K8 = K7, K10 = K9: one body each, templated on the addressing).
+   It prints the decode kernels' split count, times each kernel, the
+   dense decode kernel also at split counts 1-9, its plain version and,
+   for the dense layouts, `F.scaled_dot_product_attention` on the same
+   inputs (beside each paged kernel: its dense twin and SDPA on the
+   dense copy of its data), and computes each kernel's bound from the
+   bytes and operations the inputs need;
 3. serves qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
    151,936; random weights from --seed) with `ServeEngine`: 24 requests
    of 32-256 prompt and 16-64 new tokens on 8 slots over a fading 10 dB
    radio, greedy, first with the default paged KV and then with the
    dense one. It checks that each run went through its own two kernels,
    once per layer for every decode step and prefill chunk; that the two
-   runs' bills are exactly equal; and that each request's first-chunk
-   logits are finite and agree between the runs and with the
-   teacher-forced `forward` (plain attention, no kernels). It traces 8
-   requests of each run for the device's idle share and the attention
-   kernels' share of the busy time;
+   runs' bills are exactly equal; that both runs generate the same
+   greedy tokens in every request and the same first-chunk logits, bit
+   for bit; and that each request's first-chunk logits are finite and
+   lie within LOGIT_TOL of the teacher-forced `forward` (plain
+   attention, no kernels). It traces 8 requests of each run for the
+   device's idle share and the attention kernels' share of the busy time
+   (a kernel name that matches no traced kernel fails the run);
 4. holds each packed-wire kernel against its plain PyTorch version on the
    card, bit for bit (`torch.equal`): K1 `packed_wire_2d` in its three
    code widths (uint32, int8, int4) at the FL upload's [1080, 256] (3
@@ -114,9 +120,8 @@ L2_BYTES = 50 * 2 ** 20
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # first-chunk logits against the teacher-forced forward: 8 bf16 ulps at
 # the logits' scale (|logit| < 4, one ulp 2^-6). Paged against dense is
-# held to the same bound: the dense pair (split-KV decode, tensor-core
-# prefill) and the paged pair (flash_tile.cuh) are different kernels that
-# sum in different orders, and one bf16 ulp of a logit is already 2^-6
+# checked at this bound and, more strictly, for equal bits: the paged
+# kernels run the dense kernels' bodies in the same order
 LOGIT_TOL = 0.125
 
 
@@ -264,7 +269,7 @@ def kernel_table():
              replaces="src/repro/kernels/decode_attention/kernel.py:151"),
         dict(name="paged_decode_attention", fn=dec.gqa_decode_paged,
              plain=dec_ref.paged_decode_attention_ref, paged=True,
-             prefill=False,
+             prefill=False, twin="decode_attention",
              source=f"{kdir}/decode_attention/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:103"),
         dict(name="prefill_attention", fn=pre.gqa_prefill,
@@ -273,7 +278,7 @@ def kernel_table():
              replaces="src/repro/kernels/prefill_attention/kernel.py:129"),
         dict(name="paged_prefill_attention", fn=pre.gqa_prefill_paged,
              plain=pre_ref.paged_prefill_attention_ref, paged=True,
-             prefill=True,
+             prefill=True, twin="prefill_attention",
              source=f"{kdir}/prefill_attention/csrc/prefill_attention.cu",
              replaces="src/repro/kernels/prefill_attention/kernel.py:81"),
     ]
@@ -324,7 +329,10 @@ def check_kernels(S: int, seed: int) -> tuple:
     main = dict(B=8, Hkv=16, G=1, S=S, hd=64, page=16, window=0)
     from repro_torch.kernels.decode_attention import ops as dec
     failures, out, sweep = [], [], {}
-    for kern in kernel_table():
+    table = kernel_table()
+    by_name = {k["name"]: k for k in table}
+    for kern in table:
+        twin = by_name.get(kern.get("twin"))
         chunks = (4, 8, 16, 32) if kern["prefill"] else (None,)
         variants = [("main", dict(main, C=C, dtype=bf16)) for C in chunks]
         variants += [
@@ -345,22 +353,35 @@ def check_kernels(S: int, seed: int) -> tuple:
             same = bool(torch.equal(got, again))
             ok = bool(torch.isfinite(got).all()) and err <= tol and same
             tag = f"{kern['name']} {label} C={case.C} {case.dtype}"
-            split = ""
-            if kern["name"] == "decode_attention":
+            extra = ""
+            if not kern["prefill"]:
                 n = dec.decode_splits(case.B, case.Hkv, case.G, case.S)
-                split = f", n_split {n}"
+                extra = f", n_split {n}"
+            if twin is not None:    # same data, dense layout
+                same_twin = bool(torch.equal(got, twin["fn"](
+                    *_args(twin, case), window=case.window)))
+                ok = ok and same_twin
+                extra += f", equal to {twin['name']} bit for bit {same_twin}"
             print(f"  check {tag}: max_abs_err {err:.3e} (tol {tol:g}), "
-                  f"same bits twice {same}{split} "
+                  f"same bits twice {same}{extra} "
                   f"{'ok' if ok else 'FAILED'}", flush=True)
             if not ok:
                 failures.append(tag)
             if label == "main":
                 err_main = max(err_main, err)
                 ms = time_case(kern, case)
+                twin_note = ""
+                if twin is not None:    # the dense twin on the same data
+                    tm = time_case(twin, case)
+                    ms.update(twin_ms=tm["ms"], twin_library_ms=tm[
+                        "library_ms"])
+                    twin_note = (f"; dense twin {tm['ms']:.4f} ms "
+                                 f"({ms['ms'] / tm['ms']:.2f}x), SDPA on "
+                                 f"the dense copy {tm['library_ms']:.4f} ms")
                 print(f"  time  {tag}: kernel {ms['ms']:.4f} ms, plain "
                       f"{ms['plain_ms']:.4f} ms, library "
                       f"{ms['library_ms']} ms, bound {ms['bound_ms']:.4f}"
-                      f" ms ({ms['bound_by']})", flush=True)
+                      f" ms ({ms['bound_by']}){twin_note}", flush=True)
                 timed = ms          # the largest chunk (32) is kept
                 if kern["name"] == "decode_attention":
                     sweep = split_sweep(case)
@@ -861,6 +882,9 @@ def serve_phase(seed: int) -> tuple:
         runs[kv] = (rep, firsts, d)
         prof[kv] = profile_phase(eng, RequestTrace(trace.seed,
                                                    trace.requests[:8]), kv)
+        if prof[kv].get("unmatched_kernel_patterns"):
+            failures.append(f"kv={kv}: no traced kernel matches "
+                            f"{prof[kv]['unmatched_kernel_patterns']}")
 
     # the bills are the same, request by request, in both layouts
     def bills(rep):
@@ -872,6 +896,9 @@ def serve_phase(seed: int) -> tuple:
         failures.append("paged and dense bills differ")
     same_tokens = sum(a.tokens == b.tokens
                       for a, b in zip(rp.results, rd.results))
+    if same_tokens != len(rp.results) or len(rp.results) != len(rd.results):
+        failures.append(f"paged and dense greedy tokens differ in "
+                        f"{len(rp.results) - same_tokens} requests")
     print(f"bills equal: {bills(rp) == bills(rd)} ({dp['bits']:.0f} bits, "
           f"{dp['energy_j']:.6e} J); requests with equal tokens paged vs "
           f"dense: {same_tokens}/{len(rp.results)}", flush=True)
@@ -880,11 +907,13 @@ def serve_phase(seed: int) -> tuple:
     if len(fp) != len(fd) or not fp:
         failures.append(f"first chunks: {len(fp)} paged, {len(fd)} dense")
     worst_pd, worst_ref, worst_dref, rel = 0.0, 0.0, 0.0, 0.0
+    equal_logits = True
     with torch.inference_mode():
         for (tp, lp), (td, ld) in zip(fp, fd):
             if not torch.equal(tp, td):
                 failures.append("first chunks differ in tokens")
                 break
+            equal_logits = equal_logits and bool(torch.equal(lp, ld))
             ref = T.forward(params, {"tokens": tp[None]}, cfg)[0][0, -1]
             ref = ref.float()
             if not (torch.isfinite(lp).all() and lp.shape == ref.shape
@@ -898,7 +927,10 @@ def serve_phase(seed: int) -> tuple:
           f"dense| {worst_pd:.3e} (tol {LOGIT_TOL:g}); max |paged - "
           f"forward| {worst_ref:.3e}, max |dense - forward| "
           f"{worst_dref:.3e} (tol {LOGIT_TOL:g}); max relative L2 (paged) "
-          f"{rel:.3e}", flush=True)
+          f"{rel:.3e}; paged == dense bit for bit {equal_logits}",
+          flush=True)
+    if not equal_logits:
+        failures.append("paged and dense first-chunk logits are not equal")
     if worst_pd > LOGIT_TOL:
         failures.append(f"paged vs dense logits differ by {worst_pd}")
     if max(worst_ref, worst_dref) > LOGIT_TOL:
@@ -915,6 +947,7 @@ def serve_phase(seed: int) -> tuple:
                    first_chunk_max_abs_vs_forward=worst_ref,
                    first_chunk_max_abs_dense_vs_forward=worst_dref,
                    token_divergences=ties,
+                   first_chunk_logits_equal=equal_logits,
                    first_chunk_max_rel_l2_vs_forward=rel,
                    equal_token_requests=same_tokens)
     return launches, summary, failures
@@ -1585,15 +1618,20 @@ def profile_train(seed: int) -> dict:
     return _idle_summary(prof, wall_us, "FL cycle")
 
 
-# device kernels of each serving attention path, by a part of their name:
-# K7 is the split pass and its merge, K9 the tensor-core prefill (f32
-# prefill is not on the serving path), K8 / K10 the flash_tile.cuh kernels
+# device kernels of each serving attention path: a traced kernel counts
+# for an entry when its name holds every part of one of the entry's
+# patterns. K7 / K8 are the split pass (templated on the column mapper)
+# and its merge, K9 / K10 the tensor-core prefill (f32 prefill is not on
+# the serving path). A pattern that matches no traced kernel fails the run
 ATTENTION_KERNELS = {
-    "dense": {"decode_attention": ("split_decode_kernel",
-                                   "merge_splits_kernel"),
-              "prefill_attention": ("prefill_mma_kernel",)},
-    "paged": {"paged_decode_attention": ("paged_decode_kernel",),
-              "paged_prefill_attention": ("paged_prefill_kernel",)}}
+    "dense": {"decode_attention": (("split_decode_kernel", "DenseCols"),
+                                   ("merge_splits_kernel",)),
+              "prefill_attention": (("prefill_mma_kernel", "DenseCols"),)},
+    "paged": {"paged_decode_attention": (("split_decode_kernel",
+                                          "PagedCols"),
+                                         ("merge_splits_kernel",)),
+              "paged_prefill_attention": (("prefill_mma_kernel",
+                                           "PagedCols"),)}}
 
 
 def profile_phase(eng, trace, kv: str) -> dict:
@@ -1601,7 +1639,9 @@ def profile_phase(eng, trace, kv: str) -> dict:
     (tracing slows the host, so the end-to-end numbers come from the
     untraced runs): the share of the traced wall time in which a kernel
     ran on the card, device time by kernel, host time by op, and each
-    attention kernel's share of the device's busy time."""
+    attention kernel's share of the device's busy time. Patterns of
+    ATTENTION_KERNELS that match no traced kernel are listed under
+    "unmatched_kernel_patterns"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1616,9 +1656,13 @@ def profile_phase(eng, trace, kv: str) -> dict:
     out["cycles"] = rep.cycles
     if "device_us_by_kernel" in out:
         busy_us = out["device_busy_s"] * 1e6
-        for name, parts in ATTENTION_KERNELS[kv].items():
-            us = sum(t for k, (n, t) in out["device_us_by_kernel"].items()
-                     if any(p in k for p in parts))
+        names = out["device_us_by_kernel"]
+        out["unmatched_kernel_patterns"] = [
+            pat for pats in ATTENTION_KERNELS[kv].values() for pat in pats
+            if not any(all(p in k for p in pat) for k in names)]
+        for name, pats in ATTENTION_KERNELS[kv].items():
+            us = sum(t for k, (n, t) in names.items()
+                     if any(all(p in k for p in pat) for pat in pats))
             out[f"{name}_share_of_busy"] = us / busy_us
             print(f"  {name}: {us / 1e3:.3f} ms of the device's busy "
                   f"{busy_us / 1e3:.3f} ms = {us / busy_us:.4f}", flush=True)
@@ -1699,21 +1743,30 @@ def main() -> None:
     from repro_torch.kernels import build
     secs, logs = build.build_all()
     print(f"kernel build: {secs:.2f} s for {sorted(logs)}", flush=True)
-    spilled = []
-    for lib, fn, regs, spill in ptxas_usage(logs):
+    spilled, usage = [], ptxas_usage(logs)
+    for lib, fn, regs, spill in usage:
         print(f"  {lib}: {fn}: {regs} registers, spill stores/loads "
               f"{spill[0]}/{spill[1]} bytes")
         if "gqa" in fn and any(spill):
             spilled.append(fn)
     if spilled:
-        fail(f"the dense attention kernels spill registers: {spilled}")
+        fail(f"the attention kernels spill registers: {spilled}")
+    for body in ("split_decode_kernel", "prefill_mma_kernel"):
+        for cols in ("DenseCols", "PagedCols"):
+            if not any("gqa" in fn and body in fn and cols in fn
+                       for _, fn, _, _ in usage):
+                fail(f"no {body} instance over {cols} in the build log: "
+                     f"the spill check did not see it")
 
     from repro_torch.serve import make_trace
     S = max(8, make_trace(args.seed, 24, prompt_lens=(32, 256),
                           new_tokens=(16, 64)).max_seq_len())
     S = 16 * math.ceil(S / 16)
     print(f"kernel checks at the main path's shapes (S {S})", flush=True)
+    t_check = time.perf_counter()
     rows, failures, sweep = check_kernels(S, args.seed)
+    print(f"attention kernel checks: {time.perf_counter() - t_check:.1f} s",
+          flush=True)
     print("packed-wire kernel checks at the training path's shapes",
           flush=True)
     wire_rows, wire_failures = check_wire_kernels(args.seed)
@@ -1721,7 +1774,10 @@ def main() -> None:
     print("K3 / K4 checks at the tiny model's shapes", flush=True)
     tiny_rows, tiny_summary, tiny_failures = check_tiny_kernels(args.seed)
     failures += tiny_failures
+    t_serve = time.perf_counter()
     launches, summary, serve_failures = serve_phase(args.seed)
+    print(f"serving phase: {time.perf_counter() - t_serve:.1f} s",
+          flush=True)
     failures += serve_failures
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)

@@ -83,10 +83,13 @@ def _finish(job) -> str:
 
 def build_all(names=None) -> tuple[float, dict]:
     """Build every kernel library not built yet, all `nvcc`s in
-    parallel. Returns (wall seconds, {name: compiler output})."""
+    parallel. Returns (wall seconds, {name: compiler output}); a library
+    built earlier gives the output saved beside it."""
     t0 = time.perf_counter()
     jobs = {n: _start(n) for n in (names or SOURCES)}
-    logs = {n: _finish(j) for n, j in jobs.items() if j is not None}
+    logs = {n: _finish(j) if j is not None
+            else library_path(n).with_suffix(".log").read_text()
+            for n, j in jobs.items()}
     return time.perf_counter() - t0, logs
 
 

@@ -1,44 +1,36 @@
-// Shared body of the paged serving attention kernels (paged decode, paged
-// chunk prefill) and of f32 dense chunk prefill: a block of query rows of
-// one (slot b, KV head h) attends its causal span of KV columns with an
-// online softmax. Dense decode (split-KV) and bf16 dense prefill (tensor
-// cores) have their own bodies in decode_attention.cu and
-// prefill_attention.cu.
+// f32 chunk prefill, dense cache or paged pool: the CUDA-core body that
+// prefill_attention.cu dispatches float32 inputs to (the bf16 kernels run
+// on the tensor cores; TF32 mma would break the f32 tolerance of 2e-4).
+// It is not on the serving path, which runs bf16. A block of query rows
+// of one (slot b, KV head h) attends its causal span of KV columns with an
+// online softmax; where column c lives is the template parameter `Cols`
+// (kv_cols.cuh), so the dense and the paged instance give the same bits
+// on the same data.
 //
-// Replaces the TPU kernels' per-grid-step body (`_decode_kernel`,
-// `_paged_decode_kernel` in repro/kernels/decode_attention/kernel.py and
-// `_prefill_kernel`, `_paged_prefill_kernel` in
-// repro/kernels/prefill_attention/kernel.py). What it computes is theirs:
+// Replaces, for f32, the TPU kernels' per-grid-step body (`_prefill_kernel`,
+// `_paged_prefill_kernel` in repro/kernels/prefill_attention/kernel.py).
+// What it computes is theirs:
 //   s = (q . k) * scale accumulated in f32; masked to NEG_INF outside
 //   kpos <= qpos (and kpos > qpos - window); running (m, l, acc) in f32;
-//   p = exp(s - m_new); l += sum(p) in f32; acc += round_to_V_dtype(p) . V;
+//   p = exp(s - m_new); l += sum(p); acc += p . V;
 //   out = acc / max(l, 1e-30), written as f32.
 // Query row r of a block is chunk position c = r / G, head-group member
-// g = r % G, at global position qpos0 + c; q and out are [B, C, H, hd]
-// with H = Hkv * G, so the kernel reads the model's own layout (no
-// transposes or TPU padding around the call).
+// g = r % G, at global position start[b] + c; q and out are [B, C, H, hd]
+// with H = Hkv * G, the model's own layout.
 //
-// Design on the H100. The TPU walks KV blocks as a sequential grid axis
-// and carries (m, l, acc) in VMEM scratch; here one CTA (128 threads) per
-// (b, h, block of ROWS query rows) loops over its KV span itself, keeping
-// m and l in shared memory and acc in registers. The loop starts at the
-// window's first column and stops at the block's last causal column, so
-// only the valid prefix is read: columns past a slot's length (placeholder
-// pages, stale cache) are never touched. A row with no valid column at all
-// (an inactive decode slot, length 0) gets 0, where the TPU kernel averages
-// V uniformly; callers discard those rows.
-//
-// What bounds it: bytes. Each K/V element is used by at most C*G query
-// rows (1 at decode), far below the ~295 operations per byte at which the
-// H100's bf16 tensor cores, not HBM, would be the limit, so the least time
-// is the K/V prefix over 3.35 TB/s. The design reads every K/V element of
-// the span once per CTA, coalesced, into shared memory, and does the
-// arithmetic on CUDA cores in f32. It does not split the KV span across
-// SMs or use the tensor cores, as the dense bodies do.
+// Design. One CTA (128 threads) per (b, h, block of ROWS query rows)
+// loops over its KV span in TILE-column tiles, keeping m and l in shared
+// memory and acc in registers, with four CTA barriers a tile. The loop
+// starts at the window's first column and stops at the block's last
+// causal column, so only the valid prefix is read. A row with no valid
+// column gets 0. What bounds it is bytes, as for the bf16 kernels; this
+// body reads its span once per CTA into shared memory and does the
+// arithmetic on CUDA cores, and is not tuned further.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "kv_cols.cuh"
 
 namespace flash {
 
@@ -47,54 +39,15 @@ constexpr int ROWS = 16;       // query rows per CTA
 constexpr int TILE = 32;       // KV columns per loop step (one per lane)
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// p rounded to V's dtype before p . V, as the TPU kernels do.
-template <typename T> __device__ __forceinline__ float round_as(float x);
-template <> __device__ __forceinline__ float round_as<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Dense cache [B, Hkv, S, hd]: logical column c of (b, h) is row
-// (b*Hkv + h)*S + c.
-struct DenseCols {
-  int S;
-  __device__ __forceinline__ long long row(int b, int h, int Hkv,
-                                           int c) const {
-    return (long long)(b * Hkv + h) * S + c;
-  }
-  __device__ __forceinline__ int n_cols() const { return S; }
-};
-
-// Paged pool [n_pages, Hkv, page, hd] through tables [B, n_lp]: logical
-// column c of (b, h) is pool page tables[b, c / page] (clamped into the
-// pool), offset c % page. The CTA reads its own table entries.
-struct PagedCols {
-  const int* __restrict__ tables;
-  int n_lp, page, n_pages;
-  __device__ __forceinline__ long long row(int b, int h, int Hkv,
-                                           int c) const {
-    int pid = tables[(long long)b * n_lp + c / page];
-    pid = min(max(pid, 0), n_pages - 1);
-    return ((long long)pid * Hkv + h) * page + c % page;
-  }
-  __device__ __forceinline__ int n_cols() const { return n_lp * page; }
-};
-
 // One CTA: query rows [blockIdx.z*ROWS, +ROWS) of (b, h) = (blockIdx.x,
 // blockIdx.y); R = C*G rows in all.
-template <typename T, int HD, typename Cols>
-__device__ __forceinline__ void attend_rows(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, float* __restrict__ out, const Cols cols,
-    int Hkv, int G, int C, int qpos0, int window, float scale) {
+template <int HD, typename Cols>
+__global__ void __launch_bounds__(THREADS)
+    prefill_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       const int* __restrict__ start, const Cols cols,
+                       int Hkv, int G, int C, int window, float scale) {
   static_assert(THREADS % HD == 0 || HD % THREADS == 0, "HD vs THREADS");
   constexpr int PER = ROWS * HD / THREADS;  // accumulators per thread
   constexpr int RSTEP = THREADS / HD;       // row stride between them
@@ -103,17 +56,19 @@ __device__ __forceinline__ void attend_rows(
   __shared__ float vs[TILE][HD];
   __shared__ float ps[ROWS][TILE];
   __shared__ float m_s[ROWS], l_s[ROWS], corr_s[ROWS];
+  extern __shared__ long long page_base[];  // paged: the span's pages
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = Hkv * G, R = C * G, r0 = blockIdx.z * ROWS;
+  const int qpos0 = start[b];
 
   for (int i = tid; i < ROWS * HD; i += THREADS) {
     const int r = i / HD, d = i % HD, rr = r0 + r;
     float x = 0.f;
     if (rr < R) {
       const int c = rr / G, g = rr % G;
-      x = to_f(q[(((long long)b * C + c) * H + h * G + g) * HD + d]);
+      x = q[(((long long)b * C + c) * H + h * G + g) * HD + d];
     }
     qs[r][d] = x;
   }
@@ -128,6 +83,7 @@ __device__ __forceinline__ void attend_rows(
   const int hi = min(qhi + 1, cols.n_cols());
   int lo = window > 0 ? max(qlo - window + 1, 0) : 0;
   lo = (lo / TILE) * TILE;
+  const auto rows = cols.rows(b, h, Hkv, lo, hi, page_base);
 
   const int d_own = tid % HD, r_own = tid / HD;
   float acc[PER];
@@ -140,9 +96,9 @@ __device__ __forceinline__ void attend_rows(
       const int j = i / HD, d = i % HD, c = c0 + j;
       float kx = 0.f, vx = 0.f;
       if (c < hi) {
-        const long long off = cols.row(b, h, Hkv, c) * HD + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        const long long off = rows(c) * HD + d;
+        kx = k[off];
+        vx = v[off];
       }
       ks[j][d] = kx;
       vs[j][d] = vx;
@@ -177,7 +133,7 @@ __device__ __forceinline__ void attend_rows(
 #pragma unroll
       for (int o = 16; o; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      ps[r][lane] = round_as<T>(p);
+      ps[r][lane] = p;
       __syncwarp();
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
@@ -211,19 +167,24 @@ __device__ __forceinline__ void attend_rows(
   }
 }
 
-}  // namespace flash
+// Launches the f32 body (head dim 64, the only one the port's configs
+// use); `smem_pages` entries of dynamic shared memory for the mapper.
+template <typename Cols>
+int launch_prefill(const float* q, const float* k, const float* v,
+                   float* out, const int* start, const Cols cols,
+                   int smem_pages, int B, int Hkv, int G, int C, int window,
+                   float scale, cudaStream_t st) {
+  const int smem = smem_pages * (int)sizeof(long long);
+  if (smem > 0) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        prefill_f32_kernel<64, Cols>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  const dim3 grid(B, Hkv, (C * G + ROWS - 1) / ROWS);
+  prefill_f32_kernel<64, Cols><<<grid, THREADS, smem, st>>>(
+      q, k, v, out, start, cols, Hkv, G, C, window, scale);
+  return (int)cudaGetLastError();
+}
 
-// Instantiates `KERNEL<T, 64>` for the dtype and launches it; dtype 0 =
-// float32, 1 = bfloat16. Head dim 64 is the only one the port's configs
-// use; other values return cudaErrorInvalidValue (the Python wrappers
-// reject them first).
-#define FLASH_DISPATCH(KERNEL, GRID, STREAM, ...)                          \
-  do {                                                                     \
-    if (dtype == 0 && hd == 64)                                            \
-      KERNEL<float, 64><<<GRID, flash::THREADS, 0, STREAM>>>(__VA_ARGS__); \
-    else if (dtype == 1 && hd == 64)                                       \
-      KERNEL<__nv_bfloat16, 64><<<GRID, flash::THREADS, 0, STREAM>>>(      \
-          __VA_ARGS__);                                                    \
-    else                                                                   \
-      return (int)cudaErrorInvalidValue;                                   \
-  } while (0)
+}  // namespace flash

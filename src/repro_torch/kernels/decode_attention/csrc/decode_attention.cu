@@ -6,14 +6,18 @@
 //   paged_decode_attention replaces repro/kernels/decode_attention/kernel.py
 //                          :paged_decode_attention (`_paged_decode_kernel`)
 //
-// Dense decode: split-KV ("flash-decoding"). What bounds it is the bytes
+// Both run one body, split-KV ("flash-decoding"), templated on where
+// column c of (slot b, KV head h) lives (kv_cols.cuh): the dense cache or
+// the paged pool through the slot's page table. The arithmetic and its
+// order are the same in both, so on the same data (n_lp * page = S) the
+// paged kernel gives the dense kernel's bits. What bounds it is the bytes
 // of the K/V prefix: each K/V element meets G query rows (1 at the serving
 // shape), far below the ~295 operations per byte at which the tensor cores
 // would be the limit. So the design is about keeping bytes in flight on
 // every SM:
 //   - grid (B, Hkv * n_gblk, n_split): the valid span of row b, [len - win,
-//     len) clipped to [0, S), is cut into n_split equal contiguous ranges,
-//     one per CTA (a range may be empty). The wrapper picks n_split from
+//     len) clipped to [0, S) (S = n_lp * page when paged), is cut into
+//     n_split equal contiguous ranges, one per CTA (a range may be empty). The wrapper picks n_split from
 //     the shapes alone, so nothing is read back to the host. n_gblk
 //     blocks of GB head-group rows cover G.
 //   - no CTA-wide barrier in the column loop. The GB query rows live in
@@ -28,23 +32,34 @@
 //     otherwise it writes an unnormalised partial (acc, m, l) to a
 //     workspace [B, H, n_split, HD + 2] f32, and a second small launch
 //     merges the partials in split order 0..n_split-1.
+//   - paged: before the loop the CTA stages the row base of each page of
+//     its split's range in shared memory (one table read per page, one
+//     barrier); the loop's loads then wait on no table read.
 // No float atomics anywhere: the same inputs give the same bits. What it
 // computes is the Pallas kernel's: s = (q . k) * scale in f32; running
 // (m, l, acc) in f32; p = exp(s - m); l sums the unrounded p; p rounded to
 // V's dtype before p . V; out = acc / max(l, 1e-30) in f32. A row with no
 // valid column (an idle slot, length 0) returns 0.
-//
-// Paged decode (K8) still runs the shared body of flash_tile.cuh: one CTA
-// per (slot, KV head) walking its pages through the slot's table row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "flash_tile.cuh"
+#include "kv_cols.cuh"
 
 namespace gqa {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
+constexpr float NEG_INF = -1e30f;
+
+// p rounded to V's dtype before p . V, as the TPU kernels do
+template <typename T> __device__ __forceinline__ float round_as(float x);
+template <> __device__ __forceinline__ float round_as<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // 16 bytes of T as floats (8 bf16 or 4 f32)
 __device__ __forceinline__ void unpack16(const uint4& r, float (&x)[8]) {
@@ -64,13 +79,13 @@ __device__ __forceinline__ void unpack16(const uint4& r, float (&x)[4]) {
 
 // One CTA: head-group rows [g0, g0 + GB) of (slot b, KV head h), columns
 // of split blockIdx.z.
-template <typename T, int HD, int GB>
+template <typename T, int HD, int GB, typename Cols>
 __global__ void __launch_bounds__(THREADS)
     split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, float* __restrict__ out,
                         float* __restrict__ ws, const int* __restrict__ lengths,
-                        int Hkv, int G, int S, int n_split, int window,
-                        float scale) {
+                        const Cols cols, int Hkv, int G, int n_split,
+                        int window, float scale) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int LPC = HD / VEC;         // lanes per column
   constexpr int CPW = 32 / LPC;         // columns per warp load
@@ -80,6 +95,7 @@ __global__ void __launch_bounds__(THREADS)
 
   __shared__ float sm_acc[WARPS][GB][HD];
   __shared__ float sm_m[WARPS][GB], sm_l[WARPS][GB];
+  extern __shared__ long long page_base[];   // paged: this split's pages
 
   const int n_gblk = (G + GB - 1) / GB;
   const int b = blockIdx.x, h = blockIdx.y / n_gblk;
@@ -90,7 +106,7 @@ __global__ void __launch_bounds__(THREADS)
 
   // valid span of the row, then this split's share of it
   const int len = lengths[b];
-  const int hi = min(len, S);
+  const int hi = min(len, cols.n_cols());
   const int lo = window > 0 ? max(len - window, 0) : 0;
   const int span = max(hi - lo, 0);
   const int chunk = (span + n_split - 1) / n_split;
@@ -113,13 +129,13 @@ __global__ void __launch_bounds__(THREADS)
   float m[GB], l[GB], acc[GB][VEC];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
-    m[g] = flash::NEG_INF;
+    m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
-  const long long kv0 = (long long)(b * Hkv + h) * S;
+  const auto rows = cols.rows(b, h, Hkv, c_lo, c_hi, page_base);
   for (int base = c_lo; base < c_hi; base += STEP) {
     uint4 kr[U], vr[U];
     bool ok[U];
@@ -129,7 +145,7 @@ __global__ void __launch_bounds__(THREADS)
       ok[u] = c < c_hi;
       kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
       if (ok[u]) {
-        const long long off = (kv0 + c) * HD + d0;
+        const long long off = rows(c) * HD + d0;
         kr[u] = __ldg(reinterpret_cast<const uint4*>(k + off));
         vr[u] = __ldg(reinterpret_cast<const uint4*>(v + off));
       }
@@ -171,7 +187,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < VEC; ++e) {
         float a = acc[g][e] * corr;
 #pragma unroll
-        for (int u = 0; u < U; ++u) a += flash::round_as<T>(p[u]) * vx[u][e];
+        for (int u = 0; u < U; ++u) a += round_as<T>(p[u]) * vx[u][e];
         acc[g][e] = a;
       }
       m[g] = m_new;
@@ -213,7 +229,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = threadIdx.x; i < GB * HD; i += THREADS) {
     const int g = i / HD, d = i % HD;
     if (g0 + g >= G) continue;
-    float mx = flash::NEG_INF;
+    float mx = NEG_INF;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
     float lsum = 0.f, a = 0.f;
@@ -246,7 +262,7 @@ __global__ void __launch_bounds__(256)
   if (i >= rows * HD) return;
   const int row = i / HD, d = i % HD;
   const float* p = ws + (long long)row * n_split * (HD + 2);
-  float mx = flash::NEG_INF;
+  float mx = NEG_INF;
   for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, p[s * (HD + 2) + HD]);
   float lsum = 0.f, a = 0.f;
   for (int s = 0; s < n_split; ++s) {
@@ -258,15 +274,17 @@ __global__ void __launch_bounds__(256)
   out[i] = a / fmaxf(lsum, 1e-30f);
 }
 
-template <typename T, int HD, int GB>
+template <typename T, int HD, int GB, typename Cols>
 int launch_split(const void* q, const void* k, const void* v, float* out,
-                 float* ws, const int* lengths, int B, int Hkv, int G, int S,
-                 int n_split, int window, float scale, cudaStream_t st) {
+                 float* ws, const int* lengths, const Cols cols,
+                 int smem_pages, int B, int Hkv, int G, int n_split,
+                 int window, float scale, cudaStream_t st) {
   const dim3 grid(B, Hkv * ((G + GB - 1) / GB), n_split);
-  split_decode_kernel<T, HD, GB><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, ws, lengths, Hkv, G, S, n_split, window,
-      scale);
+  split_decode_kernel<T, HD, GB, Cols>
+      <<<grid, THREADS, smem_pages * sizeof(long long), st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), out, ws, lengths, cols, Hkv, G, n_split,
+          window, scale);
   if (n_split > 1) {
     const int rows = B * Hkv * G;
     merge_splits_kernel<HD><<<(rows * HD + 255) / 256, 256, 0, st>>>(
@@ -275,37 +293,41 @@ int launch_split(const void* q, const void* k, const void* v, float* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Cols>
 int dispatch_gb(int gb, const void* q, const void* k, const void* v,
-                float* out, float* ws, const int* lengths, int B, int Hkv,
-                int G, int S, int n_split, int window, float scale,
-                cudaStream_t st) {
-  if (gb == 1)
-    return launch_split<T, 64, 1>(q, k, v, out, ws, lengths, B, Hkv, G, S,
-                                  n_split, window, scale, st);
-  if (gb == 2)
-    return launch_split<T, 64, 2>(q, k, v, out, ws, lengths, B, Hkv, G, S,
-                                  n_split, window, scale, st);
-  if (gb == 4)
-    return launch_split<T, 64, 4>(q, k, v, out, ws, lengths, B, Hkv, G, S,
-                                  n_split, window, scale, st);
+                float* out, float* ws, const int* lengths, const Cols cols,
+                int smem_pages, int B, int Hkv, int G, int n_split,
+                int window, float scale, cudaStream_t st) {
+#define GQA_SPLIT(GBV)                                                      \
+  launch_split<T, 64, GBV, Cols>(q, k, v, out, ws, lengths, cols,          \
+                                 smem_pages, B, Hkv, G, n_split, window,    \
+                                 scale, st)
+  if (gb == 1) return GQA_SPLIT(1);
+  if (gb == 2) return GQA_SPLIT(2);
+  if (gb == 4) return GQA_SPLIT(4);
+#undef GQA_SPLIT
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename Cols>
+int dispatch(int dtype, int gb, const void* q, const void* k, const void* v,
+             float* out, float* ws, const int* lengths, const Cols cols,
+             int smem_pages, int B, int Hkv, int G, int hd, int n_split,
+             int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd != 64 || n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return dispatch_gb<float>(gb, q, k, v, out, ws, lengths, cols,
+                              smem_pages, B, Hkv, G, n_split, window, scale,
+                              st);
+  if (dtype == 1)
+    return dispatch_gb<__nv_bfloat16>(gb, q, k, v, out, ws, lengths, cols,
+                                      smem_pages, B, Hkv, G, n_split, window,
+                                      scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace gqa
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(flash::THREADS)
-    paged_decode_kernel(const void* q, const void* k, const void* v,
-                        float* out, const int* tables, const int* lengths,
-                        int Hkv, int G, int n_pages, int page, int n_lp,
-                        int window, float scale) {
-  flash::attend_rows<T, HD>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out,
-      flash::PagedCols{tables, n_lp, page, n_pages}, Hkv, G, 1,
-      lengths[blockIdx.x] - 1, window, scale);
-}
 
 // gb (1, 2 or 4 head-group rows per CTA) and n_split come from the
 // wrapper (`ops.decode_splits`). `ws` holds B * Hkv * G * n_split *
@@ -316,28 +338,24 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int B, int Hkv, int G, int S, int hd, int gb,
                                 int n_split, int window, float scale,
                                 int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 64 || n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return gqa::dispatch_gb<float>(gb, q, k, v, out, ws, lengths, B, Hkv, G,
-                                   S, n_split, window, scale, st);
-  if (dtype == 1)
-    return gqa::dispatch_gb<__nv_bfloat16>(gb, q, k, v, out, ws, lengths, B,
-                                           Hkv, G, S, n_split, window, scale,
-                                           st);
-  return (int)cudaErrorInvalidValue;
+  return gqa::dispatch(dtype, gb, q, k, v, out, ws, lengths, kv::DenseCols{S},
+                       0, B, Hkv, G, hd, n_split, window, scale, stream);
 }
 
+// The same kernel over the paged pool; n_split and gb from the wrapper as
+// for the dense cache, with S = n_lp * page.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool,
                                       const void* v_pool, float* out,
-                                      const int* tables, const int* lengths,
-                                      int B, int Hkv, int G, int n_pages,
-                                      int page, int n_lp, int hd, int window,
+                                      float* ws, const int* tables,
+                                      const int* lengths, int B, int Hkv,
+                                      int G, int n_pages, int page, int n_lp,
+                                      int hd, int gb, int n_split, int window,
                                       float scale, int dtype, void* stream) {
-  const dim3 grid(B, Hkv, (G + flash::ROWS - 1) / flash::ROWS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(paged_decode_kernel, grid, st, q, k_pool, v_pool, out,
-                 tables, lengths, Hkv, G, n_pages, page, n_lp, window,
-                 scale);
-  return (int)cudaGetLastError();
+  if (page < 1 || n_split < 1 || n_pages < 1)
+    return (int)cudaErrorInvalidValue;
+  const int S = n_lp * page;
+  const int pages = kv::max_pages((S + n_split - 1) / n_split, page, n_lp);
+  return gqa::dispatch(dtype, gb, q, k_pool, v_pool, out, ws, lengths,
+                       kv::PagedCols{tables, n_lp, page, n_pages}, pages, B,
+                       Hkv, G, hd, n_split, window, scale, stream);
 }

@@ -4,7 +4,10 @@ and `_paged_decode_kernel`), CPU tensors run the plain versions in
 ``ref.py``. There is no fallback: a CUDA call builds and launches the
 kernel or raises. Each wrapper counts its kernel launches in its
 ``launches`` attribute (and nowhere else): one per call, also where the
-dense split-KV kernel adds its merge launch."""
+split-KV kernel adds its merge launch. Dense and paged run the same
+split-KV kernel, templated on where a KV column lives, with the same
+split count for the same S (= n_lp * page when paged), so on the same
+data they give the same bits."""
 from __future__ import annotations
 
 import ctypes
@@ -17,7 +20,7 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the dense kernel aims for three CTAs per SM of the H100's 132 (at the
+# the kernel aims for three CTAs per SM of the H100's 132 (at the
 # serving shape, 8 slots x 16 KV heads, that is 4 splits, which beat 1, 2,
 # 3, 6 and 9 in chip_smoke.py's sweep), and gives each split at least
 # MIN_SPLIT_COLS columns of a full-length row
@@ -26,16 +29,17 @@ MIN_SPLIT_COLS = 32
 
 
 def group_rows(G: int) -> int:
-    """Head-group rows per CTA of the dense kernel (1, 2 or 4; a G above
+    """Head-group rows per CTA of the kernel (1, 2 or 4; a G above
     4 takes ceil(G / 4) CTAs per KV head and split)."""
     return G if G <= 2 else 4
 
 
 def decode_splits(B: int, Hkv: int, G: int, S: int) -> int:
-    """KV splits per (slot, KV head, head-group block) of the dense
-    kernel: the least n with B * Hkv * ceil(G / group_rows(G)) * n >=
-    TARGET_CTAS, capped at ceil(S / MIN_SPLIT_COLS). Shapes only, so no
-    per-slot length is ever read back to the host."""
+    """KV splits per (slot, KV head, head-group block) of the kernel
+    (S = n_lp * page when paged): the least n with B * Hkv *
+    ceil(G / group_rows(G)) * n >= TARGET_CTAS, capped at
+    ceil(S / MIN_SPLIT_COLS). Shapes only, so no per-slot length is
+    ever read back to the host."""
     units = B * Hkv * -(-G // group_rows(G))
     return max(1, min(-(-TARGET_CTAS // units), -(-S // MIN_SPLIT_COLS)))
 
@@ -44,7 +48,7 @@ def decode_splits(B: int, Hkv: int, G: int, S: int) -> int:
 def _lib():
     lib = build.load("decode_attention")
     lib.decode_attention.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
-    lib.paged_decode_attention.argtypes = [_P] * 6 + [_I] * 8 \
+    lib.paged_decode_attention.argtypes = [_P] * 7 + [_I] * 10 \
         + [_F, _I, _P]
     lib.decode_attention.restype = _I
     lib.paged_decode_attention.restype = _I
@@ -88,7 +92,8 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                      window: int = 0) -> torch.Tensor:
     """q [B, H, hd]; pools [n_pages, Hkv, page, hd]; `tables` [B, n_lp]
     per-slot page tables; `length` scalar or per-row [B] valid-prefix
-    counts. Returns [B, H, hd] f32."""
+    counts. Returns [B, H, hd] f32. The dense kernel's split-KV body
+    with S = n_lp * page; page ids are clamped into the pool."""
     if not q.is_cuda:
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, length,
                                           window=window).float()
@@ -101,10 +106,15 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     tbl = build.int_table(tables, B, q.device)
     lengths = build.int_rows(length, B, q.device)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    G, n_lp = H // Hkv, tbl.shape[1]
+    n_split = decode_splits(B, Hkv, G, n_lp * page)
+    ws = torch.empty((B, H, n_split, hd + 2) if n_split > 1 else (0,),
+                     dtype=torch.float32, device=q.device)
     st = _lib().paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-        tbl.data_ptr(), lengths.data_ptr(), B, Hkv, H // Hkv, n_pages, page,
-        tbl.shape[1], hd, int(window), 1.0 / hd ** 0.5, code,
+        ws.data_ptr(), tbl.data_ptr(), lengths.data_ptr(), B, Hkv, G,
+        n_pages, page, n_lp, hd, group_rows(G), n_split, int(window),
+        1.0 / hd ** 0.5, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(st, "paged_decode_attention")
     gqa_decode_paged.launches += 1

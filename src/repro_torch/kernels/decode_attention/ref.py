@@ -97,3 +97,15 @@ def decode_attention_split_ref(q, k_cache, v_cache, length, window: int = 0,
         lsum = lsum + l * c
         acc = acc + a * c
     return (acc / lsum.clamp(min=1e-30)).reshape(B, H, hd)
+
+
+def paged_decode_attention_split_ref(q, k_pool, v_pool, tables, length,
+                                     window: int = 0, n_split: int = 1):
+    """Plain mirror of the paged decode kernel, for the tests: the dense
+    mirror over the pool's columns as the kernel addresses them, S =
+    n_lp * page and page ids clamped into [0, n_pages). Returns
+    [B, H, hd] f32; a row with no valid column returns 0."""
+    ids = torch.as_tensor(tables).long().clamp(0, k_pool.shape[0] - 1)
+    return decode_attention_split_ref(q, paged_view(k_pool, ids),
+                                      paged_view(v_pool, ids), length,
+                                      window=window, n_split=n_split)

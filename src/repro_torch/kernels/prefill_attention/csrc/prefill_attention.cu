@@ -8,19 +8,24 @@
 //                           kernel.py:paged_prefill_attention
 //                           (`_paged_prefill_kernel`)
 //
-// Dense prefill in bf16 runs on the tensor cores through
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate), which is what the Pallas
-// kernel's dots compute (`preferred_element_type=jnp.float32`). Rows are
-// the C*G (chunk position, head-group member) pairs of (slot b, KV head h):
-// row r sits at position start[b] + r / G and attends columns
-// (qpos - window, qpos], clipped to [0, S). Why mma.sync and not wgmma:
-// wgmma works on 64-row tiles, and the serving shape has C*G = 32 rows per
-// (slot, head), so half of such a tile would idle.
+// In bf16 both run one body on the tensor cores, templated on where column
+// c of (slot b, KV head h) lives (kv_cols.cuh): the dense cache or the
+// paged pool through the slot's page table. Only the cp.async stage's
+// addresses differ, so on the same data (n_lp * page = S) the paged kernel
+// gives the dense kernel's bits. The body uses mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate), which is what the Pallas kernel's dots compute
+// (`preferred_element_type=jnp.float32`). Rows are the C*G (chunk
+// position, head-group member) pairs of (slot b, KV head h): row r sits at
+// position start[b] + r / G and attends columns (qpos - window, qpos],
+// clipped to [0, S) (S = n_lp * page when paged). Why mma.sync and not
+// wgmma: wgmma works on 64-row tiles, and the serving shape has C*G = 32
+// rows per (slot, head), so half of such a tile would idle.
 //
-// Design. One CTA of 4 warps per (b, h, block of 16 * WR rows): WR warps
-// each own 16 rows, and the KS = 4 / WR warps of one row group take every
-// KS-th 64-column tile of the group's span, so the CTA keeps its 4 warps
-// busy even at 16 rows. A warp's Q fragments stay in registers for the
+// Design. One CTA of 4 warps per (b, h, block of 16 * WR rows); paged, it
+// first stages the row base of each page of its span in shared memory
+// (one table read per page, one barrier). WR warps each own 16 rows, and
+// the KS = 4 / WR warps of one row group take every KS-th 64-column tile
+// of the group's span, so the CTA keeps its 4 warps busy even at 16 rows. A warp's Q fragments stay in registers for the
 // whole loop. Each warp stages its own K/V tiles in bf16 in shared memory
 // with cp.async (16 bytes a lane), double-buffered, rows XOR-swizzled in
 // 16-byte chunks so that ldmatrix (and ldmatrix.trans for V) is free of
@@ -35,13 +40,15 @@
 // atomics: the same inputs give the same bits. A row with no valid column
 // returns 0.
 //
-// f32 inputs (not on the serving path; the checks run them at the JAX
-// tolerance of 2e-4, which TF32 mma would break) are dispatched, by dtype,
-// to the CUDA-core body of flash_tile.cuh, as is the paged prefill (K10).
+// f32 inputs, dense and paged (not on the serving path; the checks run
+// them at the JAX tolerance of 2e-4, which TF32 mma would break), are
+// dispatched, by dtype, to the CUDA-core body of flash_tile.cuh, which is
+// templated on the same column mappers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flash_tile.cuh"
+#include "kv_cols.cuh"
 
 namespace gqa {
 
@@ -105,13 +112,14 @@ __device__ __forceinline__ int swz(int row, int ch) {
   return row * HD + ((ch ^ (row & 7)) << 3);
 }
 
-template <int WR>
+template <int WR, typename Cols>
 __global__ void __launch_bounds__(THREADS, 1)
     prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        float* __restrict__ out, const int* __restrict__ start,
-                       int Hkv, int G, int C, int S, int window, float scale) {
+                       const Cols cols, int Hkv, int G, int C, int window,
+                       float scale) {
   constexpr int KS = WARPS / WR;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -123,6 +131,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int H = Hkv * G, R = C * G;
   const int r0 = blockIdx.z * 16 * WR + wr * 16;  // first row of the warp
   const int st = start[b];
+  const int S = cols.n_cols();
 
   // Q fragments of rows r0 + gid and r0 + gid + 8, straight from global
   unsigned qf[4][4];
@@ -157,7 +166,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int n_my = t_hi - t_lo > ks ? (t_hi - t_lo - ks + KS - 1) / KS : 0;
 
   __nv_bfloat16* wbuf = smem + warp * (WARP_SMEM / 2);
-  const long long kv0 = (long long)(b * Hkv + h) * S;
+
+  // the CTA's span (the union of its warps'), staged by the mapper
+  const int rc0 = blockIdx.z * 16 * WR;
+  const int rc_last = min(rc0 + 16 * WR - 1, R - 1);
+  const int cta_hi = min(st + rc_last / G + 1, S);
+  const int cta_lo = window > 0 ? max(st + rc0 / G - window + 1, 0) : 0;
+  const auto rows = cols.rows(b, h, Hkv, cta_lo, cta_hi,
+                              reinterpret_cast<long long*>(smem_raw + SMEM));
 
   // stage tile t of K and V into buffer `stage` (zero outside [lo, hi))
   auto load_tile = [&](int t, int stage) {
@@ -168,7 +184,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int i = it * 32 + lane, row = i >> 3, ch = i & 7;
       const int c = t * TILE + row;
       const bool in = c >= lo && c < hi;
-      const long long off = in ? (kv0 + c) * HD + ch * 8 : 0;
+      const long long off = in ? rows(c) * HD + ch * 8 : 0;
       cp_async16(smem_u32(ks_ + swz(row, ch)), k + off, in ? 16 : 0);
       cp_async16(smem_u32(vs_ + swz(row, ch)), v + off, in ? 16 : 0);
     }
@@ -333,76 +349,64 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int WR>
+template <int WR, typename Cols>
 int launch_mma(const void* q, const void* k, const void* v, float* out,
-               const int* start, int B, int Hkv, int G, int C, int S,
-               int window, float scale, cudaStream_t st) {
+               const int* start, const Cols cols, int smem_pages, int B,
+               int Hkv, int G, int C, int window, float scale,
+               cudaStream_t st) {
+  const int smem = SMEM + smem_pages * (int)sizeof(long long);
   const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_mma_kernel<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      prefill_mma_kernel<WR, Cols>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(B, Hkv, (C * G + 16 * WR - 1) / (16 * WR));
-  prefill_mma_kernel<WR><<<grid, THREADS, SMEM, st>>>(
+  prefill_mma_kernel<WR, Cols><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, start, Hkv, G, C, S, window,
-      scale);
+      static_cast<const __nv_bfloat16*>(v), out, start, cols, Hkv, G, C,
+      window, scale);
   return (int)cudaGetLastError();
-}
-
-}  // namespace gqa
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(flash::THREADS)
-    prefill_kernel(const void* q, const void* k, const void* v, float* out,
-                   const int* start, int Hkv, int G, int C, int S,
-                   int window, float scale) {
-  flash::attend_rows<T, HD>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, flash::DenseCols{S}, Hkv, G, C,
-      start[blockIdx.x], window, scale);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(flash::THREADS)
-    paged_prefill_kernel(const void* q, const void* k, const void* v,
-                         float* out, const int* tables, const int* start,
-                         int Hkv, int G, int C, int n_pages, int page,
-                         int n_lp, int window, float scale) {
-  flash::attend_rows<T, HD>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out,
-      flash::PagedCols{tables, n_lp, page, n_pages}, Hkv, G, C,
-      start[blockIdx.x], window, scale);
 }
 
 // bf16: the tensor-core kernel, with WR = the row warps a CTA needs (1, 2
 // or 4 groups of 16 of the C*G rows); f32: the CUDA-core body.
+template <typename Cols>
+int dispatch(const void* q, const void* k, const void* v, float* out,
+             const int* start, const Cols cols, int smem_pages, int B,
+             int Hkv, int G, int C, int hd, int window, float scale,
+             int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd != 64) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int groups = (C * G + 15) / 16;
+#define GQA_MMA(WRV)                                                        \
+  launch_mma<WRV>(q, k, v, out, start, cols, smem_pages, B, Hkv, G, C,      \
+                  window, scale, st)
+    if (groups <= 1) return GQA_MMA(1);
+    if (groups == 2) return GQA_MMA(2);
+    return GQA_MMA(4);
+#undef GQA_MMA
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return flash::launch_prefill(static_cast<const float*>(q),
+                               static_cast<const float*>(k),
+                               static_cast<const float*>(v), out, start, cols,
+                               smem_pages, B, Hkv, G, C, window, scale, st);
+}
+
+}  // namespace gqa
+
 extern "C" int prefill_attention(const void* q, const void* k,
                                  const void* v, float* out, const int* start,
                                  int B, int Hkv, int G, int C, int S, int hd,
                                  int window, float scale, int dtype,
                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const int groups = (C * G + 15) / 16;
-    if (groups <= 1)
-      return gqa::launch_mma<1>(q, k, v, out, start, B, Hkv, G, C, S, window,
-                                scale, st);
-    if (groups == 2)
-      return gqa::launch_mma<2>(q, k, v, out, start, B, Hkv, G, C, S, window,
-                                scale, st);
-    return gqa::launch_mma<4>(q, k, v, out, start, B, Hkv, G, C, S, window,
-                              scale, st);
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, Hkv, (C * G + flash::ROWS - 1) / flash::ROWS);
-  prefill_kernel<float, 64><<<grid, flash::THREADS, 0, st>>>(
-      q, k, v, out, start, Hkv, G, C, S, window, scale);
-  return (int)cudaGetLastError();
+  return gqa::dispatch(q, k, v, out, start, kv::DenseCols{S}, 0, B, Hkv, G,
+                       C, hd, window, scale, dtype, stream);
 }
 
+// The same kernels over the paged pool; a CTA stages at most the n_lp
+// pages of its slot's table row.
 extern "C" int paged_prefill_attention(const void* q, const void* k_pool,
                                        const void* v_pool, float* out,
                                        const int* tables, const int* start,
@@ -410,10 +414,8 @@ extern "C" int paged_prefill_attention(const void* q, const void* k_pool,
                                        int n_pages, int page, int n_lp,
                                        int hd, int window, float scale,
                                        int dtype, void* stream) {
-  const dim3 grid(B, Hkv, (C * G + flash::ROWS - 1) / flash::ROWS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(paged_prefill_kernel, grid, st, q, k_pool, v_pool, out,
-                 tables, start, Hkv, G, C, n_pages, page, n_lp, window,
-                 scale);
-  return (int)cudaGetLastError();
+  if (page < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
+  return gqa::dispatch(q, k_pool, v_pool, out, start,
+                       kv::PagedCols{tables, n_lp, page, n_pages}, n_lp, B,
+                       Hkv, G, C, hd, window, scale, dtype, stream);
 }

@@ -1,9 +1,12 @@
 """Prefill attention wrappers: CUDA tensors launch the sm_90a kernels in
 ``csrc/prefill_attention.cu`` (which replace the Pallas `_prefill_kernel`
-and `_paged_prefill_kernel`; dense bf16 runs on the tensor cores),
-CPU tensors run the plain versions in ``ref.py``. There is no fallback: a CUDA call builds and launches the
-kernel or raises. Each wrapper counts its kernel launches in its
-``launches`` attribute (and nowhere else)."""
+and `_paged_prefill_kernel`), CPU tensors run the plain versions in
+``ref.py``. Dense and paged run the same kernels, templated on where a KV
+column lives: bf16 on the tensor cores, f32 on the CUDA-core body of
+``kernels/csrc/flash_tile.cuh``; on the same data they give the same bits.
+There is no fallback: a CUDA call builds and launches the kernel or
+raises. Each wrapper counts its kernel launches in its ``launches``
+attribute (and nowhere else)."""
 from __future__ import annotations
 
 import ctypes

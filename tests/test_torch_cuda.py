@@ -150,6 +150,94 @@ def test_dense_kernels_are_bitwise_deterministic(kind, dtype, cuda_device):
     assert torch.equal(a, b)
 
 
+# the paged kernels (K8 on K7's split-KV body, K10 on K9's tensor-core
+# body, f32 prefill on flash_tile.cuh) against their dense twins on the
+# same data: S = n_lp * page, lengths / chunk starts 0, 1, 15, 16, 17 and
+# the last
+PAGED_S = 96                     # 12 pages of 8, 6 of 16, 3 of 32
+
+
+def _paged_dense_case(c, page, g, window, dtype, dev, seed=3):
+    """(paged call, dense call, paged plain call, rows, pool, tables) on
+    one seeded dense cache and its shuffled pool; table entries past each
+    row's pages point at the spare garbage page."""
+    b, hkv = 6, 2
+    q, k, v = attn_fixture(seed, b, hkv, g, PAGED_S, 64, c=c)
+    last = PAGED_S if c is None else PAGED_S - c
+    rows = np.array([0, 1, 15, 16, 17, last], np.int32)
+    kp, vp, tables, spare = paged_from_dense(k, v, page, seed + 1)
+    for bi, r in enumerate(rows.tolist()):
+        tables[bi, -(-(r + (c or 0)) // page):] = spare
+    q, k, v, kp, vp = (torch.from_numpy(a).to(dev, dtype)
+                       for a in (q, k, v, kp, vp))
+    rows, tables = (torch.from_numpy(a).to(dev) for a in (rows, tables))
+    if c is None:
+        fn, dense, plain = (dec.gqa_decode_paged, dec.gqa_decode,
+                            dec_ref.paged_decode_attention_ref)
+    else:
+        fn, dense, plain = (pre.gqa_prefill_paged, pre.gqa_prefill,
+                            pre_ref.paged_prefill_attention_ref)
+    return (lambda t=tables: fn(q, kp, vp, t, rows, window=window),
+            lambda: dense(q, k, v, rows, window=window),
+            lambda t=tables: plain(q, kp, vp, t, rows,
+                                   window=window).float(),
+            rows, kp, tables)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("c", [None, 1, 4, 17, 32])
+def test_paged_kernel_equals_dense_twin_bitwise(c, page, g, window, dtype,
+                                                cuda_device):
+    """K8 (c None) gives K7's bits and K10 gives K9's on the same data,
+    the same bits on a second call, one launch a call, and agrees with
+    its plain version (a decode row of length 0 is 0 in both kernels;
+    the plain version averages V there)."""
+    paged, dense, plain, rows, _, _ = _paged_dense_case(
+        c, page, g, window, dtype, cuda_device)
+    fn = dec.gqa_decode_paged if c is None else pre.gqa_prefill_paged
+    before = fn.launches
+    got, again, twin = paged(), paged(), dense()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, twin)
+    assert torch.equal(got, again)
+    live = rows > 0 if c is None else torch.ones_like(rows, dtype=bool)
+    assert torch.all(got[~live] == 0)
+    torch.testing.assert_close(got[live], plain()[live], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [None, 32])
+def test_paged_kernel_clamps_page_ids(c, dtype, cuda_device):
+    """Page ids outside the pool are clamped into it, never followed:
+    out-of-range entries past a row's pages change no bit, and a row
+    whose used pages are out of range reads the clamped pages, as the
+    plain version over the clamped table does."""
+    paged, _, plain, rows, kp, tables = _paged_dense_case(
+        c, 16, 1, 0, dtype, cuda_device)
+    want = paged()
+    wild = tables.clone()
+    for bi, r in enumerate(rows.tolist()):
+        used = -(-(r + (c or 0)) // 16)
+        wild[bi, used:] = torch.where(
+            torch.arange(wild.shape[1] - used, device=cuda_device) % 2 == 0,
+            -7, len(kp) + 100)
+    got = paged(wild)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    wild[3, 0], wild[4, 1] = -1, 2 ** 31 - 1     # pages the rows use
+    got = paged(wild)
+    torch.cuda.synchronize()
+    want = plain(wild.clamp(0, len(kp) - 1))
+    live = rows > 0 if c is None else torch.ones_like(rows, dtype=bool)
+    torch.testing.assert_close(got[live], want[live], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
 def test_idle_decode_row_is_zero(cuda_device):
     """A slot of length 0 attends nothing: the kernel returns 0 there
     (the engine discards the row)."""

@@ -1,7 +1,9 @@
-"""The dense decode kernel's split-KV algorithm on the CPU: its plain
-mirror (`decode_attention_split_ref`: a partial per split, then the
-merge in split order) against the JAX package's Pallas `decode_attention`
-in interpret mode, and the wrapper's choice of the split count.
+"""The decode kernels' split-KV algorithm on the CPU: its plain mirrors
+(`decode_attention_split_ref`: a partial per split, then the merge in
+split order; `paged_decode_attention_split_ref`: the same through the
+paged kernel's addressing) against the JAX package's Pallas
+`decode_attention` and `paged_decode_attention` in interpret mode, and
+the wrapper's choice of the split count.
 
 Tolerance 2e-4, as the JAX suite uses for attention. Rows of length 0
 return 0 in the port and are compared with 0 (the TPU kernel averages V
@@ -14,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import attn_fixture
+from _torch_parity import attn_fixture, paged_from_dense
 from repro.kernels.decode_attention import ops as jax_decode
 from repro_torch.kernels.decode_attention import ops as pt_decode
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_split_ref, decode_split_ranges)
+    decode_attention_split_ref, decode_split_ranges,
+    paged_decode_attention_split_ref, paged_view)
 
 TOL = 2e-4
 S = 100                          # not a multiple of any tile
@@ -92,3 +95,65 @@ def test_split_count_depends_on_shapes_only():
                     assert n == 1 or units * (n - 1) < \
                         pt_decode.TARGET_CTAS
     assert pt_decode.decode_splits(8, 16, 1, 272) == 4
+
+
+# ---------------------------------------------------- the paged kernel (K8)
+PAGED_S = 80                     # 10 pages of 8, 5 of 16
+PAGED_LENGTHS = np.array([0, 1, 15, 16, 17, PAGED_S], np.int32)
+
+
+def _paged_case(page, g, seed):
+    """Seeded q and dense K/V scattered into a shuffled pool; each row's
+    table entries past its used pages point at the spare garbage page."""
+    q, k, v = attn_fixture(seed, len(PAGED_LENGTHS), 2, g, PAGED_S, 64)
+    kp, vp, tables, spare = paged_from_dense(k, v, page, seed + 1)
+    for b, ln in enumerate(PAGED_LENGTHS.tolist()):
+        tables[b, -(-ln // page):] = spare
+    return q, kp, vp, tables
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("g,window", [(1, 0), (4, 0), (1, 48), (4, 48)])
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_split_mirror_matches_jax_kernel(page, g, window, n_split):
+    """The paged split mirror (the kernel's addressing: S = n_lp * page,
+    clamped page ids, a partial per split merged in split order) against
+    the Pallas `paged_decode_attention` in interpret mode; the garbage
+    page behind each row's last used page never contributes."""
+    q, kp, vp, tables = _paged_case(page, g, 21 + page + n_split)
+    ref = np.asarray(jax_decode.gqa_decode_paged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(PAGED_LENGTHS), window=window,
+        interpret=True), np.float32)
+    got = paged_decode_attention_split_ref(
+        *(torch.from_numpy(a) for a in (q, kp, vp, tables, PAGED_LENGTHS)),
+        window=window, n_split=n_split)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    live = PAGED_LENGTHS > 0
+    np.testing.assert_allclose(got.numpy()[live], ref[live], rtol=TOL,
+                               atol=TOL)
+    assert torch.all(got[~torch.from_numpy(live)] == 0)
+
+
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_split_mirror_clamps_page_ids(page):
+    """Page ids outside the pool are clamped, as the kernel clamps them:
+    out-of-range entries past a row's pages change nothing, and the
+    mirror equals the dense split mirror on the data it maps."""
+    q, kp, vp, tables = _paged_case(page, 1, 5)
+    t = torch.from_numpy
+    want = paged_decode_attention_split_ref(
+        t(q), t(kp), t(vp), t(tables), t(PAGED_LENGTHS), n_split=3)
+    wild = tables.copy()
+    for b, ln in enumerate(PAGED_LENGTHS.tolist()):
+        used = -(-ln // page)
+        wild[b, used:] = np.where(np.arange(wild.shape[1] - used) % 2,
+                                  -7, len(kp) + 100)
+    got = paged_decode_attention_split_ref(
+        t(q), t(kp), t(vp), t(wild), t(PAGED_LENGTHS), n_split=3)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    ids = t(tables).long().clamp(0, len(kp) - 1)
+    dense = decode_attention_split_ref(
+        t(q), paged_view(t(kp), ids), paged_view(t(vp), ids),
+        t(PAGED_LENGTHS), n_split=3)
+    torch.testing.assert_close(got, dense, rtol=0, atol=0)
