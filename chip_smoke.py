@@ -10,7 +10,9 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    sources (one nvcc per source, started together), printing the build
    time and each kernel function's registers and spills; a spill in the
    decode / prefill kernels of namespace `gqa` (dense and paged
-   instances, both of which must be there) fails the run;
+   instances, both of which must be there), the packed wire or conv +
+   pool fails the run. It times the harness's own per-launch floor (a
+   one-element add_ per call in the CUDA graph `device_ms` replays);
 2. holds each serving attention kernel against its plain PyTorch version
    on the card: at the main path's shapes (bf16, 16 KV heads, G 1,
    head dim 64, page 16, ragged lengths, chunks of 4..32), in f32 at the
@@ -48,13 +50,15 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    vector (the model's size); K6 `packed_wire_2d_philox` against its
    plain Philox version, its share of changed outputs at x = 0, p =
    0.05, Q8 within 0.02 of 1 - (1 - p)^8, and different from the
-   host-word stream. It times each and computes its bound from the
-   bytes it moves and the integer operations the wire defines;
+   host-word stream. It times each (K1 at both shapes) and computes its
+   bound from the bytes it moves and the integer operations the wire
+   defines;
 5. trains the paper's 89,673-parameter model at full size (24,576 /
    2,560 rows, batch 512): FL (Q8, 20 dB, 3 users, J 5) for 2 cycles,
    fused SL (Q8, 20 dB, compress 4) for 1 cycle, CL for 1 cycle, with
    the launch counters set to 0 before and read after (FL records the
-   privacy capture, which phase 7 reads). It checks that
+   privacy capture, which phase 7 reads; K1's and K3's launches are
+   also counted by input shape, here and in phase 7). It checks that
    FL bills exactly 8 x 89,673 = 717,384 bits per user per cycle, that
    K1 launched once per FL cycle and twice per SL training step (the SL
    eval's crossings counted apart), that the same runs on the CPU (the
@@ -75,11 +79,12 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    card within 2e-5 abs + rel (the JAX suite's tolerance): K3
    `user_conv_pool` at the eval slice [2048, 30, 8], a batch [512, 30,
    8] and ragged B 1 and 7 and T 29; K4 `lstm_final_state` at [2048, 14,
-   128], [512, 14, 128], B 1 and 7, T 1 and 30, H 8. It times both at the
-   eval slice beside their bounds and plain versions, and the library's
-   nearest calls: conv1d -> relu -> max_pool1d (three calls) for K3, one
-   cuDNN `nn.LSTM` call (input product included, against `lstm_layer`)
-   for K4;
+   128], [512, 14, 128], B 1 and 7, T 1 and 30, H 8; K3 must give the
+   same bits twice. It times both at the eval slice (K3 also at the
+   uplink batch) beside their bounds and plain versions, and the
+   library's nearest calls: conv1d -> relu -> max_pool1d (three calls)
+   for K3, one cuDNN `nn.LSTM` call (input product included, against
+   `lstm_layer`) for K4;
 7. drives the privacy study and two-party SL at full size, counters set
    to 0 before and read after: two-party SL (Q8, 20 dB, compress 4),
    fused SL (Q16, 20 dB, compress 4, capture every 8 steps) and CL over a
@@ -92,8 +97,10 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    FL per-sample protocol from phase 5's FL captures, SL 600 adversary
    steps, also on the CPU from the same draws: within 5 % relative) and
    requires err_SL > err_CL; it prints the Table II rows;
-8. prints one JSON line of the kernels' numbers, the card's name and
-   power limit, and as the last line {"ok": true, "device": ...}.
+8. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5 and 7 together; K1 and K3 also per
+   timed shape, under "by_shape"), the card's name and power limit, and
+   as the last line {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
 a machine without CUDA, or from a directory without src/repro_torch.
@@ -101,6 +108,7 @@ a machine without CUDA, or from a directory without src/repro_torch.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -123,6 +131,11 @@ TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # checked at this bound and, more strictly, for equal bits: the paged
 # kernels run the dense kernels' bodies in the same order
 LOGIT_TOL = 0.125
+
+
+# libraries none of whose kernels may spill (besides the attention
+# kernels of namespace `gqa`): the packed wire and conv + pool
+NO_SPILL_LIBS = ("quant_channel", "conv_pool")
 
 
 def fail(msg: str) -> None:
@@ -159,6 +172,16 @@ def device_ms(fn, copies, reps: int = 20) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / (reps * len(copies))
+
+
+def l2_copies(args) -> list:
+    """Enough copies of `args` (tensors cloned, other values shared) that
+    together they exceed L2 twice over, for `device_ms`."""
+    import torch
+    per = sum(a.numel() * a.element_size() for a in args
+              if torch.is_tensor(a))
+    return [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            for _ in range(max(2, math.ceil(2 * L2_BYTES / per)))]
 
 
 def bound_ms(nbytes: float, flops: float, dtype,
@@ -467,16 +490,20 @@ K6_P, K6_TOL = 0.05, 0.02
 
 
 def wire_int_ops(bits: int) -> int:
-    """32-bit integer operations the packed wire defines per element,
-    counted from its plain version (ref.py), not from compiled code: per
-    bit plane the XOR with the plane's constant, fmix32 (3 shifts, 3
-    XORs, 2 multiplies), the compare with the threshold, and the shift
-    and OR into the mask (12); per element the float-to-int conversion,
-    the code offset, the mask XOR, the offset back, the two-sided clip
-    and the int-to-float conversion (7). The float work (a division,
-    rint, a clip, a product: 5 operations) takes less than a tenth of
-    the integer time at the float rate, so it is not counted."""
-    return 12 * bits + 7
+    """32-bit integer operations the packed wire needs per element,
+    counted from its plain version (ref.py), not from compiled code.
+    fmix32's first step, x ^= x >> 16, distributes over the XOR with
+    the plane's constant, so it is taken once per word and each plane
+    XORs in a folded constant (bit for bit; tests/test_torch_kernel_
+    design.py). Per bit plane: that XOR, the rest of fmix32 (2 shifts,
+    2 XORs, 2 multiplies), the compare with the threshold, and the
+    shift and OR into the mask (10). Per element: the first xor-shift
+    (2), the float-to-int conversion, the code offset, the mask XOR,
+    the offset back, the two-sided clip and the int-to-float conversion
+    (7). The float work (a division, rint, a clip, a product: 5
+    operations) takes less than a tenth of the integer time at the
+    float rate, so it is not counted."""
+    return 10 * bits + 9
 
 
 # Philox4x32-10 per 32-bit word (K6): 10 rounds of 2 low and 2 high
@@ -484,7 +511,7 @@ def wire_int_ops(bits: int) -> int:
 PHILOX_INT_OPS_PER_WORD = 10 * (4 + 4 + 2) / 4
 
 
-def _wire_inputs(rng, rows: int, bits: int, cols: int = 256):
+def wire_inputs(rng, rows: int, bits: int, cols: int = 256):
     """Seeded packed-wire operands on the card: per-row scaled floats,
     32-bit words as int32 patterns, the wire's scale rows and p rows."""
     import numpy as np
@@ -508,11 +535,7 @@ def _timed(fn, plain, args, nbytes: float, int_ops: float) -> dict:
     """Kernel and plain device times over enough input copies to exceed
     L2, and the bound from the bytes and the integer operations."""
     import torch
-    per = sum(a.numel() * a.element_size() for a in args
-              if torch.is_tensor(a))
-    n = max(2, math.ceil(2 * L2_BYTES / per))
-    copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-              for _ in range(n)]
+    copies = l2_copies(args)
     res = dict(ms=device_ms(fn, copies), plain_ms=device_ms(plain, copies),
                library_ms=None)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0, torch.float32,
@@ -520,6 +543,23 @@ def _timed(fn, plain, args, nbytes: float, int_ops: float) -> dict:
     del copies
     torch.cuda.empty_cache()
     return res
+
+
+def _by_shape(timed: dict) -> list:
+    """A row's per-shape entries: {shape: times} -> [{shape, launches
+    (filled in after the main path), times}], in the order timed."""
+    return [dict(shape=list(s), launches=None, **t)
+            for s, t in timed.items()]
+
+
+def launch_floor_ms() -> float:
+    """Device time per launch of the timing harness itself: one
+    one-element in-place add_ per call, in `device_ms`'s CUDA graph. No
+    kernel on any path is this small; it is the floor under every
+    kernel time the script reports."""
+    import torch
+    copies = [(torch.zeros(1, device="cuda"),) for _ in range(256)]
+    return device_ms(lambda t: t.add_(1.0), copies)
 
 
 def check_wire_kernels(seed: int) -> tuple:
@@ -543,30 +583,33 @@ def check_wire_kernels(seed: int) -> tuple:
             failures.append(tag)
         return err
 
-    # K1 in its three code widths at both shapes
-    err1, timed1 = 0.0, None
+    # K1 in its three code widths at both shapes; the float32 wire at Q8
+    # timed at both
+    err1, timed1 = 0.0, {}
     for wire_dtype, bits in (("float32", 8), ("int8", 8), ("int4", 4)):
         for shape, r in WIRE_SHAPES.items():
-            buf, words, scale, p = _wire_inputs(rng, r, bits)
+            buf, words, scale, p = wire_inputs(rng, r, bits)
             got = qc.packed_wire_2d(buf, words, scale, p, bits,
                                     wire_dtype=wire_dtype)
             want = qref.packed_wire_ref(buf, words, scale, p, bits,
                                         wire_dtype)
             err1 = max(err1, check(f"packed_wire_2d {wire_dtype} Q{bits} "
                                    f"{shape} [{r}, 256]", got, want))
-            if wire_dtype == "float32" and shape == "fl_upload":
-                timed1 = _timed(
+            if wire_dtype == "float32":
+                timed1[(r, 256)] = _timed(
                     lambda *a: qc.packed_wire_2d(*a, 8),
                     lambda *a: qref.packed_wire_ref(*a, 8),
                     (buf, words, scale, p), r * 256 * 12 + r * 8,
                     r * 256 * wire_int_ops(8))
     rows.append(dict(name="packed_wire_2d", route="cuda", source=QC_SRC,
                      replaces=f"{QC}:147", launches=None,
-                     max_abs_err=err1, **timed1))
+                     max_abs_err=err1,
+                     **timed1[(WIRE_SHAPES["fl_upload"], 256)],
+                     by_shape=_by_shape(timed1)))
 
     # K2: 3 users of 360 rows, weights 1/3
     n, r = 3, WIRE_SHAPES["fl_upload"] // 3
-    buf, words, scale, p = _wire_inputs(rng, n * r, 8)
+    buf, words, scale, p = wire_inputs(rng, n * r, 8)
     w = torch.full((n * r, 1), 1.0 / 3.0, device="cuda")
     got = qc.packed_wire_mean_2d(buf, words, scale, p, w, 8, n)
     want = qref.packed_wire_mean_ref(buf, words, scale, p, w, 8, n)
@@ -624,7 +667,7 @@ def check_wire_kernels(seed: int) -> tuple:
         failures.append(f"K6 share {share} vs {want_share}")
     if torch.equal(got, host):
         failures.append("K6 output equals the host-word stream")
-    buf, _, scale, p = _wire_inputs(rng, r, 8)
+    buf, _, scale, p = wire_inputs(rng, r, 8)
     rows.append(dict(
         name="packed_wire_2d_philox", route="cuda", source=QC_SRC,
         replaces=f"{QC}:102", launches=None, max_abs_err=err6,
@@ -633,9 +676,10 @@ def check_wire_kernels(seed: int) -> tuple:
                  (buf, scale, p), r * 256 * 8 + r * 8,
                  r * 256 * (wire_int_ops(8) + PHILOX_INT_OPS_PER_WORD))))
     for row in rows:
-        print(f"  time  {row['name']}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']})", flush=True)
+        for s in row.get("by_shape") or [dict(row, shape="")]:
+            print(f"  time  {row['name']} {s['shape']}: kernel "
+                  f"{s['ms']:.5f} ms, plain {s['plain_ms']:.4f} ms, bound "
+                  f"{s['bound_ms']:.5f} ms ({s['bound_by']})", flush=True)
     return rows, failures
 
 
@@ -649,6 +693,9 @@ TINY_TOL = 2e-5
 # paper's conv (E 8, K 3, F 32), then ragged batches and an odd T
 K3_CASES = [(2048, 30, 8, 3, 32), (512, 30, 8, 3, 32), (1, 30, 8, 3, 32),
             (7, 30, 8, 3, 32), (7, 29, 8, 3, 32)]
+# (B, T, E) timed: the eval slice (the row's main numbers) and the
+# two-party uplink / capture batch
+K3_TIMED = [(2048, 30, 8), (512, 30, 8)]
 # (B, T, H): the eval slice and a training batch through the paper's LSTM
 # (T 14 pooled positions, H 32), then ragged batches, T 1 and 30, H 8
 K4_CASES = [(2048, 14, 32), (512, 14, 32), (1, 14, 32), (7, 14, 32),
@@ -674,6 +721,18 @@ def _tiny_close(tag: str, got, want, failures: list) -> float:
     return err
 
 
+def conv_inputs(rng, B: int, T: int, E: int, K: int, F: int) -> tuple:
+    """Seeded K3 operands on the card: x [B, T, E] at the embedding's
+    scale, w [K, E, F] at the fan-in init's, a small bias [F]."""
+    import numpy as np
+    import torch
+    return tuple(torch.from_numpy((rng.standard_normal(shape) * scale)
+                                  .astype(np.float32)).to("cuda")
+                 for shape, scale in (((B, T, E), 0.05),
+                                      ((K, E, F), 1.0 / math.sqrt(E)),
+                                      ((F,), 0.01)))
+
+
 def check_tiny_kernels(seed: int) -> tuple:
     """K3 and K4 against their plain versions on the card at the path's
     shapes and ragged ones, within TINY_TOL; times at the eval slice
@@ -694,50 +753,49 @@ def check_tiny_kernels(seed: int) -> tuple:
         return torch.from_numpy((rng.standard_normal(shape) * scale)
                                 .astype(np.float32)).to(dev)
 
-    def copies_of(args):
-        per = sum(a.numel() * a.element_size() for a in args)
-        n = max(2, math.ceil(2 * L2_BYTES / per))
-        return [tuple(a.clone() for a in args) for _ in range(n)]
-
-    # K3: inputs at the embedding's scale, taps at the fan-in init's
-    err3, row3 = 0.0, None
+    # K3: the eval slice and the uplink batch timed
+    err3, timed3 = 0.0, {}
     for B, T, E, K, Fo in K3_CASES:
-        x = randn((B, T, E), 0.05)
-        w = randn((K, E, Fo), 1.0 / math.sqrt(E))
-        b = randn((Fo,), 0.01)
+        x, w, b = conv_inputs(rng, B, T, E, K, Fo)
         got = cp.user_conv_pool(x, w, b)
-        err3 = max(err3, _tiny_close(
-            f"user_conv_pool [{B}, {T}, {E}] x [{K}, {E}, {Fo}]", got,
-            cref.conv_pool_ref(x, w, b), failures))
-        if row3 is None:            # the eval slice: timed
-            t_out, P = T - K + 1, (T - K + 1) // 2
-            cps = copies_of((x, w, b))
-            row3 = dict(ms=device_ms(cp.user_conv_pool, cps),
-                        plain_ms=device_ms(cref.conv_pool_ref, cps),
-                        library_ms=None)
-            row3["bound_ms"], row3["bound_by"] = bound_ms(
-                4 * (x.numel() + w.numel() + b.numel() + B * P * Fo),
-                B * t_out * Fo * (2 * K * E + 2) + B * P * Fo,
-                torch.float32)
-            # the library's nearest: three calls in its own [B, C, T]
-            # layout (inputs transposed outside the timing)
-            wt = w.permute(2, 1, 0).contiguous()
-            tri = [(c[0].transpose(1, 2).contiguous(),) for c in cps]
+        tag = f"user_conv_pool [{B}, {T}, {E}] x [{K}, {E}, {Fo}]"
+        err3 = max(err3, _tiny_close(tag, got, cref.conv_pool_ref(x, w, b),
+                                     failures))
+        if not torch.equal(got, cp.user_conv_pool(x, w, b)):
+            failures.append(f"{tag}: not the same bits twice")
+        if (B, T, E) not in K3_TIMED:
+            continue
+        t_out, P = T - K + 1, (T - K + 1) // 2
+        cps = l2_copies((x, w, b))
+        t = dict(ms=device_ms(cp.user_conv_pool, cps),
+                 plain_ms=device_ms(cref.conv_pool_ref, cps))
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            4 * (x.numel() + w.numel() + b.numel() + B * P * Fo),
+            B * t_out * Fo * (2 * K * E + 2) + B * P * Fo, torch.float32)
+        # the library's nearest: three calls in its own [B, C, T] layout
+        # (inputs transposed outside the timing); not one call, so it
+        # stands beside the row and not as its library_ms
+        wt = w.permute(2, 1, 0).contiguous()
+        tri = [(c[0].transpose(1, 2).contiguous(),) for c in cps]
 
-            def triple(xt):
-                return F.max_pool1d(torch.relu(F.conv1d(xt, wt, b)), 2)
-            tri_err = float((triple(tri[0][0]).transpose(1, 2)
-                             - cp.user_conv_pool(*cps[0])).abs().max())
-            summary["conv_pool_triple"] = dict(
-                ms=device_ms(triple, tri), max_abs_err=tri_err)
-            del cps, tri
-    print(f"  time  user_conv_pool [2048, 30, 8]: kernel {row3['ms']:.5f} "
-          f"ms, plain {row3['plain_ms']:.5f} ms, bound "
-          f"{row3['bound_ms']:.5f} ms ({row3['bound_by']}); no single "
-          f"PyTorch call computes conv + ReLU + pool: conv1d -> relu -> "
-          f"max_pool1d (three calls) {summary['conv_pool_triple']['ms']:.5f}"
-          f" ms (max_abs_err "
-          f"{summary['conv_pool_triple']['max_abs_err']:.2e})", flush=True)
+        def triple(xt):
+            return F.max_pool1d(torch.relu(F.conv1d(xt, wt, b)), 2)
+        t["triple_ms"] = device_ms(triple, tri)
+        t["triple_max_abs_err"] = float((triple(tri[0][0]).transpose(1, 2)
+                                         - cp.user_conv_pool(*cps[0]))
+                                        .abs().max())
+        timed3[(B, T, E)] = t
+        print(f"  time  user_conv_pool [{B}, {T}, {E}]: kernel "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}); no single PyTorch"
+              f" call computes conv + ReLU + pool: conv1d -> relu -> "
+              f"max_pool1d (three calls) {t['triple_ms']:.5f} ms (max_abs_err"
+              f" {t['triple_max_abs_err']:.2e})", flush=True)
+        del cps, tri
+    row3 = dict(timed3[K3_TIMED[0]], library_ms=None)
+    summary["conv_pool_triple"] = dict(ms=row3.pop("triple_ms"),
+                                       max_abs_err=row3.pop(
+                                           "triple_max_abs_err"))
 
     # K4: gate inputs of unit scale, Wh at the fan-in init's
     err4, row4 = 0.0, None
@@ -750,7 +808,7 @@ def check_tiny_kernels(seed: int) -> tuple:
         err4 = max(err4, _tiny_close(tag + " h", h, hr, failures),
                    _tiny_close(tag + " c", c, cr, failures))
         if row4 is None:
-            cps = copies_of((xw, wh))
+            cps = l2_copies((xw, wh))
             row4 = dict(ms=device_ms(lc.lstm_final_state, cps),
                         plain_ms=device_ms(lref.lstm_final_state_ref, cps))
             row4["bound_ms"], row4["bound_by"] = bound_ms(
@@ -774,7 +832,7 @@ def check_tiny_kernels(seed: int) -> tuple:
             def cudnn(x):
                 with torch.no_grad():
                     return lstm(x)[1][0][0]
-            cps = copies_of((x,))
+            cps = l2_copies((x,))
             layer_ms = device_ms(lambda x: lc.lstm_layer(x, wx, wh, bb), cps)
             lib_ms = device_ms(cudnn, cps)
             lib_err = float((cudnn(x) - lc.lstm_layer(x, wx, wh, bb))
@@ -794,7 +852,7 @@ def check_tiny_kernels(seed: int) -> tuple:
     kdir = "src/repro/kernels"
     rows = [dict(name="conv_pool", route="cuda", source=CP_SRC,
                  replaces=f"{kdir}/conv_pool/kernel.py:43", launches=None,
-                 max_abs_err=err3, **row3),
+                 max_abs_err=err3, **row3, by_shape=_by_shape(timed3)),
             dict(name="lstm_final_state", route="cuda", source=LC_SRC,
                  replaces=f"{kdir}/lstm_cell/kernel.py:43", launches=None,
                  max_abs_err=err4, **row4)]
@@ -1054,6 +1112,63 @@ def _runs() -> dict:
     }
 
 
+class _ShapeLog:
+    """Stands in for a kernel wrapper at the site the path calls it
+    from, and counts its launches by the shape of the first operand (a
+    launch is a call that raised the wrapper's own count). `launches`
+    reads and sets the wrapper's count."""
+
+    def __init__(self, fn, counts):
+        self.fn, self.counts = fn, counts
+
+    launches = property(lambda s: s.fn.launches,
+                        lambda s, n: setattr(s.fn, "launches", n))
+
+    def __call__(self, x, *a, **kw):
+        n0 = self.fn.launches
+        out = self.fn(x, *a, **kw)
+        if self.fn.launches != n0:
+            self.counts[tuple(x.shape)] += 1
+        return out
+
+
+@contextlib.contextmanager
+def launch_shapes(log: dict):
+    """While open, count K1's and K3's launches per input shape into
+    `log` ({row name: Counter}). The path reaches K1 through the ops
+    module (core/wire.py) and K3 through models/lstm_tiny.py's own
+    import, so those two names are swapped for `_ShapeLog`s."""
+    from collections import Counter
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.models import lstm_tiny as LT
+    sites = [(qc, "packed_wire_2d", "packed_wire_2d"),
+             (LT, "user_conv_pool", "conv_pool")]
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+    for (mod, attr, row), (_, _, fn) in zip(sites, kept):
+        setattr(mod, attr, _ShapeLog(fn, log.setdefault(row, Counter())))
+    try:
+        yield log
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+
+
+def merge_shapes(into: dict, phase: dict, launches: dict,
+                 what: str) -> list:
+    """Add one phase's launches per shape to `into`. Returns a failure
+    for each kernel whose launches per shape do not sum to its
+    wrapper's count over the phase (a call site that reaches the
+    wrapper by another name than the two that `launch_shapes` swaps)."""
+    failures = []
+    for row, counts in phase.items():
+        if sum(counts.values()) != launches[row]:
+            failures.append(f"{what}: {row} launches by shape sum to "
+                            f"{sum(counts.values())}, its count is "
+                            f"{launches[row]}")
+        into.setdefault(row, type(counts)()).update(counts)
+    return failures
+
+
 def _tiny_counts() -> tuple:
     """The launch counters of K1, K3 and K4."""
     from repro_torch.kernels.conv_pool import ops as cp
@@ -1203,19 +1318,25 @@ def fl_cpu_runs(seed: int, threads) -> dict:
     return runs
 
 
-def train_phase(seed: int) -> tuple:
+def train_phase(seed: int, shapes: dict) -> tuple:
     """FL 2 cycles, SL 1, CL 1 on the card (the main path: counters set to
-    0 before, read after), the same runs for one cycle on the CPU, and one
-    traced FL cycle. Returns ({kernel name: launches}, summary, failures,
-    the card's FL run)."""
+    0 before, read after; K1's and K3's launches by shape added to
+    `shapes`), the same runs for one cycle on the CPU, and one traced FL
+    cycle. Returns ({kernel name: launches}, summary, failures, the
+    card's FL run)."""
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
     from repro_torch.schemes.base import BATCH, N_TRAIN
-    counters = _wire_counters()
+    counters = dict(_wire_counters(), conv_pool=cp.user_conv_pool,
+                    lstm_final_state=lc.lstm_final_state)
     for f in counters.values():
         f.launches = 0
-    card = {m: _train_run(m, c, "cuda", seed)
-            for m, c in (("fl", 2), ("sl", 1), ("cl", 1))}
+    with launch_shapes({}) as phase_shapes:
+        card = {m: _train_run(m, c, "cuda", seed)
+                for m, c in (("fl", 2), ("sl", 1), ("cl", 1))}
     launches = {k: f.launches for k, f in counters.items()}
-    failures, summary = [], {}
+    failures = merge_shapes(shapes, phase_shapes, launches, "training")
+    summary = {}
     steps_sl = N_TRAIN // BATCH
     for m, run in card.items():
         res, exp = run["res"], run["exp"]
@@ -1328,10 +1449,12 @@ ADV_STEPS = 600                 # benchmarks/table2.py's adversary steps
 FL_PROJ, FL_PER = 1024, 64      # table2's FL projection and samples/user
 
 
-def privacy_phase(seed: int, fl_run: dict, card_name: str) -> tuple:
+def privacy_phase(seed: int, fl_run: dict, card_name: str,
+                  shapes: dict) -> tuple:
     """The slice's main path, with every counter set to 0 before and read
-    after: two-party SL (Q8, 20 dB), fused SL at Q16 with capture and CL
-    over a 20 dB link with capture, one cycle each on the card. Then
+    after (K1's and K3's launches by shape added to `shapes`): two-party
+    SL (Q8, 20 dB), fused SL at Q16 with capture and CL over a 20 dB
+    link with capture, one cycle each on the card. Then
     two-party SL on the CPU on the same draws, and the Table II rows from
     the captures (FL's from phase 5's card run). Returns ({kernel name:
     launches}, summary, failures)."""
@@ -1347,10 +1470,12 @@ def privacy_phase(seed: int, fl_run: dict, card_name: str) -> tuple:
                     lstm_final_state=lc.lstm_final_state)
     for f in counters.values():
         f.launches = 0
-    card = {n: _train_run(n, 1, "cuda", seed)
-            for n in ("sl_two_party", "sl_q16_capture", "cl_20db_capture")}
+    with launch_shapes({}) as phase_shapes:
+        card = {n: _train_run(n, 1, "cuda", seed) for n in
+                ("sl_two_party", "sl_q16_capture", "cl_20db_capture")}
     launches = {k: f.launches for k, f in counters.items()}
-    failures, summary = [], {}
+    failures = merge_shapes(shapes, phase_shapes, launches, "privacy")
+    summary = {}
     steps = N_TRAIN // BATCH
     n_cap = -(-steps // 8)              # capture_every 8
     # (K1, K3, K4) per round and per eval, and the steps of the round
@@ -1747,10 +1872,10 @@ def main() -> None:
     for lib, fn, regs, spill in usage:
         print(f"  {lib}: {fn}: {regs} registers, spill stores/loads "
               f"{spill[0]}/{spill[1]} bytes")
-        if "gqa" in fn and any(spill):
+        if ("gqa" in fn or lib in NO_SPILL_LIBS) and any(spill):
             spilled.append(fn)
     if spilled:
-        fail(f"the attention kernels spill registers: {spilled}")
+        fail(f"kernels that must not spill do: {spilled}")
     for body in ("split_decode_kernel", "prefill_mma_kernel"):
         for cols in ("DenseCols", "PagedCols"):
             if not any("gqa" in fn and body in fn and cols in fn
@@ -1767,6 +1892,9 @@ def main() -> None:
     rows, failures, sweep = check_kernels(S, args.seed)
     print(f"attention kernel checks: {time.perf_counter() - t_check:.1f} s",
           flush=True)
+    floor = launch_floor_ms()
+    print(f"timing harness: one one-element add_ per call takes {floor:.5f}"
+          f" ms (the per-launch floor)", flush=True)
     print("packed-wire kernel checks at the training path's shapes",
           flush=True)
     wire_rows, wire_failures = check_wire_kernels(args.seed)
@@ -1782,23 +1910,29 @@ def main() -> None:
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
     t_train = time.perf_counter()
+    shapes = {}
     train_launches, train_summary, train_failures, fl_run = \
-        train_phase(args.seed)
+        train_phase(args.seed, shapes)
     print(f"training phase: {time.perf_counter() - t_train:.1f} s; "
           f"launches on the training path {train_launches}", flush=True)
     failures += train_failures
-    for r in wire_rows:
-        r["launches"] = train_launches.get(r["name"], 0)
-    rows += wire_rows
     t_priv = time.perf_counter()
     priv_launches, priv_summary, priv_failures = privacy_phase(
-        args.seed, fl_run, card)
+        args.seed, fl_run, card, shapes)
     print(f"privacy phase: {time.perf_counter() - t_priv:.1f} s; launches "
           f"on its path {priv_launches}", flush=True)
     failures += priv_failures
-    for r in tiny_rows:
-        r["launches"] = priv_launches.get(r["name"], 0)
-    rows += tiny_rows
+    # the paper path's launches: phases 5 and 7 together
+    for r in wire_rows + tiny_rows:
+        r["launches"] = train_launches.get(r["name"], 0) + \
+            priv_launches.get(r["name"], 0)
+        for s in r.get("by_shape", ()):
+            s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
+                                                          0)
+    shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
+              for k, c in shapes.items()}
+    print(f"launches by shape over phases 5 and 7: {shapes}", flush=True)
+    rows += wire_rows + tiny_rows
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1807,6 +1941,8 @@ def main() -> None:
                                    "serve": summary,
                                    "train": train_summary,
                                    "tiny_kernels": tiny_summary,
+                                   "launch_floor_ms": floor,
+                                   "launches_by_shape": shapes,
                                    "privacy": priv_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))

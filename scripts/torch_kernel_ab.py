@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Time the port's packed wire (K1) and conv + pool (K3) kernels from two
+checkouts on one CUDA card, in turns, at the paper path's shapes.
+
+    python3 scripts/torch_kernel_ab.py OLD_ROOT NEW_ROOT [--rounds 2]
+                                       [--out results.json]
+
+Each turn is a fresh process with one checkout's `src` first on its
+path, so it builds and loads that checkout's kernels (into the
+checkout's own build/kernels/). A round runs old, new, new, old. Every
+turn makes the same seeded inputs and times each kernel with the
+yardstick of this repo's chip_smoke.py (`device_ms` over
+`l2_copies`, inputs from `wire_inputs` and `conv_inputs`), whichever
+checkout it times. It prints one line per turn and, last, a JSON
+summary: per kernel and shape each side's times, the ratio of the
+medians new / old, and whether both checkouts gave the same output bits.
+Both checkouts must have the same wrappers:
+`kernels.quant_channel.ops.packed_wire_2d(buf, words, scale, p, bits)`,
+`kernels.quant_channel.ops.words_u32` and
+`kernels.conv_pool.ops.user_conv_pool(x, w, b)`.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+WIRE_ROWS = (224, 1080)            # SL leg, FL upload (256 columns, Q8)
+CONV_ROWS = (512, 2048)            # uplink batch, eval slice ([B, 30, 8])
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def child(root: Path) -> None:
+    """One turn: time both kernels of the checkout at `root`."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as smoke
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.quant_channel import ops as qc
+    res = {}
+    for rows in WIRE_ROWS:
+        args = smoke.wire_inputs(np.random.default_rng(rows), rows, 8)
+        res[f"packed_wire_2d [{rows}, 256]"] = dict(
+            ms=smoke.device_ms(lambda *a: qc.packed_wire_2d(*a, 8),
+                               smoke.l2_copies(args)),
+            digest=_digest(qc.packed_wire_2d(*args, 8)))
+    for B in CONV_ROWS:
+        args = smoke.conv_inputs(np.random.default_rng(B), B, 30, 8, 3, 32)
+        res[f"conv_pool [{B}, 30, 8]"] = dict(
+            ms=smoke.device_ms(cp.user_conv_pool, smoke.l2_copies(args)),
+            digest=_digest(cp.user_conv_pool(*args)))
+    print("AB " + json.dumps(res), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("old", type=Path)
+    ap.add_argument("new", type=Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        child(args.old.resolve())
+        return
+    turns = {"old": [], "new": []}
+    for _ in range(args.rounds):
+        for side in ("old", "new", "new", "old"):
+            root = getattr(args, side).resolve()
+            run = subprocess.run([sys.executable, __file__, str(root),
+                                  str(root), "--child"], capture_output=True,
+                                 text=True)
+            line = [ln for ln in run.stdout.splitlines()
+                    if ln.startswith("AB ")]
+            if run.returncode or not line:
+                sys.exit(f"turn {side} ({root}) failed:\n{run.stderr[-4000:]}")
+            turns[side].append(json.loads(line[0][3:]))
+            print(f"{side}: " + ", ".join(
+                f"{k} {v['ms']:.5f} ms" for k, v in turns[side][-1].items()),
+                flush=True)
+    summary = {}
+    for k in turns["old"][0]:
+        old = [t[k]["ms"] for t in turns["old"]]
+        new = [t[k]["ms"] for t in turns["new"]]
+        summary[k] = dict(
+            old_ms=old, new_ms=new,
+            new_over_old=statistics.median(new) / statistics.median(old),
+            same_bits=len({t[k]["digest"] for s in turns.values()
+                           for t in s}) == 1)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()

@@ -364,7 +364,12 @@ def wire_transform(buf: torch.Tensor, rand: torch.Tensor, scale, p,
     else:
         code = ((q.long() + iqm) & M32) ^ flips
         code = torch.where(code >= 2 ** 31, code - 2 ** 32, code)
-    q_hat = torch.clamp(code - iqm, -iqm, iqm).to(torch.int32)
+    # JAX subtracts in int32, which wraps: at 31 bits a code of the
+    # negative clip (-qm, offset to 2^32 - 1) with plane 30 flipped
+    # lies below -2^31 + qm, and the difference wraps to a positive one
+    q_hat = code - iqm
+    q_hat = torch.where(q_hat < -2 ** 31, q_hat + 2 ** 32, q_hat)
+    q_hat = torch.clamp(q_hat, -iqm, iqm).to(torch.int32)
     return (q_hat.float() * scale).to(buf.dtype)
 
 

@@ -108,6 +108,14 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
 
 
+# ------------------------------------------------- launch geometry
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device `index`, which the launch geometries fill."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # ------------------------------------------------- wrapper-side checks
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 HEAD_DIMS = (64,)

@@ -31,22 +31,46 @@ from repro_torch.kernels.quant_channel.ref import (BLOCK_M, BLOCK_N,
 
 DEVICE_KERNEL_RNG = False
 
-_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_uint
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _CODE_BYTES = {"float32": 4, "int8": 1, "int4": 1}
+# threads per CTA at most, column vectors per CTA row at most
+MAX_THREADS, MAX_TX = 256, 64
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("quant_channel")
-    lib.packed_wire.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _P]
-    lib.packed_wire_philox.argtypes = [_P] * 4 + [_LL, _I, _I, _I, _U, _P]
-    lib.packed_wire_mean.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.packed_wire.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+    lib.packed_wire_philox.argtypes = [_P] * 4 + [_I] * 6 + [_U, _P]
+    lib.packed_wire_mean.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.quant_channel.argtypes = [_P] * 4 + [_I] * 5 + [_P]
     for f in (lib.packed_wire, lib.packed_wire_philox, lib.packed_wire_mean,
               lib.quant_channel):
         f.restype = _I
     return lib
+
+
+def wire_geometry(rows: int, cols: int, sms: int) -> tuple:
+    """CTA shape (tx, ry) of K1, K2 and K6 over a [rows, cols] buffer on
+    a card of `sms` SMs: one thread per 16-byte vector (4 elements), tx
+    column vectors by ry rows per CTA, at most MAX_THREADS threads. ry
+    halves from MAX_THREADS // tx while the grid would leave an SM
+    without a CTA."""
+    vc = cols // 4
+    if rows >= 2 ** 31 or vc > MAX_TX * 65535:
+        raise ValueError(f"packed wire: [{rows}, {cols}] is outside the "
+                         f"kernels' grid (rows < 2^31, cols <= "
+                         f"{4 * MAX_TX * 65535})")
+    tx = max(1, min(vc, MAX_TX))
+    ry = MAX_THREADS // tx
+    while ry > 1 and -(-rows // ry) * -(-vc // tx) < sms:
+        ry //= 2
+    return tx, ry
+
+
+def _grid(buf: torch.Tensor, rows: int) -> tuple:
+    return wire_geometry(rows, buf.shape[1],
+                         build.sm_count(buf.device.index))
 
 
 def words_u32(rand: torch.Tensor, device=None) -> torch.Tensor:
@@ -107,9 +131,10 @@ def packed_wire_2d(buf: torch.Tensor, rand: torch.Tensor,
     _check("packed_wire_2d", bits, wire_dtype, buf,
            (("scale_row", scale_row), ("p_row", p_row)), rand)
     out = torch.empty_like(buf)
+    R, C = buf.shape
     st = _lib().packed_wire(buf.data_ptr(), rand.data_ptr(),
                             scale_row.data_ptr(), p_row.data_ptr(),
-                            out.data_ptr(), buf.numel(), buf.shape[1], bits,
+                            out.data_ptr(), R, C, *_grid(buf, R), bits,
                             _CODE_BYTES[wire_dtype], _stream(buf))
     build.check(st, "packed_wire")
     packed_wire_2d.launches += 1
@@ -129,9 +154,10 @@ def packed_wire_2d_philox(buf: torch.Tensor, scale_row: torch.Tensor,
     _check("packed_wire_2d_philox", bits, wire_dtype, buf,
            (("scale_row", scale_row), ("p_row", p_row)))
     out = torch.empty_like(buf)
+    R, C = buf.shape
     st = _lib().packed_wire_philox(
         buf.data_ptr(), scale_row.data_ptr(), p_row.data_ptr(),
-        out.data_ptr(), buf.numel(), buf.shape[1], bits,
+        out.data_ptr(), R, C, *_grid(buf, R), bits,
         _CODE_BYTES[wire_dtype], int(seed) & 0xFFFFFFFF, _stream(buf))
     build.check(st, "packed_wire_philox")
     packed_wire_2d_philox.launches += 1
@@ -159,8 +185,8 @@ def packed_wire_mean_2d(buf: torch.Tensor, rand: torch.Tensor,
     out = torch.empty((nr // n, c), dtype=torch.float32, device=buf.device)
     st = _lib().packed_wire_mean(
         buf.data_ptr(), rand.data_ptr(), scale_row.data_ptr(),
-        p_row.data_ptr(), w_row.data_ptr(), out.data_ptr(), nr // n, c, n,
-        bits, _CODE_BYTES[wire_dtype], _stream(buf))
+        p_row.data_ptr(), w_row.data_ptr(), out.data_ptr(), nr // n, c,
+        *_grid(buf, nr // n), n, bits, _CODE_BYTES[wire_dtype], _stream(buf))
     build.check(st, "packed_wire_mean")
     packed_wire_mean_2d.launches += 1
     return out

@@ -297,16 +297,20 @@ def test_engine_paged_equals_dense_on_card(cuda_device):
 
 
 # ------------------------------------------------ the packed wire (K1-K6)
-def _wire_case(rows, bits, seed, dev, n_users=1):
+def _wire_case(rows, bits, seed, dev, cols=256):
     from repro_torch.kernels.quant_channel import ops as qc
     rng = np.random.default_rng(seed)
-    buf = (rng.standard_normal((rows, 256))
+    buf = (rng.standard_normal((rows, cols))
            * rng.uniform(0.01, 3.0, (rows, 1))).astype(np.float32)
-    rand = torch.from_numpy(rng.integers(0, 2 ** 32, (rows, 256),
+    rand = torch.from_numpy(rng.integers(0, 2 ** 32, (rows, cols),
                                          dtype=np.int64))
     amax = torch.from_numpy(np.abs(buf).max(axis=1, keepdims=True))
     from repro_torch.core import quantization as Q
-    scale = Q.scale_from_amax(amax, bits)
+    # at 1 bit qm = 0 and scale_from_amax divides by it (an infinite
+    # scale, every output NaN on both sides); the scale of 2 bits keeps
+    # the outputs finite (all 0: qm = 0 clips every code), so that
+    # torch.equal compares values
+    scale = Q.scale_from_amax(amax, max(bits, 2))
     p = torch.from_numpy(rng.uniform(0, 0.2, (rows, 1)).astype(np.float32))
     t = dict(buf=torch.from_numpy(buf), rand=rand, scale=scale, p=p)
     return {k: v.to(dev) for k, v in t.items()}, qc
@@ -329,6 +333,65 @@ def test_packed_wire_kernel_equals_plain(wire_dtype, bits, rows,
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert not torch.equal(got, t["buf"])
+
+
+# ragged rows and column widths around the kernels' 2-D grid (one CTA
+# row of 64 vectors, rows per CTA chosen from the shape), every bit count
+# at the ends of each code width
+WIRE_ROWS = [1, 3, 225, 1081]
+WIRE_COLS = [4, 256, 260]
+WIRE_BITS = [("float32", b) for b in (1, 8, 16, 31)] + \
+    [("int8", b) for b in range(1, 9)]
+
+
+@pytest.mark.parametrize("wire_dtype,bits", WIRE_BITS)
+@pytest.mark.parametrize("cols", WIRE_COLS)
+@pytest.mark.parametrize("rows", WIRE_ROWS)
+def test_packed_wire_kernels_equal_plain_at_ragged_shapes(rows, cols,
+                                                          wire_dtype, bits,
+                                                          cuda_device):
+    """K1, K2 (3 users) and K6 bit for bit against their plain versions
+    at ragged rows and widths, at every bits' end of both code widths."""
+    from repro_torch.kernels.quant_channel import ref as qref
+    t, qc = _wire_case(3 * rows, bits, rows + cols + bits, cuda_device,
+                       cols)
+    one = {k: v[:rows].contiguous() for k, v in t.items()}
+    got = qc.packed_wire_2d(one["buf"], one["rand"], one["scale"], one["p"],
+                            bits, wire_dtype=wire_dtype)
+    assert torch.equal(got, qref.packed_wire_ref(
+        one["buf"], one["rand"], one["scale"], one["p"], bits, wire_dtype))
+    w = torch.tensor([0.25, 0.5, 0.25], device=cuda_device) \
+        .repeat_interleave(rows)[:, None].contiguous()
+    got = qc.packed_wire_mean_2d(t["buf"], t["rand"], t["scale"], t["p"], w,
+                                 bits, 3, wire_dtype=wire_dtype)
+    assert torch.equal(got, qref.packed_wire_mean_ref(
+        t["buf"], t["rand"], t["scale"], t["p"], w, bits, 3, wire_dtype))
+    got = qc.packed_wire_2d_philox(one["buf"], one["scale"], one["p"], bits,
+                                   seed=rows + bits, wire_dtype=wire_dtype)
+    assert torch.equal(got, qref.packed_wire_philox_ref(
+        one["buf"], one["scale"], one["p"], bits, rows + bits, wire_dtype))
+
+
+@pytest.mark.parametrize("bits", [1, 8, 16, 31])
+@pytest.mark.parametrize("m,n", [(1, 4), (3, 260), (128, 512), (256, 1024)])
+def test_quant_channel_kernel_equals_plain_at_ragged_tiles(m, n, bits,
+                                                           cuda_device):
+    """K5 bit for bit against its plain version on whole and partial
+    tiles (min(128, M) x min(512, N)), at each end of the bit range. At
+    1 bit qm = 0: K5's tile scale amax / qm is infinite and every output
+    NaN, in JAX's quant_channel as in both versions here, so NaNs count
+    as equal."""
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.kernels.quant_channel import ref as qref
+    rng = np.random.default_rng(m + n + bits)
+    x = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)) \
+        .to(cuda_device)
+    rand = torch.from_numpy(rng.integers(0, 2 ** 32, (m, n),
+                                         dtype=np.int64)).to(cuda_device)
+    p = torch.tensor([0.08], device=cuda_device)
+    torch.testing.assert_close(qc.quant_channel_2d(x, rand, p, bits),
+                               qref.quant_channel_ref(x, rand, p, bits),
+                               rtol=0, atol=0, equal_nan=True)
 
 
 def test_packed_wire_mean_kernel_equals_plain(cuda_device):
@@ -462,6 +525,40 @@ def test_conv_pool_kernel_equals_plain(b, t, e, f, cuda_device):
                                rtol=TINY_TOL, atol=TINY_TOL)
 
 
+# (B, T, E, K, F) across each edge of the kernel's launch geometry: one
+# span per row (B 2048), several (B 512, 64, 7), single positions (B 1),
+# spans cut to fit shared memory (T 200, E 16, K 5), several filter
+# groups with idle lanes (F 16, 48, 96), every E instance, K 1 / 3 / 5,
+# odd and even T (a dropped last conv position)
+K3_GRID = [(2048, 30, 8, 3, 32), (512, 30, 8, 3, 32), (1, 30, 8, 3, 32),
+           (2, 30, 4, 1, 16), (7, 29, 16, 5, 48), (64, 31, 8, 5, 96),
+           (512, 30, 16, 3, 64), (100, 12, 4, 3, 32), (1, 6, 8, 5, 96),
+           (3, 7, 16, 1, 16), (2048, 29, 4, 5, 48), (33, 64, 16, 3, 96),
+           (2112, 200, 16, 5, 32)]
+
+
+@pytest.mark.parametrize("b,t,e,k,f", K3_GRID)
+def test_conv_pool_kernel_across_its_geometry(b, t, e, k, f, cuda_device):
+    """K3 within 2e-5 of its plain version and bit-identical from one
+    run to the next, at every E instance, K 1 / 3 / 5, F with idle
+    lanes, odd and even T, B 1-2048."""
+    from repro_torch.kernels.conv_pool import ops, ref
+    rng = np.random.default_rng(b + t + e + k + f)
+    x = torch.from_numpy(rng.standard_normal((b, t, e)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, e, f)) / np.sqrt(e))
+                         .astype(np.float32))
+    bias = torch.from_numpy((rng.standard_normal(f) * 0.1)
+                            .astype(np.float32))
+    x, w, bias = (a.to(cuda_device) for a in (x, w, bias))
+    got = ops.user_conv_pool(x, w, bias)
+    again = ops.user_conv_pool(x, w, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (b, (t - k + 1) // 2, f)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref.conv_pool_ref(x, w, bias),
+                               rtol=TINY_TOL, atol=TINY_TOL)
+
+
 @pytest.mark.parametrize("b,t,h", [(2048, 14, 32), (512, 14, 32),
                                    (1, 14, 32), (7, 30, 32), (4, 1, 32),
                                    (16, 7, 8)])
@@ -489,9 +586,12 @@ def test_tiny_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     b = torch.zeros(32, device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
         cp.user_conv_pool(x.double(), w.double(), b.double())
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="registers"):
         cp.user_conv_pool(torch.zeros((4, 30, 512), device=cuda_device),
                           torch.zeros((9, 512, 32), device=cuda_device), b)
+    with pytest.raises(ValueError, match="aligned"):
+        cp.user_conv_pool(torch.zeros(4 * 30 * 8 + 1, device=cuda_device)
+                          [1:].reshape(4, 30, 8), w, b)
     with pytest.raises(ValueError, match="contiguous"):
         cp.user_conv_pool(x.transpose(0, 1).contiguous().transpose(0, 1),
                           w, b)

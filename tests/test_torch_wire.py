@@ -113,7 +113,8 @@ def test_quantization_bit_exact():
 
 # ------------------------------------------------------------ wire transform
 @pytest.mark.parametrize("mode,bits", [
-    ("uint32", 8), ("uint32", 16), ("uint32", 3), ("uint8", 8),
+    ("uint32", 8), ("uint32", 16), ("uint32", 3), ("uint32", 31),
+    ("uint8", 8),
     ("uint8", 5), ("int4", 4), ("int4", 2), ("stochastic", 8),
     ("stochastic", 4)])
 def test_wire_transform_bit_exact(mode, bits):
@@ -145,6 +146,7 @@ def test_fmix_and_flip_mask_bit_exact():
 # ------------------------------------------------- kernels' plain versions
 @pytest.mark.parametrize("wire_dtype,bits", [("float32", 8),
                                              ("float32", 16),
+                                             ("float32", 31),
                                              ("int8", 8), ("int4", 4)])
 def test_packed_wire_plain_matches_pallas(wire_dtype, bits):
     """K1's plain version (the wrapper's CPU path) against the Pallas
