@@ -10,8 +10,8 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    sources (one nvcc per source, started together), printing the build
    time and each kernel function's registers and spills; a spill in the
    decode / prefill kernels of namespace `gqa` (dense and paged
-   instances, both of which must be there), the packed wire or conv +
-   pool fails the run. It times the harness's own per-launch floor (a
+   instances, both of which must be there), the packed wire, conv + pool
+   or the LSTM fails the run. It times the harness's own per-launch floor (a
    one-element add_ per call in the CUDA graph `device_ms` replays);
 2. holds each serving attention kernel against its plain PyTorch version
    on the card: at the main path's shapes (bf16, 16 KV heads, G 1,
@@ -50,15 +50,16 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    vector (the model's size); K6 `packed_wire_2d_philox` against its
    plain Philox version, its share of changed outputs at x = 0, p =
    0.05, Q8 within 0.02 of 1 - (1 - p)^8, and different from the
-   host-word stream. It times each (K1 at both shapes) and computes its
-   bound from the bytes it moves and the integer operations the wire
-   defines;
+   host-word stream. It times each (K1 at both shapes; K5 with its
+   launch geometry) and
+   computes its bound from the bytes it moves and the integer
+   operations the wire defines;
 5. trains the paper's 89,673-parameter model at full size (24,576 /
    2,560 rows, batch 512): FL (Q8, 20 dB, 3 users, J 5) for 2 cycles,
    fused SL (Q8, 20 dB, compress 4) for 1 cycle, CL for 1 cycle, with
    the launch counters set to 0 before and read after (FL records the
-   privacy capture, which phase 7 reads; K1's and K3's launches are
-   also counted by input shape, here and in phase 7). It checks that
+   privacy capture, which phase 7 reads; K1's, K3's and K4's launches
+   are also counted by input shape, here and in phase 7). It checks that
    FL bills exactly 8 x 89,673 = 717,384 bits per user per cycle, that
    K1 launched once per FL cycle and twice per SL training step (the SL
    eval's crossings counted apart), that the same runs on the CPU (the
@@ -79,9 +80,11 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    card within 2e-5 abs + rel (the JAX suite's tolerance): K3
    `user_conv_pool` at the eval slice [2048, 30, 8], a batch [512, 30,
    8] and ragged B 1 and 7 and T 29; K4 `lstm_final_state` at [2048, 14,
-   128], [512, 14, 128], B 1 and 7, T 1 and 30, H 8; K3 must give the
-   same bits twice. It times both at the eval slice (K3 also at the
-   uplink batch) beside their bounds and plain versions, and the
+   128], [512, 14, 128], B 1, 7 and 33, T 1 and 30, H 8, 16, 24 (its
+   register body, at one and two rows a lane) and 48 (its shared-memory
+   body); both must give the same bits twice. It times both at the eval
+   slice and the uplink batch (K4 also at one and two rows a lane, with
+   its launch geometry) beside their bounds and plain versions, and the
    library's nearest calls: conv1d -> relu -> max_pool1d (three calls)
    for K3, one cuDNN `nn.LSTM` call (input product included, against
    `lstm_layer`) for K4;
@@ -98,7 +101,7 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    steps, also on the CPU from the same draws: within 5 % relative) and
    requires err_SL > err_CL; it prints the Table II rows;
 8. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5 and 7 together; K1 and K3 also per
+   their launches over phases 5 and 7 together; K1, K3 and K4 also per
    timed shape, under "by_shape"), the card's name and power limit, and
    as the last line {"ok": true, "device": ...}.
 
@@ -134,8 +137,8 @@ LOGIT_TOL = 0.125
 
 
 # libraries none of whose kernels may spill (besides the attention
-# kernels of namespace `gqa`): the packed wire and conv + pool
-NO_SPILL_LIBS = ("quant_channel", "conv_pool")
+# kernels of namespace `gqa`): the packed wire, conv + pool and the LSTM
+NO_SPILL_LIBS = ("quant_channel", "conv_pool", "lstm_cell")
 
 
 def fail(msg: str) -> None:
@@ -569,6 +572,7 @@ def check_wire_kernels(seed: int) -> tuple:
     import numpy as np
     import torch
     from repro_torch.core.draws import Key
+    from repro_torch.kernels import build
     from repro_torch.kernels.quant_channel import ops as qc
     from repro_torch.kernels.quant_channel import ref as qref
     rng = np.random.default_rng(seed + 1)
@@ -640,13 +644,18 @@ def check_wire_kernels(seed: int) -> tuple:
     err5 = max(err5, check("quant_channel_2d Q8 [256, 512]",
                            qc.quant_channel_2d(x2, w5, p5, 8),
                            qref.quant_channel_ref(x2, w5, p5, 8)))
-    rows.append(dict(
+    row5 = dict(
         name="quant_channel_2d", route="cuda", source=QC_SRC,
         replaces=f"{QC}:244", launches=None, max_abs_err=err5,
         **_timed(lambda *a: qc.quant_channel_2d(*a, 8),
                  lambda *a: qref.quant_channel_ref(*a, 8),
                  (x2, w5, p5), 256 * 512 * 12 + 4,
-                 256 * 512 * wire_int_ops(8))))
+                 256 * 512 * wire_int_ops(8)))
+    row5["geometry"] = dict(zip(("cluster", "rows_per_cta", "threads"),
+                                qc.qc_geometry(256, 512, build.sm_count(0))))
+    print(f"  K5 at [256, 512]: (CTAs a cluster, rows a CTA, threads) "
+          f"{tuple(row5['geometry'].values())}", flush=True)
+    rows.append(row5)
 
     # K6: in-kernel Philox words
     r = WIRE_SHAPES["fl_upload"]
@@ -697,9 +706,13 @@ K3_CASES = [(2048, 30, 8, 3, 32), (512, 30, 8, 3, 32), (1, 30, 8, 3, 32),
 # two-party uplink / capture batch
 K3_TIMED = [(2048, 30, 8), (512, 30, 8)]
 # (B, T, H): the eval slice and a training batch through the paper's LSTM
-# (T 14 pooled positions, H 32), then ragged batches, T 1 and 30, H 8
+# (T 14 pooled positions, H 32), then ragged batches, T 1 and 30, and
+# H 8, 16 and 24 (the register body) and 48 (the shared-memory body)
 K4_CASES = [(2048, 14, 32), (512, 14, 32), (1, 14, 32), (7, 14, 32),
-            (7, 1, 32), (7, 30, 32), (7, 14, 8)]
+            (7, 1, 32), (7, 30, 32), (7, 14, 8), (33, 14, 16), (7, 14, 24),
+            (7, 14, 48)]
+# timed: the eval slice (the row's main numbers) and the uplink batch
+K4_TIMED = [(2048, 14, 32), (512, 14, 32)]
 # operations per LSTM (row, step, unit) besides the 8H of the recurrent
 # dot: 4 adds of xw, 3 sigmoids (negate, exp, add, divide), 2 tanh, and
 # the 4 products and sums of the c and h updates
@@ -733,6 +746,31 @@ def conv_inputs(rng, B: int, T: int, E: int, K: int, F: int) -> tuple:
                                       ((F,), 0.01)))
 
 
+def lstm_inputs(rng, B: int, T: int, H: int) -> tuple:
+    """Seeded K4 operands on the card: gate inputs xw [B, T, 4H] of unit
+    scale, Wh [H, 4H] at the fan-in init's."""
+    import numpy as np
+    import torch
+    return tuple(torch.from_numpy((rng.standard_normal(shape) * scale)
+                                  .astype(np.float32)).to("cuda")
+                 for shape, scale in (((B, T, 4 * H), 1.0),
+                                      ((H, 4 * H), 1.0 / math.sqrt(H))))
+
+
+def qc_inputs(rng, n: int = 89_673, M: int = 256, N: int = 512) -> tuple:
+    """Seeded K5 operands on the card as `ops.transmit` pads them: n
+    normal values in x [M, N] (zeros after), 32-bit words, p [1]."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quant_channel import ops as qc
+    x = np.zeros(M * N, np.float32)
+    x[:n] = rng.standard_normal(n)
+    words = torch.from_numpy(rng.integers(0, 2 ** 32, (M, N),
+                                          dtype=np.int64))
+    return (torch.from_numpy(x.reshape(M, N)).to("cuda"),
+            qc.words_u32(words, "cuda"), torch.tensor([0.02], device="cuda"))
+
+
 def check_tiny_kernels(seed: int) -> tuple:
     """K3 and K4 against their plain versions on the card at the path's
     shapes and ragged ones, within TINY_TOL; times at the eval slice
@@ -741,6 +779,7 @@ def check_tiny_kernels(seed: int) -> tuple:
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.conv_pool import ops as cp
     from repro_torch.kernels.conv_pool import ref as cref
     from repro_torch.kernels.lstm_cell import ops as lc
@@ -797,57 +836,75 @@ def check_tiny_kernels(seed: int) -> tuple:
                                        max_abs_err=row3.pop(
                                            "triple_max_abs_err"))
 
-    # K4: gate inputs of unit scale, Wh at the fan-in init's
-    err4, row4 = 0.0, None
+    # K4: gate inputs of unit scale, Wh at the fan-in init's; the same
+    # bits twice
+    err4, timed4 = 0.0, {}
     for B, T, H in K4_CASES:
-        xw = randn((B, T, 4 * H))
-        wh = randn((H, 4 * H), 1.0 / math.sqrt(H))
+        xw, wh = lstm_inputs(rng, B, T, H)
         h, c = lc.lstm_final_state(xw, wh)
         hr, cr = lref.lstm_final_state_ref(xw, wh)
         tag = f"lstm_final_state [{B}, {T}, {4 * H}]"
         err4 = max(err4, _tiny_close(tag + " h", h, hr, failures),
                    _tiny_close(tag + " c", c, cr, failures))
-        if row4 is None:
-            cps = l2_copies((xw, wh))
-            row4 = dict(ms=device_ms(lc.lstm_final_state, cps),
-                        plain_ms=device_ms(lref.lstm_final_state_ref, cps))
-            row4["bound_ms"], row4["bound_by"] = bound_ms(
-                4 * (xw.numel() + wh.numel() + 2 * B * H),
-                B * T * H * (8 * H + LSTM_GATE_OPS), torch.float32)
-            del cps
-            # the layer: x @ Wx + b, then the recurrence, against one
-            # cuDNN LSTM call (TF32 off) on the same weights
-            Fi = 32
-            x = randn((B, T, Fi))
-            wx = randn((Fi, 4 * H), 1.0 / math.sqrt(Fi))
-            bb = randn((4 * H,), 0.1)
-            lstm = torch.nn.LSTM(Fi, H, batch_first=True).to(dev).eval()
-            with torch.no_grad():
-                lstm.weight_ih_l0.copy_(wx.T)
-                lstm.weight_hh_l0.copy_(wh.T)
-                lstm.bias_ih_l0.copy_(bb)
-                lstm.bias_hh_l0.zero_()
-            lstm.flatten_parameters()
+        again = lc.lstm_final_state(xw, wh)
+        if not (torch.equal(h, again[0]) and torch.equal(c, again[1])):
+            failures.append(f"{tag}: not the same bits twice")
+        if (B, T, H) not in K4_TIMED:
+            continue
+        cps = l2_copies((xw, wh))
+        geo = lc.lstm_geometry(B, H, build.sm_count(0))
+        t = dict(ms=device_ms(lc.lstm_final_state, cps),
+                 plain_ms=device_ms(lref.lstm_final_state_ref, cps),
+                 geometry=dict(zip(("rows_per_warp", "warps_per_cta",
+                                    "grid"), geo)))
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            4 * (xw.numel() + wh.numel() + 2 * B * H),
+            B * T * H * (8 * H + LSTM_GATE_OPS), torch.float32)
+        del cps
+        # the layer: x @ Wx + b, then the recurrence, against one cuDNN
+        # LSTM call (TF32 off) on the same weights
+        Fi = 32
+        x = randn((B, T, Fi))
+        wx = randn((Fi, 4 * H), 1.0 / math.sqrt(Fi))
+        bb = randn((4 * H,), 0.1)
+        lstm = torch.nn.LSTM(Fi, H, batch_first=True).to(dev).eval()
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(wx.T)
+            lstm.weight_hh_l0.copy_(wh.T)
+            lstm.bias_ih_l0.copy_(bb)
+            lstm.bias_hh_l0.zero_()
+        lstm.flatten_parameters()
 
-            def cudnn(x):
-                with torch.no_grad():
-                    return lstm(x)[1][0][0]
-            cps = l2_copies((x,))
-            layer_ms = device_ms(lambda x: lc.lstm_layer(x, wx, wh, bb), cps)
-            lib_ms = device_ms(cudnn, cps)
-            lib_err = float((cudnn(x) - lc.lstm_layer(x, wx, wh, bb))
-                            .abs().max())
-            row4["library_ms"] = lib_ms
-            summary["lstm_layer"] = dict(ms=layer_ms, cudnn_ms=lib_ms,
-                                         cudnn_max_abs_err=lib_err)
-            del cps
-    print(f"  time  lstm_final_state [2048, 14, 128]: kernel "
-          f"{row4['ms']:.5f} ms, plain {row4['plain_ms']:.5f} ms, bound "
-          f"{row4['bound_ms']:.5f} ms ({row4['bound_by']}); the layer "
-          f"(x @ Wx + b, then K4) {summary['lstm_layer']['ms']:.5f} ms vs "
-          f"one cuDNN nn.LSTM call {row4['library_ms']:.5f} ms "
-          f"(max_abs_err "
-          f"{summary['lstm_layer']['cudnn_max_abs_err']:.2e})", flush=True)
+        def cudnn(x):
+            with torch.no_grad():
+                return lstm(x)[1][0][0]
+        cps = l2_copies((x,))
+        t["layer_ms"] = device_ms(lambda x: lc.lstm_layer(x, wx, wh, bb),
+                                  cps)
+        t["library_ms"] = device_ms(cudnn, cps)
+        t["cudnn_max_abs_err"] = float((cudnn(x) - lc.lstm_layer(
+            x, wx, wh, bb)).abs().max())
+        del cps
+        timed4[(B, T, 4 * H)] = t
+        print(f"  time  lstm_final_state [{B}, {T}, {4 * H}] (rows a warp, "
+              f"warps a CTA, CTAs {geo}): kernel {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}); the layer (x @ Wx + b, then K4) "
+              f"{t['layer_ms']:.5f} ms vs one cuDNN nn.LSTM call "
+              f"{t['library_ms']:.5f} ms (max_abs_err "
+              f"{t['cudnn_max_abs_err']:.2e})", flush=True)
+    main4 = timed4[(K4_TIMED[0][0], K4_TIMED[0][1], 4 * K4_TIMED[0][2])]
+    row4 = {k: main4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+    summary["lstm_layer"] = {str(list(s)): dict(
+        ms=t["layer_ms"], cudnn_ms=t["library_ms"],
+        cudnn_max_abs_err=t["cudnn_max_abs_err"],
+        geometry=t["geometry"])
+        for s, t in timed4.items()}
+    by_shape4 = [dict(shape=list(s), launches=None,
+                      **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")})
+                 for s, t in timed4.items()]
     torch.cuda.empty_cache()
     kdir = "src/repro/kernels"
     rows = [dict(name="conv_pool", route="cuda", source=CP_SRC,
@@ -855,7 +912,7 @@ def check_tiny_kernels(seed: int) -> tuple:
                  max_abs_err=err3, **row3, by_shape=_by_shape(timed3)),
             dict(name="lstm_final_state", route="cuda", source=LC_SRC,
                  replaces=f"{kdir}/lstm_cell/kernel.py:43", launches=None,
-                 max_abs_err=err4, **row4)]
+                 max_abs_err=err4, **row4, by_shape=by_shape4)]
     return rows, summary, failures
 
 
@@ -1134,15 +1191,18 @@ class _ShapeLog:
 
 @contextlib.contextmanager
 def launch_shapes(log: dict):
-    """While open, count K1's and K3's launches per input shape into
-    `log` ({row name: Counter}). The path reaches K1 through the ops
-    module (core/wire.py) and K3 through models/lstm_tiny.py's own
-    import, so those two names are swapped for `_ShapeLog`s."""
+    """While open, count K1's, K3's and K4's launches per input shape
+    into `log` ({row name: Counter}). The path reaches K1 through the
+    ops module (core/wire.py), K3 through models/lstm_tiny.py's own
+    import and K4 through `lstm_layer` in its ops module, so those three
+    names are swapped for `_ShapeLog`s."""
     from collections import Counter
+    from repro_torch.kernels.lstm_cell import ops as lc
     from repro_torch.kernels.quant_channel import ops as qc
     from repro_torch.models import lstm_tiny as LT
     sites = [(qc, "packed_wire_2d", "packed_wire_2d"),
-             (LT, "user_conv_pool", "conv_pool")]
+             (LT, "user_conv_pool", "conv_pool"),
+             (lc, "lstm_final_state", "lstm_final_state")]
     kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
     for (mod, attr, row), (_, _, fn) in zip(sites, kept):
         setattr(mod, attr, _ShapeLog(fn, log.setdefault(row, Counter())))
@@ -1158,7 +1218,7 @@ def merge_shapes(into: dict, phase: dict, launches: dict,
     """Add one phase's launches per shape to `into`. Returns a failure
     for each kernel whose launches per shape do not sum to its
     wrapper's count over the phase (a call site that reaches the
-    wrapper by another name than the two that `launch_shapes` swaps)."""
+    wrapper by another name than the three that `launch_shapes` swaps)."""
     failures = []
     for row, counts in phase.items():
         if sum(counts.values()) != launches[row]:
@@ -1320,7 +1380,7 @@ def fl_cpu_runs(seed: int, threads) -> dict:
 
 def train_phase(seed: int, shapes: dict) -> tuple:
     """FL 2 cycles, SL 1, CL 1 on the card (the main path: counters set to
-    0 before, read after; K1's and K3's launches by shape added to
+    0 before, read after; K1's, K3's and K4's launches by shape added to
     `shapes`), the same runs for one cycle on the CPU, and one traced FL
     cycle. Returns ({kernel name: launches}, summary, failures, the
     card's FL run)."""
@@ -1452,9 +1512,9 @@ FL_PROJ, FL_PER = 1024, 64      # table2's FL projection and samples/user
 def privacy_phase(seed: int, fl_run: dict, card_name: str,
                   shapes: dict) -> tuple:
     """The slice's main path, with every counter set to 0 before and read
-    after (K1's and K3's launches by shape added to `shapes`): two-party
-    SL (Q8, 20 dB), fused SL at Q16 with capture and CL over a 20 dB
-    link with capture, one cycle each on the card. Then
+    after (K1's, K3's and K4's launches by shape added to `shapes`):
+    two-party SL (Q8, 20 dB), fused SL at Q16 with capture and CL over a
+    20 dB link with capture, one cycle each on the card. Then
     two-party SL on the CPU on the same draws, and the Table II rows from
     the captures (FL's from phase 5's card run). Returns ({kernel name:
     launches}, summary, failures)."""

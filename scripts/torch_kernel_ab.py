@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's packed wire (K1) and conv + pool (K3) kernels from two
-checkouts on one CUDA card, in turns, at the paper path's shapes.
+"""Time the port's packed wire (K1), conv + pool (K3), LSTM recurrence
+(K4) and tiled quantize-channel (K5) kernels from two checkouts on one
+CUDA card, in turns, at the paper path's shapes.
 
     python3 scripts/torch_kernel_ab.py OLD_ROOT NEW_ROOT [--rounds 2]
                                        [--out results.json]
@@ -10,14 +11,16 @@ path, so it builds and loads that checkout's kernels (into the
 checkout's own build/kernels/). A round runs old, new, new, old. Every
 turn makes the same seeded inputs and times each kernel with the
 yardstick of this repo's chip_smoke.py (`device_ms` over
-`l2_copies`, inputs from `wire_inputs` and `conv_inputs`), whichever
-checkout it times. It prints one line per turn and, last, a JSON
-summary: per kernel and shape each side's times, the ratio of the
-medians new / old, and whether both checkouts gave the same output bits.
-Both checkouts must have the same wrappers:
+`l2_copies`, inputs from `wire_inputs`, `conv_inputs`, `lstm_inputs`
+and `qc_inputs`), whichever checkout it times. It prints one line per
+turn and, last, a JSON summary: per kernel and shape each side's times,
+the ratio of the medians new / old, and whether both checkouts gave the
+same output bits. Both checkouts must have the same wrappers:
 `kernels.quant_channel.ops.packed_wire_2d(buf, words, scale, p, bits)`,
-`kernels.quant_channel.ops.words_u32` and
-`kernels.conv_pool.ops.user_conv_pool(x, w, b)`.
+`kernels.quant_channel.ops.quant_channel_2d(x, words, p, bits)`,
+`kernels.quant_channel.ops.words_u32`,
+`kernels.conv_pool.ops.user_conv_pool(x, w, b)` and
+`kernels.lstm_cell.ops.lstm_final_state(xw, wh)`.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 WIRE_ROWS = (224, 1080)            # SL leg, FL upload (256 columns, Q8)
 CONV_ROWS = (512, 2048)            # uplink batch, eval slice ([B, 30, 8])
+LSTM_ROWS = (512, 2048)            # uplink batch, eval slice ([B, 14, 128])
 
 
 def _digest(t) -> str:
@@ -39,12 +43,14 @@ def _digest(t) -> str:
 
 
 def child(root: Path) -> None:
-    """One turn: time both kernels of the checkout at `root`."""
+    """One turn: time the four kernels of the checkout at `root`."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as smoke
     sys.path.insert(0, str(root / "src"))
     import numpy as np
+    import torch
     from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
     from repro_torch.kernels.quant_channel import ops as qc
     res = {}
     for rows in WIRE_ROWS:
@@ -58,6 +64,16 @@ def child(root: Path) -> None:
         res[f"conv_pool [{B}, 30, 8]"] = dict(
             ms=smoke.device_ms(cp.user_conv_pool, smoke.l2_copies(args)),
             digest=_digest(cp.user_conv_pool(*args)))
+    for B in LSTM_ROWS:
+        args = smoke.lstm_inputs(np.random.default_rng(B), B, 14, 32)
+        res[f"lstm_final_state [{B}, 14, 128]"] = dict(
+            ms=smoke.device_ms(lc.lstm_final_state, smoke.l2_copies(args)),
+            digest=_digest(torch.cat(lc.lstm_final_state(*args))))
+    args = smoke.qc_inputs(np.random.default_rng(5))
+    res["quant_channel_2d [256, 512]"] = dict(
+        ms=smoke.device_ms(lambda *a: qc.quant_channel_2d(*a, 8),
+                           smoke.l2_copies(args)),
+        digest=_digest(qc.quant_channel_2d(*args, 8)))
     print("AB " + json.dumps(res), flush=True)
 
 

@@ -42,14 +42,37 @@
 // grid covers every SM, so the SL leg's 14,336 vectors spread over 224 CTAs
 // instead of 56. Each thread moves one 16-byte vector of floats and one of
 // rand words (4 elements), the finest grain that keeps 16-byte loads. K1
-// and K6 take 29 registers, K2 39, K5 30, none spills. The
-// TPU's sequential grid and VMEM tiles have no counterpart to carry: K2's
-// user axis (the Pallas grid's innermost, accumulating dimension) becomes
-// a loop inside the thread, in ascending user order, and K5's per-tile
-// amax becomes a block reduction in one CTA per 128 x 512 tile. K2, K5 and
-// K6 share the element body and the 2-D indexing (K5 keeps its tiles).
+// and K6 take 29 registers, K2 39, none spills. The TPU's sequential grid
+// and VMEM tiles have no counterpart to carry: K2's user axis (the Pallas
+// grid's innermost, accumulating dimension) becomes a loop inside the
+// thread, in ascending user order. K2 and K6 share K1's element body and
+// 2-D indexing.
+//
+// K5 keeps its tiles (min(128, M) x min(512, N), one amax scale each), but
+// a tile is no longer one CTA: it is one thread-block cluster of C CTAs on
+// neighbouring SMs (ops.py: qc_geometry; C up to the non-portable 16), so
+// the model's [256, 512] runs on 32 SMs instead of 2. Each CTA takes a contiguous slice of the tile's rows,
+// walks it with K1's 2-D indexing (a thread's column vector and row, steps
+// of the CTA's width and height, no division per element) and loads its x
+// and rand words once, as 16-byte vectors where the tile's width is a
+// multiple of 4 (one word at a time otherwise), into registers. The CTA's
+// amax (warp shuffles, then shared memory) is published in its shared
+// memory; after a cluster barrier one warp reads the C - 1 peers' maxima
+// through distributed shared memory and takes the tile's. Max is exact in
+// any order, so the scale has the one-CTA kernel's bits. The elements then
+// run K1's body (4 independent hash chains a plane) on the registers, and
+// `out` is written once. A second cluster barrier, arrived at after the
+// peers' maxima are read and waited for before exit, keeps each CTA's
+// shared memory alive while a peer may read it. K5 takes 61 registers (128
+// in its one-word instance), none spills. At the model's [256, 512] its 32
+// CTAs leave 100 SMs idle: each CTA's 4,096 elements of integer work and
+// its chain of load, reductions, cluster barriers and store bind it, not
+// the bytes.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -230,51 +253,182 @@ __global__ void __launch_bounds__(MAX_THREADS)
   out[v] = acc;
 }
 
-// K5: one CTA per (bm x bn) tile: the tile's amax by a block reduction
-// (max is exact in any order), scale = max(amax, 1e-12) * (1 / qm), then the
-// wire math with the scalar p on every element of the tile.
-constexpr int QC_THREADS = 1024;
+// K5: one cluster of CTAs per (bm x bn) tile. VEC (4 or 1) is the
+// elements of one load; a thread holds QC_WORDS elements, `rows` rows of
+// the tile a CTA (the last CTA of a cluster may hold fewer).
+constexpr int QC_MAX_THREADS = 512;
+constexpr int QC_WORDS = 16;
+constexpr int QC_TX = 128;              // column loads across a CTA, at most
 
-__global__ void __launch_bounds__(QC_THREADS)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(QC_MAX_THREADS)
     quant_channel_kernel(const float* __restrict__ x,
                          const uint32_t* __restrict__ rand,
                          const float* __restrict__ p,
                          float* __restrict__ out, int N, int bm, int bn,
-                         int bits) {
-  __shared__ float warp_max[QC_THREADS / 32];
-  const long long r0 = (long long)blockIdx.y * bm;
-  const long long c0 = (long long)blockIdx.x * bn;
-  const int n = bm * bn;
+                         int rows, int bits) {
+  constexpr int ITEMS = QC_WORDS / VEC;
+  __shared__ float warp_max[QC_MAX_THREADS / 32];
+  __shared__ float cta_max, tile_max;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / C, tiles_n = N / bn;
+  const int ti = tile / tiles_n, tj = tile - ti * tiles_n;
+  const int vc = bn / VEC;
+  const int tx = min(vc, QC_TX), ry = blockDim.x / tx;
+  const int ty = threadIdx.x / tx, cx = threadIdx.x - ty * tx;
+  const int row0 = rank * rows + ty, row1 = min(bm, (rank + 1) * rows);
+  const float* xt = x + (size_t)ti * bm * N + (size_t)tj * bn;
+  const uint32_t* rt = rand + (size_t)ti * bm * N + (size_t)tj * bn;
+  float* ot = out + (size_t)ti * bm * N + (size_t)tj * bn;
+
+  // the thread's items: column load cv of row r, cv stepping by tx, then
+  // r by ry; `ok` falls to false once and stays there
+  float xv[QC_WORDS];
+  uint32_t rv[QC_WORDS];
+  bool ok[ITEMS];
   float m = 0.f;
-  for (int t = threadIdx.x; t < n; t += QC_THREADS) {
-    m = fmaxf(m, fabsf(x[(r0 + t / bn) * N + c0 + t % bn]));
+  {
+    int r = row0, cv = cx;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      ok[k] = ty < ry && r < row1;
+      const size_t i = (size_t)r * N + (size_t)cv * VEC;
+      if constexpr (VEC == 4) {
+        const float4 a = ok[k] ? *reinterpret_cast<const float4*>(xt + i)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        const uint4 b = ok[k] ? *reinterpret_cast<const uint4*>(rt + i)
+                              : make_uint4(0u, 0u, 0u, 0u);
+        xv[4 * k] = a.x;
+        xv[4 * k + 1] = a.y;
+        xv[4 * k + 2] = a.z;
+        xv[4 * k + 3] = a.w;
+        rv[4 * k] = b.x;
+        rv[4 * k + 1] = b.y;
+        rv[4 * k + 2] = b.z;
+        rv[4 * k + 3] = b.w;
+      } else {
+        xv[k] = ok[k] ? xt[i] : 0.f;
+        rv[k] = ok[k] ? rt[i] : 0u;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) m = fmaxf(m, fabsf(xv[VEC * k + e]));
+      cv += tx;
+      if (cv >= vc) {
+        cv = cx;
+        r += ry;
+      }
+    }
   }
+
+  // the CTA's amax, published in its shared memory
   for (int o = 16; o > 0; o >>= 1) {
     m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
   }
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x < 32) {
-    m = warp_max[threadIdx.x];
+    m = threadIdx.x < (blockDim.x >> 5) ? warp_max[threadIdx.x] : 0.f;
     for (int o = 16; o > 0; o >>= 1) {
       m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
     }
-    if (threadIdx.x == 0) warp_max[0] = m;
+    if (threadIdx.x == 0) cta_max = m;
   }
+  cluster_arrive();
+  cluster_wait();
+  // the tile's amax from every CTA of the cluster (distributed shared
+  // memory); then the second barrier's arrival: this CTA reads no peer
+  // after it
+  if (threadIdx.x < 32) {
+    m = threadIdx.x < C ? *cluster.map_shared_rank(&cta_max, threadIdx.x)
+                        : 0.f;
+    for (int o = 16; o > 0; o >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
+    }
+    if (threadIdx.x == 0) tile_max = m;
+  }
+  cluster_arrive();
   __syncthreads();
   const int qm = (1 << (bits - 1)) - 1;
   // amax times the float32 reciprocal of qm: the compiled JAX kernel's
   // rewrite of its division by the constant qm (the last ulp differs)
-  const float scale = __fmul_rn(fmaxf(warp_max[0], 1e-12f),
+  const float scale = __fmul_rn(fmaxf(tile_max, 1e-12f),
                                 __frcp_rn((float)qm));
   const uint32_t thresh = threshold(p[0]);
-  for (int t = threadIdx.x; t < n; t += QC_THREADS) {
-    const long long i = (r0 + t / bn) * N + c0 + t % bn;
-    const uint32_t word[1] = {rand[i]};
-    uint32_t flips[1];
-    flip_masks<1>(flips, word, bits, thresh);
-    out[i] = wire_elem<uint32_t>(x[i], flips[0], scale, qm);
+#pragma unroll
+  for (int g = 0; g < QC_WORDS / 4; ++g) {
+    if (ok[4 * g / VEC]) {
+      const uint32_t words[4] = {rv[4 * g], rv[4 * g + 1], rv[4 * g + 2],
+                                 rv[4 * g + 3]};
+      uint32_t mk[4];
+      flip_masks<4>(mk, words, bits, thresh);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xv[4 * g + e] = wire_elem<uint32_t>(xv[4 * g + e], mk[e], scale, qm);
+      }
+    }
   }
+  {
+    int r = row0, cv = cx;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      if (ok[k]) {
+        const size_t i = (size_t)r * N + (size_t)cv * VEC;
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<float4*>(ot + i) = make_float4(
+              xv[4 * k], xv[4 * k + 1], xv[4 * k + 2], xv[4 * k + 3]);
+        } else {
+          ot[i] = xv[k];
+        }
+      }
+      cv += tx;
+      if (cv >= vc) {
+        cv = cx;
+        r += ry;
+      }
+    }
+  }
+  cluster_wait();
+}
+
+template <int VEC>
+int launch_quant_channel(const float* x, const uint32_t* rand,
+                         const float* p, float* out, int N, int bm, int bn,
+                         int n_tiles, int cluster, int rows, int threads,
+                         int bits, cudaStream_t st) {
+  auto kern = quant_channel_kernel<VEC>;
+  // a cluster beyond the portable 8 needs the attribute, which is set per
+  // device: set it before each such launch (a host call, no stream work)
+  if (cluster > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, x, rand, p, out, N,
+                                           bm, bn, rows, bits);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 }  // namespace
@@ -344,12 +498,21 @@ extern "C" int packed_wire_mean(const void* buf, const void* rand,
   return (int)cudaGetLastError();
 }
 
+// K5: (M / bm) * (N / bn) clusters of `cluster` CTAs of `threads` threads,
+// `rows` tile rows a CTA, `vec` elements a load (ops.py: qc_geometry).
 extern "C" int quant_channel(const float* x, const uint32_t* rand,
                              const float* p, float* out, int M, int N, int bm,
-                             int bn, int bits, void* stream) {
+                             int bn, int cluster, int rows, int threads,
+                             int vec, int bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N / bn, M / bm);
-  quant_channel_kernel<<<grid, QC_THREADS, 0, st>>>(x, rand, p, out, N, bm,
-                                                    bn, bits);
-  return (int)cudaGetLastError();
+  const int n_tiles = (M / bm) * (N / bn);
+  if (threads < 32 || threads > QC_MAX_THREADS || threads % 32 ||
+      cluster < 1 || cluster > 16 || (vec != 1 && vec != 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return vec == 4
+             ? launch_quant_channel<4>(x, rand, p, out, N, bm, bn, n_tiles,
+                                       cluster, rows, threads, bits, st)
+             : launch_quant_channel<1>(x, rand, p, out, N, bm, bn, n_tiles,
+                                       cluster, rows, threads, bits, st);
 }

@@ -35,6 +35,12 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _CODE_BYTES = {"float32": 4, "int8": 1, "int4": 1}
 # threads per CTA at most, column vectors per CTA row at most
 MAX_THREADS, MAX_TX = 256, 64
+# K5: threads per CTA at most, elements a thread holds in registers,
+# column loads across a CTA at most (csrc/quant_channel.cu), and CTAs a
+# cluster at most: the non-portable 16, which beat the portable 8 on the
+# H100 (PERF.md)
+QC_MAX_THREADS, QC_WORDS, QC_TX = 512, 16, 128
+CLUSTER_MAX = 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,7 +49,7 @@ def _lib():
     lib.packed_wire.argtypes = [_P] * 5 + [_I] * 6 + [_P]
     lib.packed_wire_philox.argtypes = [_P] * 4 + [_I] * 6 + [_U, _P]
     lib.packed_wire_mean.argtypes = [_P] * 6 + [_I] * 7 + [_P]
-    lib.quant_channel.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    lib.quant_channel.argtypes = [_P] * 4 + [_I] * 9 + [_P]
     for f in (lib.packed_wire, lib.packed_wire_philox, lib.packed_wire_mean,
               lib.quant_channel):
         f.restype = _I
@@ -66,6 +72,44 @@ def wire_geometry(rows: int, cols: int, sms: int) -> tuple:
     while ry > 1 and -(-rows // ry) * -(-vc // tx) < sms:
         ry //= 2
     return tx, ry
+
+
+def qc_geometry(M: int, N: int, sms: int, vec: int | None = None) -> tuple:
+    """K5's launch over x [M, N] on a card of `sms` SMs: (cluster,
+    rows_per_cta, threads). Each (min(128, M) x min(512, N)) tile is one
+    cluster of CTAs, each CTA a contiguous slice of rows_per_cta of the
+    tile's rows (the last may have fewer); a thread holds QC_WORDS
+    elements, loaded `vec` (4 where the tile's width allows, else 1) at
+    a time, tx = min(bn / vec, QC_TX) loads across a CTA and
+    threads // tx rows down. The cluster is as large as spreads the
+    tiles over the SMs, at most CLUSTER_MAX and the tile's rows, and at
+    least what holds the tile in registers. Raises ValueError where the
+    shape is not whole tiles or no cluster up to CLUSTER_MAX holds a
+    tile."""
+    if M < 1 or N < 1:
+        raise ValueError(f"quant_channel_2d: empty x [{M}, {N}]")
+    bm, bn = min(BLOCK_M, M), min(BLOCK_N, N)
+    if M % bm or N % bn:
+        raise ValueError(f"quant_channel_2d: {M} x {N} is not a whole "
+                         f"number of {bm} x {bn} tiles")
+    if vec is None:
+        vec = 4 if bn % 4 == 0 else 1
+    if vec not in (1, 4) or bn % vec:
+        raise ValueError(f"quant_channel_2d: loads of {vec} elements do "
+                         f"not tile a width of {bn}")
+    vc = bn // vec
+    tx = min(vc, QC_TX)
+    col_passes = -(-vc // tx)
+    n_tiles = (M // bm) * (N // bn)
+    top = min(CLUSTER_MAX, bm)
+    for c in range(max(1, min(top, -(-sms // n_tiles))), top + 1):
+        rows = -(-bm // c)
+        threads = -(-tx * min(rows, QC_MAX_THREADS // tx) // 32) * 32
+        if col_passes * -(-rows // (threads // tx)) * vec <= QC_WORDS:
+            return -(-bm // rows), rows, threads
+    raise ValueError(f"quant_channel_2d: a {bm} x {bn} tile does not fit "
+                     f"the registers of {top} CTAs of {QC_MAX_THREADS} "
+                     f"threads")
 
 
 def _grid(buf: torch.Tensor, rows: int) -> tuple:
@@ -210,10 +254,16 @@ def quant_channel_2d(x: torch.Tensor, rand: torch.Tensor, p: torch.Tensor,
             or rand.device != x.device or not 1 <= bits <= 31:
         raise ValueError("quant_channel_2d: x [M, N] float32, rand [M, N] "
                          "and p [1] on one device, 1 <= bits <= 31")
+    # 16-byte loads where the tile's width and both inputs' addresses
+    # allow them
+    vec = 4 if bn % 4 == 0 and x.data_ptr() % 16 == 0 \
+        and rand.data_ptr() % 16 == 0 else 1
+    cluster, rows, threads = qc_geometry(
+        M, N, build.sm_count(x.device.index), vec)
     out = torch.empty_like(x)
     st = _lib().quant_channel(x.data_ptr(), rand.data_ptr(), p.data_ptr(),
-                              out.data_ptr(), M, N, bm, bn, bits,
-                              _stream(x))
+                              out.data_ptr(), M, N, bm, bn, cluster, rows,
+                              threads, vec, bits, _stream(x))
     build.check(st, "quant_channel")
     quant_channel_2d.launches += 1
     return out

@@ -394,6 +394,39 @@ def test_quant_channel_kernel_equals_plain_at_ragged_tiles(m, n, bits,
                                rtol=0, atol=0, equal_nan=True)
 
 
+# K5's cluster design, with the cluster qc_geometry picks: many tiles
+# (8 CTAs), a tile with fewer rows than the cluster (a CTA a row), widths
+# that are no multiple of 4 (one word a load), and an x that starts off a
+# 16-byte boundary (one word a load too, 16 CTAs)
+QC_CLUSTER_SHAPES = [(1024, 2048, 0, 8), (3, 260, 0, 3), (5, 259, 0, 5),
+                     (128, 37, 0, 16), (256, 512, 1, 16), (64, 512, 0, 16)]
+
+
+@pytest.mark.parametrize("bits", [1, 8, 16, 31])
+@pytest.mark.parametrize("m,n,offset,cluster", QC_CLUSTER_SHAPES)
+def test_quant_channel_clusters_equal_plain(m, n, offset, cluster, bits,
+                                            cuda_device):
+    """K5 bit for bit against its plain version and the same bits twice,
+    at clusters of 3 to 16 CTAs (NaNs equal at 1 bit, as above)."""
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.kernels.quant_channel import ref as qref
+    rng = np.random.default_rng(m + n + bits + offset)
+    x = torch.from_numpy((rng.standard_normal(m * n + offset)
+                          * 3.0).astype(np.float32)).to(cuda_device)
+    x = x[offset:].view(m, n)
+    rand = qc.words_u32(torch.from_numpy(rng.integers(
+        0, 2 ** 32, (m, n), dtype=np.int64)), cuda_device)
+    p = torch.tensor([0.08], device=cuda_device)
+    vec = 4 if n % 4 == 0 and offset == 0 else 1
+    assert qc.qc_geometry(m, n, qc.build.sm_count(x.device.index),
+                          vec)[0] == cluster
+    got = qc.quant_channel_2d(x, rand, p, bits)
+    again = qc.quant_channel_2d(x, rand, p, bits)
+    torch.testing.assert_close(got, qref.quant_channel_ref(x, rand, p, bits),
+                               rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, again, rtol=0, atol=0, equal_nan=True)
+
+
 def test_packed_wire_mean_kernel_equals_plain(cuda_device):
     """K2 at the FL upload's [3 x 360, 256], one user weighted out."""
     from repro_torch.kernels.quant_channel import ref as qref
@@ -576,6 +609,45 @@ def test_lstm_kernel_equals_plain(b, t, h, cuda_device):
     h_r, c_r = ref.lstm_final_state_ref(xw, wh)
     torch.testing.assert_close(h_k, h_r, rtol=TINY_TOL, atol=TINY_TOL)
     torch.testing.assert_close(c_k, c_r, rtol=TINY_TOL, atol=TINY_TOL)
+
+
+@pytest.mark.parametrize("h", [8, 16, 24, 32, 48])
+@pytest.mark.parametrize("b,t", [(1, 30), (7, 1), (33, 14), (300, 30)])
+def test_lstm_kernel_bodies_at_ragged_shapes(b, t, h, cuda_device):
+    """K4's register body (H <= 32, two rows a lane) and its
+    shared-memory body (H 48) at ragged B and T: within 2e-5 of the
+    plain version, the same bits on a second call, one launch each."""
+    from repro_torch.kernels.lstm_cell import ops, ref
+    rng = np.random.default_rng(b * t + h)
+    xw = torch.from_numpy(rng.standard_normal((b, t, 4 * h))
+                          .astype(np.float32)).to(cuda_device)
+    wh = torch.from_numpy((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                          .astype(np.float32)).to(cuda_device)
+    n0 = ops.lstm_final_state.launches
+    h_k, c_k = ops.lstm_final_state(xw, wh)
+    h_2, c_2 = ops.lstm_final_state(xw, wh)
+    torch.cuda.synchronize()
+    assert ops.lstm_final_state.launches == n0 + 2
+    assert torch.equal(h_k, h_2) and torch.equal(c_k, c_2)
+    h_r, c_r = ref.lstm_final_state_ref(xw, wh)
+    torch.testing.assert_close(h_k, h_r, rtol=TINY_TOL, atol=TINY_TOL)
+    torch.testing.assert_close(c_k, c_r, rtol=TINY_TOL, atol=TINY_TOL)
+
+
+def test_lstm_register_body_row_bits_do_not_depend_on_its_slot(cuda_device):
+    """A row's bits do not depend on its place in the warp: the eval
+    slice's rows, run as a batch and each in a batch of one (the row
+    alone in its warp), agree."""
+    from repro_torch.kernels.lstm_cell import ops
+    rng = np.random.default_rng(11)
+    xw = torch.from_numpy(rng.standard_normal((2048, 14, 128))
+                          .astype(np.float32)).to(cuda_device)
+    wh = torch.from_numpy((rng.standard_normal((32, 128)) / np.sqrt(32))
+                          .astype(np.float32)).to(cuda_device)
+    h_all, c_all = ops.lstm_final_state(xw, wh)
+    for r in (0, 1, 2, 3, 777, 2047):
+        h_1, c_1 = ops.lstm_final_state(xw[r:r + 1].contiguous(), wh)
+        assert torch.equal(h_1[0], h_all[r]) and torch.equal(c_1[0], c_all[r])
 
 
 def test_tiny_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
