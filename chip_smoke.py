@@ -100,10 +100,33 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    FL per-sample protocol from phase 5's FL captures, SL 600 adversary
    steps, also on the CPU from the same draws: within 5 % relative) and
    requires err_SL > err_CL; it prints the Table II rows;
-8. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5 and 7 together; K1, K3 and K4 also per
-   timed shape, under "by_shape"), the card's name and power limit, and
-   as the last line {"ok": true, "device": ...}.
+8. serves the paper's classifier (paper-tinylstm, phase 5's CL-trained
+   weights) with `ServeEngine` on the card: 256 requests of 30-token
+   prompts, 1 new token each (the class) and 4 for every fourth, 32
+   slots, 8 arrivals a cycle, a 10 dB fading radio, greedy, paged KV
+   asked for. It checks that the engine serves dense, that no attention
+   kernel (K7-K10) launched, that each served request's class logit
+   lies within 2e-5 abs + rel of `lstm_tiny.forward` on the same tokens
+   on the card (K3 + K4, which must launch), and that the same trace on
+   the CPU gives exactly the same bills and the same tokens and TTFT
+   cycles except at listed near-ties (|z| < 4e-5); it prints requests/s,
+   TTFT p50/p99 and the idle share of a traced serve of 64 requests;
+9. runs the FL/SL options at full size, one cycle each on the card:
+   FL with the coordinate median (the sync redone on the CPU from the
+   card's uploads, bit for bit), DP-FedAvg (sigma 0.5, C 1: K1 three
+   times a cycle, 3 x 717,384 bits, epsilon 9.6896; the sync redone on
+   the CPU: at most 64 Q8 codes moved by one step, the synced weights
+   within one step / 3), Dirichlet(0.1) shards + FedProx (mu 0.1) +
+   sampling with replacement (three local steps within 2e-5 of the
+   CPU), phase 5's fused SL model scored over the noiseless link
+   (`perfect_eval`, within 0.01 of the CPU), and the model's 89,673
+   weights through Hamming(7,4) and each constellation at Q8, 5 dB
+   (bit for bit with the CPU on the same draws); it prints each
+   option's seconds beside the card;
+10. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5, 7, 8 and 9 together; K1, K3 and K4
+   also per timed shape, under "by_shape"), the card's name and power
+   limit, and as the last line {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
 a machine without CUDA, or from a directory without src/repro_torch.
@@ -112,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -381,7 +405,7 @@ def check_kernels(S: int, seed: int) -> tuple:
             tag = f"{kern['name']} {label} C={case.C} {case.dtype}"
             extra = ""
             if not kern["prefill"]:
-                n = dec.decode_splits(case.B, case.Hkv, case.G, case.S)
+                n = dec.decode_splits(case.B, case.Hkv, case.G)
                 extra = f", n_split {n}"
             if twin is not None:    # same data, dense layout
                 same_twin = bool(torch.equal(got, twin["fn"](
@@ -1149,15 +1173,22 @@ def _wire_counters():
 def _runs() -> dict:
     """name -> (WirelessConfig, scheme options) of every training run: FL,
     fused SL and CL at phase 5's settings (FL recording the privacy
-    capture), and the privacy phase's two-party SL, fused SL at Q16 with
+    capture), the privacy phase's two-party SL, fused SL at Q16 with
     capture, and CL over a 20 dB link with capture (benchmarks/table2.py's
-    settings for the last two)."""
+    settings for the last two), and phase 9's FL options."""
     from repro_torch.configs import WirelessConfig
     sl8 = WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
                          compress_factor=4)
+    fl = dict(mode="fl", quant_bits=8, snr_db=20.0, n_users=3,
+              local_steps=5)
     return {
-        "fl": (WirelessConfig(mode="fl", quant_bits=8, snr_db=20.0,
-                              n_users=3, local_steps=5), dict(capture=True)),
+        "fl": (WirelessConfig(**fl), dict(capture=True)),
+        "fl_median": (WirelessConfig(aggregate="median", **fl), {}),
+        "fl_dp": (WirelessConfig(**fl), dict(dp_sigma=DP_SIGMA,
+                                            dp_clip=DP_CLIP)),
+        "fl_dirichlet0.1_fedprox": (WirelessConfig(**fl), dict(
+            shards=_dirichlet_shards(), prox_mu=0.1,
+            sample_with_replacement=True)),
         "sl": (sl8, {}),
         "cl": (None, {}),
         "sl_two_party": (sl8, dict(protocol="two_party", capture=True)),
@@ -1167,6 +1198,15 @@ def _runs() -> dict:
         "cl_20db_capture": (WirelessConfig(mode="cl", snr_db=20.0),
                             dict(capture=True)),
     }
+
+
+@functools.lru_cache(maxsize=1)
+def _dirichlet_shards():
+    """benchmarks/extensions.py's Dirichlet(0.1) shards of the corpus."""
+    from repro_torch.data.sentiment import partition_users_dirichlet
+    from repro_torch.schemes.base import corpus
+    (xtr, ytr), _ = corpus()
+    return partition_users_dirichlet(xtr, ytr, 3, alpha=0.1)
 
 
 class _ShapeLog:
@@ -1328,7 +1368,8 @@ def _train_run(name: str, cycles: int, device: str, seed: int) -> dict:
 def sync_check(run) -> dict:
     """The card run's first FL sync redone on the CPU (plain versions)
     from the weights the card uploaded, under the same draws: whether
-    the delivered weights and their FedAvg equal the card's bit for bit,
+    the delivered weights and their aggregate (FedAvg, or the median)
+    equal the card's bit for bit,
     and how far the synced model's CPU score lies from the card's."""
     import torch
     from repro_torch.core import federated as FED
@@ -1338,7 +1379,7 @@ def sync_check(run) -> dict:
     from repro_torch.schemes.radio import Radio
     path, sent, got = run["uploads"][0]
     dlv = Radio.from_wcfg(run["wcfg"]).send_stacked(Key(*path).draws(), sent)
-    avg = tree_map(FED.mean_users, dlv.payload)
+    avg = tree_map(FED.aggregator(run["wcfg"].aggregate), dlv.payload)
     acc, loss = evaluate(avg, *corpus()[1])
     return dict(
         delivered_equal=all(torch.equal(a, b) for a, b in zip(
@@ -1346,7 +1387,8 @@ def sync_check(run) -> dict:
         synced_equal=all(torch.equal(a, b) for a, b in zip(
             tree_leaves(avg), tree_leaves(run["synced"][0]))),
         abs_d_accuracy=abs(acc - run["res"].accuracy[0]),
-        abs_d_test_loss=abs(loss - run["test_losses"][0]))
+        abs_d_test_loss=(abs(loss - run["test_losses"][0])
+                         if run.get("test_losses") else None))
 
 
 def fl_distance(a, b) -> dict:
@@ -1383,7 +1425,7 @@ def train_phase(seed: int, shapes: dict) -> tuple:
     0 before, read after; K1's, K3's and K4's launches by shape added to
     `shapes`), the same runs for one cycle on the CPU, and one traced FL
     cycle. Returns ({kernel name: launches}, summary, failures, the
-    card's FL run)."""
+    card's runs by mode)."""
     from repro_torch.kernels.conv_pool import ops as cp
     from repro_torch.kernels.lstm_cell import ops as lc
     from repro_torch.schemes.base import BATCH, N_TRAIN
@@ -1497,7 +1539,7 @@ def train_phase(seed: int, shapes: dict) -> tuple:
     if not gap <= STEP_TOL:
         failures.append(f"three local steps: card vs CPU weights {gap}")
     summary["profile_fl_cycle"] = profile_train(seed)
-    return launches, summary, failures, card["fl"]
+    return launches, summary, failures, card
 
 
 # ------------------------------------- two-party SL and the privacy study
@@ -1819,14 +1861,14 @@ ATTENTION_KERNELS = {
                                            "PagedCols"),)}}
 
 
-def profile_phase(eng, trace, kv: str) -> dict:
+def profile_phase(eng, trace, kv: str, kernels=None) -> dict:
     """One serve of `trace` under torch.profiler, after the timed runs
     (tracing slows the host, so the end-to-end numbers come from the
     untraced runs): the share of the traced wall time in which a kernel
     ran on the card, device time by kernel, host time by op, and each
-    attention kernel's share of the device's busy time. Patterns of
-    ATTENTION_KERNELS that match no traced kernel are listed under
-    "unmatched_kernel_patterns"."""
+    attention kernel's share of the device's busy time (`kernels`, by
+    default ATTENTION_KERNELS[kv]). Patterns that match no traced kernel
+    are listed under "unmatched_kernel_patterns"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1839,13 +1881,14 @@ def profile_phase(eng, trace, kv: str) -> dict:
     out = _idle_summary(prof, wall_us,
                         f"{kv} serve, {len(trace.requests)} requests")
     out["cycles"] = rep.cycles
+    kernels = ATTENTION_KERNELS[kv] if kernels is None else kernels
     if "device_us_by_kernel" in out:
         busy_us = out["device_busy_s"] * 1e6
         names = out["device_us_by_kernel"]
         out["unmatched_kernel_patterns"] = [
-            pat for pats in ATTENTION_KERNELS[kv].values() for pat in pats
+            pat for pats in kernels.values() for pat in pats
             if not any(all(p in k for p in pat) for k in names)]
-        for name, pats in ATTENTION_KERNELS[kv].items():
+        for name, pats in kernels.items():
             us = sum(t for k, (n, t) in names.items()
                      if any(all(p in k for p in pat) for pat in pats))
             out[f"{name}_share_of_busy"] = us / busy_us
@@ -1897,6 +1940,439 @@ def _idle_summary(prof, wall_us: float, label: str) -> dict:
         print(f"  host   {a.self_cpu_time_total / 1e3:9.3f} ms {a.count:6d} x"
               f"  {a.key[:90]}")
     return out
+
+
+# ------------------------------------------- the tiny model as a server
+# phase 8: the paper's classifier served by ServeEngine on the card.
+# Each served request's class logit after its 30 prompt tokens (the
+# streaming decode: plain ops, no kernel) against `lstm_tiny.forward` on
+# the same tokens (K3 + K4 on the card) within TINY_TOL abs + rel; the
+# same trace on the CPU (plain ops, the same draws) gives the same bills
+# exactly, and the same tokens and TTFT cycles except where the class
+# logit lies within 2 TINY_TOL of 0 (a near-tie, listed)
+TINY_REQUESTS, TINY_SLOTS = 256, 32
+TINY_PROMPT = 30                 # the corpus' padded tweet length
+
+
+def tiny_trace(seed: int):
+    """256 requests of 30-token prompts: one new token (the class) each,
+    four for every fourth so that generated tokens are fed back; eight
+    arrive per cycle; every user over a 10 dB link."""
+    from repro_torch.serve import Request, RequestTrace
+    return RequestTrace(seed, tuple(
+        Request(rid=i, arrival_cycle=i // 8, prompt_len=TINY_PROMPT,
+                max_new_tokens=4 if i % 4 == 3 else 1, snr_db=10.0)
+        for i in range(TINY_REQUESTS)))
+
+
+def tiny_engine(params, device: str):
+    from repro_torch.configs import get_arch
+    from repro_torch.schemes.radio import Radio
+    from repro_torch.serve import ServeEngine
+    return ServeEngine(get_arch("paper-tinylstm"), params,
+                       n_slots=TINY_SLOTS, greedy=True, kv="paged",
+                       radio=Radio(snr_db=10.0, fading=True), device=device)
+
+
+def tiny_context_z(eng, trace, rid: int, generated) -> float:
+    """The class logit `forward` (plain ops, on the CPU) gives after the
+    request's delivered prompt (rebuilt from the engine's draws) and
+    `generated`: the decode step's logit there, up to TINY_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lstm_tiny as LT
+    from repro_torch.nn import tree_map
+    from repro_torch.serve.engine import UPLINK, RequestResult
+    r = {q.rid: q for q in trace.requests}[rid]
+    draws = eng.draws(trace.seed)
+    sent = draws.prompt(rid, r.prompt_len, eng.cfg.vocab_size)
+    radio = dataclasses.replace(eng.radio, snr_db=r.snr_db)
+    rx, _ = eng._send_row(radio, draws, rid, UPLINK, sent,
+                          eng.cfg.vocab_size, RequestResult(rid))
+    ctx = torch.tensor(list(rx) + list(generated))[None]
+    params = tree_map(lambda a: a.detach().cpu(), eng.params)
+    with torch.inference_mode():
+        return float(LT.forward(params, {"tokens": ctx})[0][0, 0])
+
+
+def tiny_serve_phase(seed: int, params: dict, shapes: dict) -> tuple:
+    """Serve the tiny model on the card with phase 5's CL-trained
+    weights, the K1/K3/K4 and attention counters set to 0 before and
+    read after; the checks above; one traced serve of 64 requests for
+    the idle share. Returns ({kernel name: launches}, summary,
+    failures)."""
+    import torch
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.kernels.prefill_attention import ops as pre
+    from repro_torch.models import lstm_tiny as LT
+    from repro_torch.nn import tree_map
+    from repro_torch.serve import RequestTrace
+    failures = []
+    trace = tiny_trace(seed)
+    eng = tiny_engine(params, "cuda")
+    if eng.kv != "dense":
+        failures.append(f"tiny engine kv {eng.kv!r}, not dense")
+    warm = eng.warmup_compile(trace.max_seq_len())
+    built = eng.build(max(8, trace.max_seq_len()))
+    firsts, orig = [], built["prefill"]
+
+    def prefill(cache, toks, st, nv, tbl):
+        lg, cache = orig(cache, toks, st, nv, tbl)
+        for b in ((st == 0) & (nv == TINY_PROMPT)).nonzero()[:, 0].tolist():
+            firsts.append((toks[b, :TINY_PROMPT].clone(), lg[b].clone()))
+        return lg, cache
+
+    built["prefill"] = prefill
+    attn = {"decode_attention": dec.gqa_decode,
+            "paged_decode_attention": dec.gqa_decode_paged,
+            "prefill_attention": pre.gqa_prefill,
+            "paged_prefill_attention": pre.gqa_prefill_paged}
+    counters = dict(_wire_counters(), conv_pool=cp.user_conv_pool,
+                    lstm_final_state=lc.lstm_final_state, **attn)
+    for f in counters.values():
+        f.launches = 0
+    with launch_shapes({}) as phase_shapes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.serve(trace)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        built["prefill"] = orig
+        serve_launches = {k: f.launches for k, f in counters.items()}
+        # each served request's first class logit against forward()
+        toks = torch.stack([t for t, _ in firsts])
+        with torch.inference_mode():
+            ref = LT.forward(eng.params, {"tokens": toks})[0][:, 0]
+        torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    failures += merge_shapes(shapes, phase_shapes, launches, "tiny serving")
+    got = torch.stack([lg[1] for _, lg in firsts])
+    err = (got - ref).abs()
+    worst = float((err / (TINY_TOL + TINY_TOL * ref.abs())).max())
+    served = sum(r.status != "uplink_erased" for r in rep.results)
+    d = rep.to_dict()
+    print(f"tiny serve on the card: warmup {warm:.2f} s; {TINY_REQUESTS} "
+          f"requests, {d['cycles']} cycles, {d['generated_tokens']} tokens "
+          f"in {serve_s:.3f} s = {TINY_REQUESTS / serve_s:.1f} requests/s; "
+          f"ttft p50/p99 {d['p50_ttft_s']:.4f}/{d['p99_ttft_s']:.4f} s, "
+          f"{d['p50_ttft_cycles']:.0f}/{d['p99_ttft_cycles']:.0f} cycles; "
+          f"statuses {d['statuses']}; kv {eng.kv}; launches in the serve "
+          f"{serve_launches}", flush=True)
+    print(f"tiny serve: {len(firsts)} first class logits vs forward() (K3 "
+          f"{launches['conv_pool']}, K4 {launches['lstm_final_state']} "
+          f"launches): max |d| {float(err.max()):.3e}, max |d| / (tol + "
+          f"tol |z|) {worst:.3f} (tol {TINY_TOL}); finite "
+          f"{bool(torch.isfinite(got).all())}; |z| min "
+          f"{float(ref.abs().min()):.3e}, mean {float(ref.abs().mean()):.3f}",
+          flush=True)
+    if any(serve_launches[k] for k in attn):
+        failures.append(f"tiny serving launched attention kernels "
+                        f"{serve_launches}")
+    if serve_launches["conv_pool"] or serve_launches["lstm_final_state"]:
+        failures.append("the tiny decode step launched K3 / K4")
+    if not (launches["conv_pool"] and launches["lstm_final_state"]):
+        failures.append("forward() on the card did not launch K3 and K4")
+    if len(firsts) != served or not served:
+        failures.append(f"{len(firsts)} first chunks for {served} served "
+                        f"requests")
+    if not (worst <= 1.0 and bool(torch.isfinite(got).all())):
+        failures.append(f"tiny class logits off forward(): {worst}")
+
+    # the same trace on the CPU, the same draws
+    cpu = tiny_engine(tree_map(lambda a: a.detach().cpu(), params), "cpu")
+    t0 = time.perf_counter()
+    crep = cpu.serve(trace)
+    cpu_s = time.perf_counter() - t0
+
+    def bills(r):
+        return (r.rid, r.status, r.bits, r.erased_bits, r.energy_j, r.n_tx,
+                r.outage_s, r.uplink_bits, r.downlink_bits)
+    same_bills = [bills(a) for a in rep.results] == \
+        [bills(b) for b in crep.results]
+    ties = []
+    for a, b in zip(rep.results, crep.results):
+        if (a.tokens, a.ttft_cycles) == (b.tokens, b.ttft_cycles):
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                  if x != y), min(len(a.tokens), len(b.tokens)))
+        z = tiny_context_z(eng, trace, a.rid, a.tokens[:j])
+        ties.append(dict(rid=a.rid, token=j, card=a.tokens, cpu=b.tokens,
+                         ttft_card=a.ttft_cycles, ttft_cpu=b.ttft_cycles,
+                         z=z))
+    print(f"tiny serve card vs CPU ({cpu_s:.2f} s on the CPU): bills equal "
+          f"{same_bills}; requests whose tokens or TTFT cycles differ "
+          f"{len(ties)} of {len(rep.results)}", flush=True)
+    for t in ties:
+        print(f"  request {t['rid']}: token {t['token']}, card {t['card']} "
+              f"(ttft {t['ttft_card']}) vs CPU {t['cpu']} (ttft "
+              f"{t['ttft_cpu']}), forward z {t['z']:+.3e}")
+    if not same_bills:
+        failures.append("tiny serving bills differ between card and CPU")
+    if any(abs(t["z"]) > 2 * TINY_TOL for t in ties):
+        failures.append("tiny tokens differ between card and CPU away from "
+                        "a near-tie")
+    prof = profile_phase(eng, RequestTrace(trace.seed, trace.requests[:64]),
+                         "dense", kernels={})
+    summary = dict(d, serve_s=serve_s, requests_per_s=TINY_REQUESTS / serve_s,
+                   warmup_s=warm, launches_in_serve=serve_launches,
+                   forward_launches={k: launches[k] - serve_launches[k]
+                                     for k in launches},
+                   first_logits=len(firsts), max_abs_vs_forward=float(
+                       err.max()), worst_over_tol=worst,
+                   cpu_bills_equal=same_bills, cpu_s=cpu_s,
+                   token_divergences=ties, profile_64_requests=prof)
+    return launches, summary, failures
+
+
+# ----------------------------------------- the FL/SL options and link
+# phase 9, at the paper's full size (24,576 / 2,560 rows, N 3, J 5, Q8,
+# 20 dB), one cycle each: the coordinate median, DP-FedAvg (sigma 0.5,
+# C 1), Dirichlet(0.1) shards with FedProx (mu 0.1) and sampling with
+# replacement (benchmarks/extensions.py's arm "dirichlet0.1_fedprox"),
+# fused SL scored over the noiseless link, and the model's weights
+# through Hamming(7,4) and each constellation. DP's sync redone on the
+# CPU from the card's uploads: the clip norm sums in another order, so
+# a privatized weight may round to the next code: at most DP_MOVED codes
+# may move, each by one step, and the synced weights then lie within one
+# step / N of the CPU's
+DP_MOVED = 64
+DP_SIGMA, DP_CLIP = 0.5, 1.0
+DP_EPSILON = 9.6896             # sqrt(2 ln(1.25e5)) / 0.5
+
+
+@contextlib.contextmanager
+def dp_uploads(out: dict):
+    """While open, keep each DP sync's inputs and output (key path, local
+    weights, broadcast, synced) in out["dp"] and each privatized update
+    it sends in out["privatized"], on the host."""
+    from repro_torch.core import channel as CH
+    from repro_torch.core import dp as DP
+    from repro_torch.nn import tree_map
+    host = lambda tr: tree_map(lambda a: a.detach().cpu().clone(), tr)
+    sync, send = DP.fedavg_dp_through_channel, CH.transmit_pytree
+
+    def sync_kept(key, user_params, broadcast, *a, **kw):
+        r = sync(key, user_params, broadcast, *a, **kw)
+        out["dp"].append((key.path, host(user_params), host(broadcast),
+                          host(r[0])))
+        return r
+
+    def send_kept(draws, tree, *a, **kw):
+        out["privatized"].append(host(tree))
+        return send(draws, tree, *a, **kw)
+    DP.fedavg_dp_through_channel, CH.transmit_pytree = sync_kept, send_kept
+    try:
+        yield out
+    finally:
+        DP.fedavg_dp_through_channel, CH.transmit_pytree = sync, send
+
+
+def dp_check(run, wcfg) -> dict:
+    """The card's DP sync (`dp_uploads`' record `run`) redone on the CPU
+    from its local weights and the same keys: per user the privatized
+    update against the card's, its Q8 codes, and the synced weights
+    against the card's."""
+    import torch
+    from repro_torch.core import dp as DP
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.draws import Key
+    from repro_torch.nn import tree_leaves, tree_map
+    path, user_params, broadcast, synced = run["dp"][0]
+    key = Key(*path)
+    moved, steps, d_priv, step_max = 0, 0, 0.0, 0.0
+    for u in range(len(run["privatized"])):
+        delta = tree_map(lambda l, b: l[u] - b, user_params, broadcast)
+        cpu = DP.privatize_update(key.fold_in(u).split(2)[0], delta,
+                                  DP_CLIP, DP_SIGMA)
+        for a, b in zip(tree_leaves(run["privatized"][u]), tree_leaves(cpu)):
+            d_priv = max(d_priv, float((a - b).abs().max()))
+            qa, sa = Q.quantize(a, 8)
+            qb, _ = Q.quantize(b, 8)
+            diff = (qa - qb).abs()
+            moved += int((diff > 0).sum())
+            steps = max(steps, int(diff.max()))
+            step_max = max(step_max, float(sa))
+    csync, bits, eps = DP.fedavg_dp_through_channel(
+        key, user_params, broadcast, wcfg, DP_CLIP, DP_SIGMA)
+    n = len(run["privatized"])
+    d_sync = max(float((a - torch.as_tensor(b)).abs().max())
+                 for a, b in zip(tree_leaves(synced),
+                                 tree_leaves(tree_map(lambda p: p[0],
+                                                      csync))))
+    return dict(privatized_max_abs=d_priv, codes_moved=moved,
+                max_code_step=steps, synced_max_abs=d_sync,
+                synced_tol=step_max / n + 1e-6, cpu_bits=bits,
+                cpu_epsilon=eps)
+
+
+def fedprox_gap(seed: int) -> float:
+    """Largest weight difference between the card and the CPU after
+    three FedProx local steps (mu 0.1, lr 0.1) from the run's init on
+    user 0's first three batches of its Dirichlet shard, sampled with
+    replacement, the anchor the init weights."""
+    import numpy as np
+    import torch
+    from repro_torch.nn import tree_leaves, tree_map
+    from repro_torch.runtime.fl_runtime import make_local_step_tiny
+    from repro_torch.runtime.train_step import init_train_state
+    from repro_torch.schemes.base import BATCH, CFG, MOMENTUM
+    xu, yu = _dirichlet_shards()[0]
+    idx = np.random.default_rng(seed + 1).integers(0, len(xu), (3, BATCH))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = init_train_state(torch.Generator().manual_seed(seed), CFG,
+                              None, "sgd", MOMENTUM, dev)
+        anchor = {"model": tree_map(lambda p: p.clone(),
+                                    st.trainable["model"]), "codec": {}}
+        step = make_local_step_tiny(CFG, None, 0.1, MOMENTUM, prox_mu=0.1,
+                                    anchor=anchor)
+        for i in idx:
+            st, _m = step(st, {"tokens": torch.from_numpy(xu[i]).to(dev),
+                               "labels": torch.from_numpy(yu[i]).to(dev)})
+        out[dev] = tree_leaves(st.trainable)
+    return max(float((a.cpu() - b).abs().max())
+               for a, b in zip(out["cuda"], out["cpu"]))
+
+
+def options_phase(seed: int, sl_run: dict, weights: dict, card_name: str,
+                  shapes: dict) -> tuple:
+    """Phase 9: the median, DP and Dirichlet + FedProx FL cycles on the
+    card (counters set to 0 before, read after; launches by shape into
+    `shapes`), their CPU checks, phase 5's fused SL model scored over
+    the noiseless link on the card and the CPU, and `weights` (a flat
+    89,673-element vector) through the coded and modulated links on both.
+    Returns ({kernel name: launches}, summary, failures)."""
+    import torch
+    from repro_torch.core import coding as CODE
+    from repro_torch.core import modulation as MOD
+    from repro_torch.core.draws import Key
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.nn import tree_map
+    from repro_torch.schemes.base import corpus
+    from repro_torch.schemes.split import evaluate_sl
+    counters = dict(_wire_counters(), conv_pool=cp.user_conv_pool,
+                    lstm_final_state=lc.lstm_final_state)
+    for f in counters.values():
+        f.launches = 0
+    failures, summary, secs = [], {}, {}
+    dp = {"dp": [], "privatized": []}
+    with launch_shapes({}) as phase_shapes:
+        runs = {"fl_median": _train_run("fl_median", 1, "cuda", seed)}
+        with dp_uploads(dp):
+            runs["fl_dp"] = _train_run("fl_dp", 1, "cuda", seed)
+        runs["fl_dirichlet0.1_fedprox"] = _train_run(
+            "fl_dirichlet0.1_fedprox", 1, "cuda", seed)
+        sl_wcfg = sl_run["exp"].scheme.wcfg
+        sl_tr = sl_run["exp"].final_state.train.trainable
+        n0 = _tiny_counts()
+        t0 = time.perf_counter()
+        acc_card = evaluate_sl(sl_tr, sl_wcfg, *corpus()[1],
+                               perfect_eval=True)
+        torch.cuda.synchronize()
+        secs["sl_perfect_eval"] = time.perf_counter() - t0
+        sl_launches = tuple(b - a for a, b in zip(n0, _tiny_counts()))
+    launches = {k: f.launches for k, f in counters.items()}
+    failures += merge_shapes(shapes, phase_shapes, launches, "options")
+    for n, run in runs.items():
+        rep, res = run["exp"].reports[0], run["res"]
+        secs[n] = run["walls"][0]
+        got = ((run["round_launches"][0],) + run["round_k34"][0],
+               (run["eval_launches"][0],) + run["eval_k34"][0])
+        print(f"option {n} on the card: {secs[n]:.3f} s per cycle "
+              f"({card_name}); accuracy {res.accuracy[0]:.4f}; loss "
+              f"{res.loss[0]:.4f}; bits {rep.bits}; n_tx {rep.n_tx}; "
+              f"(K1, K3, K4) per round {got[0]}, per eval {got[1]}",
+              flush=True)
+        summary[n] = dict(wall_s=secs[n], accuracy=res.accuracy[0],
+                          loss=res.loss[0], bits=rep.bits, n_tx=rep.n_tx,
+                          launches_round=got[0], launches_eval=got[1])
+        if rep.bits != 3 * FL_BITS_PER_USER:
+            failures.append(f"{n} billed {rep.bits} bits, not "
+                            f"{3 * FL_BITS_PER_USER}")
+        if got != ((3 if n == "fl_dp" else 1, 0, 0), (0, 1, 1)):
+            failures.append(f"{n}: (K1, K3, K4) per round {got[0]}, per "
+                            f"eval {got[1]}")
+        if not (math.isfinite(res.accuracy[0]) and math.isfinite(
+                res.loss[0])):
+            failures.append(f"{n}: non-finite accuracy or loss")
+    # (a) the median sync on the CPU from the card's uploads
+    sync = sync_check(runs["fl_median"])
+    print(f"option fl_median: sync redone on the CPU, delivered equal "
+          f"{sync['delivered_equal']}, median equal {sync['synced_equal']}; "
+          f"the synced model scored on the CPU: |d accuracy| "
+          f"{sync['abs_d_accuracy']:.5f}", flush=True)
+    summary["fl_median"].update(cpu_sync=sync)
+    if not (sync["delivered_equal"] and sync["synced_equal"]):
+        failures.append("median sync on the card differs from the CPU's")
+    # (b) DP: epsilon, and the sync redone on the CPU
+    dpc = dp_check(dp, runs["fl_dp"]["wcfg"])
+    eps = runs["fl_dp"]["exp"].scheme.last_epsilon
+    print(f"option fl_dp: epsilon {eps:.4f}; sync redone on the CPU: "
+          f"privatized updates max |d| {dpc['privatized_max_abs']:.3e}, "
+          f"{dpc['codes_moved']} Q8 codes moved (largest move "
+          f"{dpc['max_code_step']} step), synced max |d| "
+          f"{dpc['synced_max_abs']:.3e} (tol {dpc['synced_tol']:.3e}); CPU "
+          f"bits {dpc['cpu_bits']}", flush=True)
+    summary["fl_dp"].update(epsilon=eps, cpu_sync=dpc)
+    if round(eps, 4) != DP_EPSILON or dpc["cpu_epsilon"] != eps:
+        failures.append(f"DP epsilon {eps}")
+    if dpc["cpu_bits"] != 3 * FL_BITS_PER_USER or \
+            dpc["codes_moved"] > DP_MOVED or dpc["max_code_step"] > 1 or \
+            not dpc["synced_max_abs"] <= dpc["synced_tol"]:
+        failures.append(f"DP sync on the card vs the CPU: {dpc}")
+    # (c) Dirichlet + FedProx + replacement: three local steps
+    gap = fedprox_gap(seed)
+    shard = len(_dirichlet_shards()[0][0])
+    print(f"option fl_dirichlet0.1_fedprox: {shard} rows per user; three "
+          f"FedProx steps card vs CPU max |d weight| {gap:.3e} (tol "
+          f"{STEP_TOL})", flush=True)
+    summary["fl_dirichlet0.1_fedprox"].update(three_step_gap=gap,
+                                             shard_rows=shard)
+    if not gap <= STEP_TOL:
+        failures.append(f"FedProx steps card vs CPU {gap}")
+    # (d) the fused SL model scored over the noiseless link
+    acc_cpu = evaluate_sl(tree_map(lambda a: a.cpu(), sl_tr), sl_wcfg,
+                          *corpus()[1], perfect_eval=True)
+    print(f"option sl_perfect_eval: accuracy card {acc_card:.4f}, CPU "
+          f"{acc_cpu:.4f} (tol {ACC_TOL}); {secs['sl_perfect_eval']:.3f} s "
+          f"per eval ({card_name}); (K1, K3, K4) launches {sl_launches}",
+          flush=True)
+    summary["sl_perfect_eval"] = dict(accuracy=acc_card, cpu_accuracy=acc_cpu,
+                                      wall_s=secs["sl_perfect_eval"],
+                                      launches=sl_launches)
+    if abs(acc_card - acc_cpu) > ACC_TOL or sl_launches[1:] != (1, 1):
+        failures.append(f"perfect_eval: card {acc_card}, CPU {acc_cpu}, "
+                        f"launches {sl_launches}")
+    # (e) the model's weights through the coded and modulated links
+    x = weights.to("cuda")
+    links = {"hamming74": lambda dv, d: CODE.transmit_quantized_coded(
+        d, x.to(dv), 8, 5.0)}
+    for m in MOD.SUPPORTED:
+        links[m] = lambda dv, d, m=m: MOD.transmit_quantized_mod(
+            d, x.to(dv), 8, 5.0, m)
+    for i, (name, fn) in enumerate(links.items()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yc, extra = fn("cuda", Key(seed + 11, i).draws())
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        yh, extra_h = fn("cpu", Key(seed + 11, i).draws())
+        equal = bool(torch.equal(yc.cpu(), yh))
+        print(f"link {name}: {x.numel()} weights, card == CPU bit for bit "
+              f"{equal}; {secs[name]:.4f} s on the card ({card_name})"
+              + (f"; bits {extra}" if name == "hamming74" else
+                 f"; ber {float(extra['ber']):.4e}, symbols "
+                 f"{extra['symbols']}"), flush=True)
+        summary[name] = dict(equal=equal, wall_s=secs[name])
+        if not equal or not bool(torch.isfinite(yc).all()):
+            failures.append(f"link {name}: card and CPU differ")
+        if name == "hamming74" and extra != x.numel() * 14:
+            failures.append(f"coded link billed {extra} bits")
+    summary["seconds"] = secs
+    return launches, summary, failures
 
 
 # ------------------------------------------------------------------ main
@@ -1971,8 +2447,9 @@ def main() -> None:
         r["launches"] = launches.get(r["name"], 0)
     t_train = time.perf_counter()
     shapes = {}
-    train_launches, train_summary, train_failures, fl_run = \
+    train_launches, train_summary, train_failures, card_runs = \
         train_phase(args.seed, shapes)
+    fl_run = card_runs["fl"]
     print(f"training phase: {time.perf_counter() - t_train:.1f} s; "
           f"launches on the training path {train_launches}", flush=True)
     failures += train_failures
@@ -1982,16 +2459,33 @@ def main() -> None:
     print(f"privacy phase: {time.perf_counter() - t_priv:.1f} s; launches "
           f"on its path {priv_launches}", flush=True)
     failures += priv_failures
-    # the paper path's launches: phases 5 and 7 together
+    from repro_torch.nn import tree_leaves
+    cl_model = card_runs["cl"]["exp"].final_state.train.trainable["model"]
+    t_tiny = time.perf_counter()
+    tiny_launches, tiny_serve_summary, tiny_serve_failures = \
+        tiny_serve_phase(args.seed, cl_model, shapes)
+    print(f"tiny serving phase: {time.perf_counter() - t_tiny:.1f} s; "
+          f"launches {tiny_launches}", flush=True)
+    failures += tiny_serve_failures
+    t_opt = time.perf_counter()
+    weights = torch.cat([a.detach().reshape(-1).cpu()
+                         for a in tree_leaves(cl_model)])
+    opt_launches, opt_summary, opt_failures = options_phase(
+        args.seed, card_runs["sl"], weights, card, shapes)
+    print(f"FL/SL options phase: {time.perf_counter() - t_opt:.1f} s; "
+          f"launches {opt_launches}", flush=True)
+    failures += opt_failures
+    # the paper path's launches: phases 5, 7, 8 and 9 together
     for r in wire_rows + tiny_rows:
-        r["launches"] = train_launches.get(r["name"], 0) + \
-            priv_launches.get(r["name"], 0)
+        r["launches"] = sum(p.get(r["name"], 0) for p in (
+            train_launches, priv_launches, tiny_launches, opt_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
     shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
               for k, c in shapes.items()}
-    print(f"launches by shape over phases 5 and 7: {shapes}", flush=True)
+    print(f"launches by shape over phases 5, 7, 8 and 9: {shapes}",
+          flush=True)
     rows += wire_rows + tiny_rows
     if args.out:
         out = Path(args.out)
@@ -2004,6 +2498,8 @@ def main() -> None:
                                    "launch_floor_ms": floor,
                                    "launches_by_shape": shapes,
                                    "privacy": priv_summary,
+                                   "tiny_serve": tiny_serve_summary,
+                                   "options": opt_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

@@ -11,6 +11,7 @@ draws (the parity tests do). The names a send uses:
   "arq"       [n, n_packets, attempts] uniforms bounded-ARQ redraws
   "ge_init"   [n] uniforms                      Gilbert-Elliott start
   "ge_chain"  [n_packets, n] uniforms           Gilbert-Elliott steps
+  "normal"    [*leaf.shape] standard normals    DP-FedAvg noise (core/dp.py)
 
 The packed wire (core/wire.py) draws "arq" (its per-packet fades, with
 or without ARQ), "flip" ([n, R, C] words), the Gilbert-Elliott names
@@ -21,7 +22,8 @@ last ulp, so a caller that must reproduce another implementation's
 flips hands in that implementation's p with its draws.
 
 A `Key` names a stream by a path of integers and folds like a JAX key
-(`key.fold_in(i)`); `key.draws()` is that stream's `Draws`, with one
+(`key.fold_in(i)`, and `key.split(n)` for n child streams, as
+`jax.random.split`); `key.draws()` is that stream's `Draws`, with one
 generator per draw name, so a replay of only the "arq" draw (the SL
 billing replay) gets exactly the fades the crossing used.
 
@@ -51,6 +53,10 @@ class Draws:
     def words(self, name: str, shape):
         return torch.randint(0, 1 << 32, tuple(shape),
                              generator=self.generator, dtype=torch.int64)
+
+    def normal(self, name: str, shape):
+        return torch.randn(tuple(shape), generator=self.generator,
+                           dtype=torch.float32)
 
     def bit_error_prob(self, snr_db, f2) -> torch.Tensor:
         """p of each packet from its fade: the port's own BPSK formula."""
@@ -99,6 +105,13 @@ class KeyDraws(Draws):
         self.generator = self._gen(name)
         return super().words(name, shape)
 
+    def normal(self, name: str, shape):
+        self.generator = self._gen(name)
+        return super().normal(name, shape)
+
+
+SPLIT_FOLD = -1     # path element that marks `Key.split`'s children
+
 
 class Key:
     """A stream named by a path of integers; `fold_in` extends the path
@@ -109,6 +122,10 @@ class Key:
 
     def fold_in(self, i: int) -> "Key":
         return Key(*self.path, int(i))
+
+    def split(self, n: int) -> list:
+        """`n` child streams, none of them a `fold_in` of this key."""
+        return [Key(*self.path, SPLIT_FOLD, i) for i in range(n)]
 
     def draws(self) -> KeyDraws:
         return KeyDraws(self.path)

@@ -11,6 +11,8 @@ port. CO2: energy (kWh) x 0.475 kg CO2/kWh, the Eco2AI grid intensity.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 J_PER_FLOP_EDGE = 1e-9
@@ -52,3 +54,24 @@ def comp_energy_j(flops: float) -> float:
 
 def co2_kg(energy_j: float) -> float:
     return energy_j / 3.6e6 * CO2_KG_PER_KWH
+
+
+@dataclasses.dataclass
+class EnergyReport:
+    """A run's totals: payload bits and the FLOPs on each side; the
+    summary charges the user side's FLOPs at the edge device's energy
+    per FLOP (the JAX package's default device)."""
+    total_bits: float = 0.0
+    comp_flops_user: float = 0.0
+    comp_flops_server: float = 0.0
+
+    def summary(self, wcfg) -> dict:
+        comp = comp_energy_j(self.comp_flops_user)
+        comm = comm_energy_j(self.total_bits, wcfg)
+        return {
+            "total_bits": self.total_bits,
+            "comp_energy_j": comp,
+            "comm_energy_j": comm,
+            "total_energy_j": comp + comm,
+            "co2_kg": co2_kg(comp + comm),
+        }

@@ -2,7 +2,9 @@
 `repro/core/federated.py`: N users, J local SGD steps each, quantized
 weight upload through the Rayleigh/AWGN channel, FedAvg (Eq. 3),
 broadcast back. User replicas live in a leading axis of the param tree;
-the local phase loops over users (each user's J steps in order)."""
+the local phase loops over users (each user's J steps in order). The
+aggregate is FedAvg's mean or the coordinate-wise median
+(`wcfg.aggregate`)."""
 from __future__ import annotations
 
 import torch
@@ -49,16 +51,12 @@ def fedavg_through_channel(draws, user_params, wcfg):
     stacked send (one packet per (user, tensor)), FedAvg (Eq. 3),
     broadcast back. Returns (global params [N, ...], total
     payload bits as float, billed at the analytic expected ARQ count)."""
-    if wcfg.aggregate != "mean":
-        raise NotImplementedError(
-            f"fedavg_through_channel: aggregate={wcfg.aggregate!r} is not "
-            f"ported yet (see ROADMAP.md)")
     n_users = tree_leaves(user_params)[0].shape[0]
     received = W.transmit_stacked(
         draws, user_params, bits=wcfg.quant_bits, snr_db=wcfg.snr_db,
         fading=wcfg.fading, perfect=wcfg.perfect_channel,
         arq_attempts=wcfg.arq_attempts, arq_min_f2=wcfg.arq_min_f2)
-    avg = tree_map(mean_users, received)
+    avg = tree_map(aggregator(wcfg.aggregate), received)
     e_tx = W.expected_arq_tx(wcfg.arq_attempts, wcfg.arq_min_f2,
                              wcfg.fading, wcfg.perfect_channel)
     total_bits = W.payload_bits(user_params, wcfg.quant_bits, e_tx)
@@ -73,6 +71,24 @@ def mean_users(r: torch.Tensor) -> torch.Tensor:
     for u in range(1, r.shape[0]):
         acc = acc + r[u]
     return acc * Q.f32_reciprocal(r.shape[0])
+
+
+def median_users(r: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over the leading user axis as `jnp.median`
+    computes it: the mean of the two middle values for an even count,
+    (lo + hi) * 0.5 (`torch.median` would return the lower one)."""
+    s = torch.sort(r, dim=0).values
+    n = r.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def aggregator(name: str):
+    """The user-axis reduction of `WirelessConfig.aggregate`."""
+    if name == "mean":
+        return mean_users
+    if name == "median":
+        return median_users
+    raise ValueError(f"unknown aggregate {name!r}")
 
 
 def local_steps_vmapped(step_fn, user_state, user_batches):

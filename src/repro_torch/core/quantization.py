@@ -39,6 +39,15 @@ def scale_for(x: torch.Tensor, bits: int) -> torch.Tensor:
     return scale_from_amax(torch.max(torch.abs(x)), bits)
 
 
+def scale_divided(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """max(amax, 1e-12) / qmax as a true division: the JAX package's
+    eagerly run helpers (core/coding.py, core/modulation.py) divide, as
+    its compiled paths do not (a tensor divisor, because torch on CUDA
+    turns a division by a Python scalar into a reciprocal product)."""
+    amax = torch.clamp(torch.max(torch.abs(x)), min=1e-12)
+    return amax / torch.full_like(amax, qmax(bits))
+
+
 def stochastic_round(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Unbiased rounding: floor(x) + 1 w.p. frac(x); `u` supplies the
     uniform [0, 1) draw per element."""

@@ -19,7 +19,7 @@ def _tiny_only(cfg) -> None:
     if cfg.family != "tiny":
         raise NotImplementedError(
             f"split learning for family {cfg.family!r} is not ported yet; "
-            f"the port splits the tiny family only (see ROADMAP.md)")
+            f"the port splits the tiny family only (see ROADMAP.md, P15)")
 
 
 def codec_specs(cfg, wcfg) -> dict:

@@ -77,3 +77,28 @@ def partition_users(x: np.ndarray, y: np.ndarray, n_users: int):
     per = len(x) // n_users
     return [(x[i * per:(i + 1) * per], y[i * per:(i + 1) * per])
             for i in range(n_users)]
+
+
+def partition_users_dirichlet(x: np.ndarray, y: np.ndarray, n_users: int,
+                              alpha: float = 0.5, seed: int = 0):
+    """Non-IID label partition (beyond-paper): each user's class mix is
+    drawn from Dirichlet(alpha); alpha->0 gives single-class users,
+    alpha->inf recovers IID (Hsu et al. 2019). Shards are truncated to a
+    common length so every user's batches stay rectangular."""
+    rng = np.random.default_rng(seed)
+    classes = np.unique(y)
+    user_idx = [[] for _ in range(n_users)]
+    for c in classes:
+        idx = np.flatnonzero(y == c)
+        rng.shuffle(idx)
+        props = rng.dirichlet(np.full(n_users, alpha))
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for u, part in enumerate(np.split(idx, cuts)):
+            user_idx[u].extend(part.tolist())
+    per = min(len(ui) for ui in user_idx)
+    shards = []
+    for ui in user_idx:
+        ui = np.asarray(ui[:per])
+        rng.shuffle(ui)
+        shards.append((x[ui], y[ui]))
+    return shards

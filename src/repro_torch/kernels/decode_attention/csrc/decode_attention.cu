@@ -9,8 +9,9 @@
 // Both run one body, split-KV ("flash-decoding"), templated on where
 // column c of (slot b, KV head h) lives (kv_cols.cuh): the dense cache or
 // the paged pool through the slot's page table. The arithmetic and its
-// order are the same in both, so on the same data (n_lp * page = S) the
-// paged kernel gives the dense kernel's bits. What bounds it is the bytes
+// order are the same in both, and the split count depends on neither
+// layout's column count, so on the same data the paged kernel gives the
+// dense kernel's bits. What bounds it is the bytes
 // of the K/V prefix: each K/V element meets G query rows (1 at the serving
 // shape), far below the ~295 operations per byte at which the tensor cores
 // would be the limit. So the design is about keeping bytes in flight on
@@ -18,7 +19,7 @@
 //   - grid (B, Hkv * n_gblk, n_split): the valid span of row b, [len - win,
 //     len) clipped to [0, S) (S = n_lp * page when paged), is cut into
 //     n_split equal contiguous ranges, one per CTA (a range may be empty). The wrapper picks n_split from
-//     the shapes alone, so nothing is read back to the host. n_gblk
+//     the batch and head shapes alone, so nothing is read back to the host. n_gblk
 //     blocks of GB head-group rows cover G.
 //   - no CTA-wide barrier in the column loop. The GB query rows live in
 //     registers. Each warp walks its own columns with 16-byte loads: LPC

@@ -5,8 +5,8 @@ and `_paged_decode_kernel`), CPU tensors run the plain versions in
 kernel or raises. Each wrapper counts its kernel launches in its
 ``launches`` attribute (and nowhere else): one per call, also where the
 split-KV kernel adds its merge launch. Dense and paged run the same
-split-KV kernel, templated on where a KV column lives, with the same
-split count for the same S (= n_lp * page when paged), so on the same
+split-KV kernel, templated on where a KV column lives, with a split
+count that depends on neither layout's column count, so on the same
 data they give the same bits."""
 from __future__ import annotations
 
@@ -22,10 +22,12 @@ from repro_torch.kernels.decode_attention.ref import (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the kernel aims for three CTAs per SM of the H100's 132 (at the
 # serving shape, 8 slots x 16 KV heads, that is 4 splits, which beat 1, 2,
-# 3, 6 and 9 in chip_smoke.py's sweep), and gives each split at least
-# MIN_SPLIT_COLS columns of a full-length row
+# 3, 6 and 9 in chip_smoke.py's sweep) with at most MAX_SPLITS splits.
+# The count is not capped by the cache's column count: a dense cache of
+# S columns and its paged copy of ceil(S / page) * page columns would get
+# different counts, and sum a row in different orders
 TARGET_CTAS = 3 * 132
-MIN_SPLIT_COLS = 32
+MAX_SPLITS = 8
 
 
 def group_rows(G: int) -> int:
@@ -34,14 +36,14 @@ def group_rows(G: int) -> int:
     return G if G <= 2 else 4
 
 
-def decode_splits(B: int, Hkv: int, G: int, S: int) -> int:
-    """KV splits per (slot, KV head, head-group block) of the kernel
-    (S = n_lp * page when paged): the least n with B * Hkv *
-    ceil(G / group_rows(G)) * n >= TARGET_CTAS, capped at
-    ceil(S / MIN_SPLIT_COLS). Shapes only, so no per-slot length is
-    ever read back to the host."""
+def decode_splits(B: int, Hkv: int, G: int) -> int:
+    """KV splits per (slot, KV head, head-group block) of the kernel: the
+    least n with B * Hkv * ceil(G / group_rows(G)) * n >= TARGET_CTAS,
+    capped at MAX_SPLITS. The batch and head shapes only, which the
+    dense and the paged layout share, so no per-slot length is ever
+    read back to the host and both layouts split a row alike."""
     units = B * Hkv * -(-G // group_rows(G))
-    return max(1, min(-(-TARGET_CTAS // units), -(-S // MIN_SPLIT_COLS)))
+    return max(1, min(-(-TARGET_CTAS // units), MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,7 +76,7 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lengths = build.int_rows(length, B, q.device)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     G = H // Hkv
-    n_split = decode_splits(B, Hkv, G, S)
+    n_split = decode_splits(B, Hkv, G)
     ws = torch.empty((B, H, n_split, hd + 2) if n_split > 1 else (0,),
                      dtype=torch.float32, device=q.device)
     st = _lib().decode_attention(
@@ -93,7 +95,7 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     """q [B, H, hd]; pools [n_pages, Hkv, page, hd]; `tables` [B, n_lp]
     per-slot page tables; `length` scalar or per-row [B] valid-prefix
     counts. Returns [B, H, hd] f32. The dense kernel's split-KV body
-    with S = n_lp * page; page ids are clamped into the pool."""
+    over n_lp * page columns; page ids are clamped into the pool."""
     if not q.is_cuda:
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, length,
                                           window=window).float()
@@ -107,7 +109,7 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     lengths = build.int_rows(length, B, q.device)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     G, n_lp = H // Hkv, tbl.shape[1]
-    n_split = decode_splits(B, Hkv, G, n_lp * page)
+    n_split = decode_splits(B, Hkv, G)
     ws = torch.empty((B, H, n_split, hd + 2) if n_split > 1 else (0,),
                      dtype=torch.float32, device=q.device)
     st = _lib().paged_decode_attention(

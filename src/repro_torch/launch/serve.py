@@ -4,8 +4,13 @@ the engine path of `repro/launch/serve.py`.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 24 --snr-db 10 --greedy
 
-Runs on the GPU by default (`--device cpu` for the plain versions at
-`--reduced` size). Weights are random, drawn from `--seed`. Families
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch paper-tinylstm --prompt-len 30 --new-tokens 1 --greedy
+
+Runs on the GPU by default (`--device cpu` for the plain versions, at
+`--reduced` size for the transformer). Weights are random, drawn from
+`--seed`. The paper's tiny classifier answers each prompt with its
+sentiment class (one generated token in {0, 1} per step). Families
 without a per-slot decode path are not ported yet and raise.
 """
 from __future__ import annotations
@@ -96,7 +101,7 @@ def main(argv=None) -> dict:
     if cfg.family not in SLOT_FAMILIES:
         raise NotImplementedError(
             f"{cfg.family}: no per-slot decode path in the port yet "
-            f"(see ROADMAP.md)")
+            f"(see ROADMAP.md, P15)")
     radio = make_radio(args)
     trace = resolve_trace(args, args.snr_db if args.snr_db is not None
                           else 20.0)

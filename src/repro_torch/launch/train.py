@@ -70,7 +70,7 @@ def main(argv=None) -> dict:
     if cfg.family != "tiny":
         raise NotImplementedError(
             f"training {args.arch!r} (family {cfg.family!r}) is not ported "
-            f"yet; the port trains paper-tinylstm (see ROADMAP.md)")
+            f"yet; the port trains paper-tinylstm (see ROADMAP.md, P15)")
     device = resolve_device(args.device)
     scheme = build_scheme(build_wcfg(args), device=device)
     if args.mode == "fl":

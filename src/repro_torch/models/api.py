@@ -1,12 +1,14 @@
 """Unified model API: dispatch by family — the port of
-`repro/models/api.py`. Only the `dense` family is ported so far; the
-others raise and are listed in ROADMAP.md."""
+`repro/models/api.py`. The `dense` family and the paper's `tiny`
+classifier (a streaming decoder with no fused prefill, so serving
+prefills it by the exact scan) are ported; the others raise and are
+listed in ROADMAP.md."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from repro_torch.models import transformer
+from repro_torch.models import lstm_tiny, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +25,9 @@ _FAMILIES = {
     "dense": ModelApi(transformer.model_specs, transformer.forward,
                       transformer.init_cache_shapes, transformer.init_cache,
                       transformer.decode_step, transformer.prefill_step),
+    "tiny": ModelApi(lstm_tiny.model_specs, lstm_tiny.forward,
+                     lstm_tiny.cache_shapes, lstm_tiny.init_cache,
+                     lstm_tiny.decode_step),
 }
 
 
@@ -30,7 +35,7 @@ def get_model(cfg) -> ModelApi:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port has "
-            f"{sorted(_FAMILIES)} (see ROADMAP.md)")
+            f"{sorted(_FAMILIES)} (see ROADMAP.md, P15)")
     return _FAMILIES[cfg.family]
 
 

@@ -15,8 +15,11 @@ K3 (`kernels/conv_pool`) and the recurrence through K4
 and the CPU) runs the plain ops: the JAX package's three shifted
 matmuls and a loop over time in gate order i, f, g, o, not
 `nn.Conv1d`/`nn.LSTM` (cuDNN kernels). Parameters are a plain tree
-(`nn.core.init_tree`). The streaming cache/decode step waits for the
-tiny serving family.
+(`nn.core.init_tree`).
+
+Serving streams the classifier as a 2-token-vocabulary decoder
+(`cache_shapes` / `init_cache` / `decode_step`): plain ops over an O(1)
+cache per slot, neither K3 nor K4, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.kernels.conv_pool.ops import user_conv_pool
 from repro_torch.kernels.lstm_cell.ops import lstm_layer
 from repro_torch.models.layers import linear, linear_specs
-from repro_torch.nn import Spec
+from repro_torch.nn import Spec, resolve_device
 
 EMBED = 8
 CONV_F = 32
@@ -113,6 +116,78 @@ def server_forward(params: dict, smashed: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, batch: dict, cfg=None, window: int = 0):
     logits = server_forward(params, user_forward(params, batch["tokens"]))
     return logits, {"aux_loss": torch.zeros((), device=logits.device)}
+
+
+# ------------------------------------------------- streaming decode (serving)
+# The serving engine treats the classifier as a 2-token-vocab decoder:
+# prompt tokens stream in one at a time against an O(1) recurrent cache
+# (conv tap buffer + pending pool half + LSTM state), and the "generated
+# token" is the sentiment class. Feeding a whole sequence through
+# decode_step reproduces forward()'s logits because the conv/pool/LSTM
+# pipeline is causal: token i completes conv position i-2, and every
+# completed pool PAIR advances the LSTM.
+
+def cache_shapes(cfg, batch_size: int, seq_len: int):
+    """(shape, logical axes, dtype) per cache leaf, the transformer
+    cache's contract; the batch axis is 0 and `seq_len` is irrelevant
+    (the state is O(1) per slot)."""
+    B = batch_size
+    return {
+        "emb": ((B, CONV_K - 1, EMBED), ("batch", None, None), torch.float32),
+        "pend": ((B, CONV_F), ("batch", None), torch.float32),
+        "h": ((B, LSTM_H), ("batch", None), torch.float32),
+        "c": ((B, LSTM_H), ("batch", None), torch.float32),
+    }
+
+
+def init_cache(cfg, batch_size: int, seq_len: int, device="cuda") -> dict:
+    dev = resolve_device(device)
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, (shape, axes, dtype) in
+            cache_shapes(cfg, batch_size, seq_len).items()}
+
+
+def decode_step(params: dict, cache: dict, token: torch.Tensor,
+                index: torch.Tensor, cfg=None, window: int = 0,
+                active=None) -> tuple:
+    """token [B,1] int; index a per-slot [B] vector (tokens this row has
+    consumed so far). Returns (logits [B,1,2], cache), the cache updated
+    in place: softmax over the 2-logit output equals the paper head's
+    sigmoid, so argmax/categorical sampling IS the sentiment prediction.
+    `active` [B] bool: only those rows' state moves (every row when
+    None), the JAX engine's batch select."""
+    B = token.shape[0]
+    idx = torch.as_tensor(index, device=token.device).reshape(-1)
+    idx = idx.expand(B).long()
+    e_new = params["embed"][token[:, 0].long()]                   # [B,8]
+    e0, e1 = cache["emb"][:, 0], cache["emb"][:, 1]
+    w = params["conv_w"]
+    conv = torch.relu(e0 @ w[0] + e1 @ w[1] + e_new @ w[2]
+                      + params["conv_b"])                         # [B,32]
+    j = idx - (CONV_K - 1)          # conv position this token completes
+    is_even = ((j >= 0) & (j % 2 == 0))[:, None]
+    is_odd = ((j >= 0) & (j % 2 == 1))[:, None]
+    pend = torch.where(is_even, conv, cache["pend"])
+    pooled = torch.maximum(cache["pend"], conv)   # the pair, when is_odd
+    gates = pooled @ params["lstm_wx"] + cache["h"] @ params["lstm_wh"] \
+        + params["lstm_b"]
+    gi, gf, gg, go = torch.split(gates, LSTM_H, dim=-1)
+    c_new = torch.sigmoid(gf) * cache["c"] \
+        + torch.sigmoid(gi) * torch.tanh(gg)
+    h_new = torch.sigmoid(go) * torch.tanh(c_new)
+    h = torch.where(is_odd, h_new, cache["h"])
+    c = torch.where(is_odd, c_new, cache["c"])
+    z = linear(params["out"],
+               torch.relu(linear(params["dense"], h)))            # [B,1]
+    logits = torch.cat([torch.zeros_like(z), z], dim=-1)[:, None, :]
+    new = {"emb": torch.stack([e1, e_new], dim=1), "pend": pend, "h": h,
+           "c": c}
+    for k, v in new.items():
+        if active is not None:
+            keep = active.reshape((B,) + (1,) * (v.ndim - 1))
+            v = torch.where(keep, v, cache[k])
+        cache[k].copy_(v)
+    return logits, cache
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

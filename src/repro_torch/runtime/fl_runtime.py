@@ -15,7 +15,8 @@ def make_local_step_tiny(cfg, wcfg, lr, momentum: float = 0.9,
                          prox_mu: float = 0.0, anchor=None):
     """Local SGD step for the paper's tiny model — the shared
     `make_local_step` core (FL local steps are radio-free; `wcfg` is
-    kept for call-site compatibility)."""
+    kept for call-site compatibility); with prox_mu > 0 it is FedProx,
+    pulled toward `anchor` ({"model": broadcast, "codec": {}})."""
     del wcfg
     return make_local_step(cfg, lr, momentum, prox_mu, anchor)
 

@@ -78,6 +78,12 @@ def resolve_prefill_impl(model, impl: str, device) -> str:
     return impl
 
 
+def logit_width(cfg) -> int:
+    """Width of the serving logits: the tiny classifier's 2 classes, else
+    the vocabulary."""
+    return 2 if cfg.family == "tiny" else cfg.vocab_size
+
+
 def _scan_prefill(step, tokens, start, n_valid, V):
     """Feed the chunk through `step(tok [B,1], index [B], active [B])`
     one position at a time; keep each row's last valid logits."""
@@ -108,7 +114,7 @@ def make_prefill_step(cfg, shape_cfg, impl: str = "auto", device="cuda"):
             return model.decode_step(params, cache, tok, idx, cfg, window,
                                      active=act)[0]
         return _scan_prefill(step, tokens, start, n_valid,
-                             cfg.vocab_size), cache
+                             logit_width(cfg)), cache
 
     return prefill_scan
 
@@ -137,6 +143,6 @@ def make_paged_prefill_step(cfg, shape_cfg, page_size: int,
             return model.decode_step(params, cache, tok, idx, cfg, window,
                                      pages=pages)[0]
         return _scan_prefill(step, tokens, start, n_valid,
-                             cfg.vocab_size), cache
+                             logit_width(cfg)), cache
 
     return prefill_scan

@@ -25,6 +25,8 @@ autograd: K3, K1, then K4 on the card.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import semantic
@@ -128,10 +130,14 @@ class SLSession:
 
     # ----------------------------------------------------------- infer
     @torch.no_grad()
-    def predict(self, tokens: torch.Tensor, key) -> torch.Tensor:
+    def predict(self, tokens: torch.Tensor, key,
+                perfect: bool = False) -> torch.Tensor:
         """Full inference through the deployed split, radio included
-        (the SL eval convention, schemes/split.py). Not billed as
-        training traffic. Returns logits [B, 1]."""
-        up = self.radio.send_tree(key.draws(), self._user_fwd(tokens))
+        (the SL eval convention, schemes/split.py); `perfect=True` is
+        the `perfect_eval` escape hatch, a noiseless (still quantized)
+        link. Not billed as training traffic. Returns logits [B, 1]."""
+        radio = (dataclasses.replace(self.radio, perfect=True)
+                 if perfect else self.radio)
+        up = radio.send_tree(key.draws(), self._user_fwd(tokens))
         smashed_hat = semantic.decode(self.server_codec, up.payload)
         return lstm_tiny.server_forward(self.server_params, smashed_hat)

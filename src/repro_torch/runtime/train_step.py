@@ -35,11 +35,11 @@ def _tiny_sgd(cfg, optimizer: str) -> None:
     if cfg.family != "tiny":
         raise NotImplementedError(
             f"training family {cfg.family!r} is not ported yet; the port "
-            f"trains the paper's tiny model (see ROADMAP.md)")
+            f"trains the paper's tiny model (see ROADMAP.md, P15)")
     if optimizer != "sgd":
         raise NotImplementedError(
             f"optimizer {optimizer!r} is not ported yet; the paper's "
-            f"schemes train with SGD-momentum (see ROADMAP.md)")
+            f"schemes train with SGD-momentum (see ROADMAP.md, P15)")
 
 
 def _forward(trainable, batch, cfg, wcfg, key):
@@ -73,14 +73,16 @@ def make_local_step(cfg, lr, momentum: float = 0.9, prox_mu: float = 0.0,
                     anchor=None):
     """ONE plain SGD+momentum step of `_loss` — the FL local-phase core.
     FL local steps are radio-free (only the sync crosses the channel).
+    With prox_mu > 0 it becomes FedProx (Li et al. 2020): grad += mu *
+    (w - anchor) over the trainable tree, `anchor` shaped like it.
     local_step(state, batch, key=None) -> (state, metrics)."""
-    if prox_mu:
-        raise NotImplementedError(
-            "FedProx (prox_mu > 0) is not ported yet (see ROADMAP.md)")
     _, opt_update = sgd_momentum(momentum)
 
     def local_step(state: TrainState, batch: dict, key=None):
         metrics, g = value_and_grad(state.trainable, batch, cfg, None, key)
+        if prox_mu and anchor is not None:
+            g = tree_map(lambda gi, wi, ai: gi + prox_mu * (wi - ai),
+                         g, state.trainable, anchor)
         trainable, opt_state = opt_update(g, state.opt_state,
                                           state.trainable, lr)
         return TrainState(trainable, opt_state, state.step + 1), metrics

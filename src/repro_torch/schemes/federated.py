@@ -4,12 +4,17 @@ port of `repro/schemes/federated.py`.
 One `round` = J local epochs per user, one quantized N-user weight
 upload through the packed wire (`radio.send_stacked`: one pass, one
 packet per (user, tensor), one kernel launch on the card), FedAvg
-(Eq. 3), broadcast back. Bounded-ARQ erasures and the quorum rule are
-handled as in the JAX package. Privacy capture (`capture=True`) records
-each sync's received weight deltas off the same stacked payload the
-average uses, so capturing never perturbs the trajectory. DP uploads,
-FedProx, sampling with replacement and the coordinate-median aggregate
-are still to port (ROADMAP.md) and raise.
+(Eq. 3; coordinate-median option), broadcast back. Bounded-ARQ
+erasures and the quorum rule are handled as in the JAX package. Privacy
+capture (`capture=True`) records each sync's received weight deltas off
+the same stacked payload the average uses, so capturing never perturbs
+the trajectory.
+
+Beyond-paper hooks of the JAX package's extension study: custom shards
+(`shards=`, e.g. Dirichlet non-IID), FedProx's proximal pull
+(`prox_mu`), DP-FedAvg uploads (`dp_sigma`, `dp_clip`: one packed-wire
+pass per user, core/dp.py) and sample-with-replacement batching for
+shards smaller than one batch.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import WirelessConfig
+from repro_torch.core import dp
 from repro_torch.core import federated as FED
 from repro_torch.core.draws import Key
 from repro_torch.data.sentiment import partition_users
@@ -73,45 +79,45 @@ def fl_capture(captures, received, broadcast, user_tokens) -> None:
         [t.reshape(-1, t.shape[-1]).mean(0) for t in user_tokens]))
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"FederatedScheme: {what} is not ported yet "
-                              f"(see ROADMAP.md)")
-
-
 class FederatedScheme:
     mode = "fl"
 
-    def __init__(self, wcfg=None, capture: bool = False,
-                 dp_sigma: float = 0.0, prox_mu: float = 0.0,
+    def __init__(self, wcfg=None, capture: bool = False, shards=None,
+                 dp_sigma: float = 0.0, dp_clip: float = 1.0,
+                 prox_mu: float = 0.0,
                  sample_with_replacement: bool = False,
                  quorum: float = 0.0, device="cuda", key=Key):
         if capture and dp_sigma > 0:
+            # the DP sync sends privatized deltas through its own
+            # per-user path and takes no observations
             raise ValueError("capture=True is not supported with "
                              "dp_sigma > 0 (DP uploads are not observed)")
-        if dp_sigma > 0:
-            _not_ported("DP-FedAvg (dp_sigma > 0)")
-        if prox_mu > 0:
-            _not_ported("FedProx (prox_mu > 0)")
-        if sample_with_replacement:
-            _not_ported("sample_with_replacement=True")
         self.wcfg = wcfg or WirelessConfig(mode="fl")
-        if self.wcfg.aggregate != "mean":
-            _not_ported(f"aggregate={self.wcfg.aggregate!r}")
+        self.aggregate = FED.aggregator(self.wcfg.aggregate)
         self.device = resolve_device(device)
         self.key = key              # seed -> root Key (the draw seam)
         self.quorum = float(quorum)
         self.radio = Radio.from_wcfg(self.wcfg)
-        self.n_users = self.wcfg.n_users
+        # custom shards define the population; wcfg.n_users otherwise
+        self.n_users = len(shards) if shards is not None \
+            else self.wcfg.n_users
         self.local_epochs = self.wcfg.local_steps
         self.epochs_per_cycle = self.local_epochs
         self.bits_normalizer = float(self.n_users)   # report per-user bits
         self.capture = capture
         self.captures = {"deltas": [], "targets": []} if capture else {}
+        self.shards = shards
+        self.dp_sigma, self.dp_clip = dp_sigma, dp_clip
+        self.prox_mu = prox_mu
+        self.sample_with_replacement = sample_with_replacement
+        self.last_epsilon = math.inf
 
     # ------------------------------------------------------------- setup
     def init(self, seed: int, xtr, ytr):
-        shards = partition_users(xtr, ytr, self.n_users)
-        self._spe = len(shards[0][0]) // BATCH
+        shards = self.shards if self.shards is not None else \
+            partition_users(xtr, ytr, self.n_users)
+        spe = len(shards[0][0]) // BATCH
+        self._spe = max(1, spe) if self.sample_with_replacement else spe
         g = torch.Generator().manual_seed(seed)
         state0 = init_train_state(g, CFG, None, "sgd", MOMENTUM,
                                   self.device)
@@ -125,8 +131,15 @@ class FederatedScheme:
         toks = np.empty((self.n_users, j, BATCH, seq), np.int32)
         labs = np.empty((self.n_users, j, BATCH), np.int32)
         for u, (xu, yu) in enumerate(shards):
-            toks[u], labs[u] = draw_local_epochs(xu, yu, self.local_epochs,
-                                                 rng)
+            if self.sample_with_replacement:
+                # Dirichlet shards can be smaller than one batch
+                for bi in range(j):
+                    idx = rng.integers(0, len(xu), BATCH)
+                    toks[u, bi] = xu[idx]
+                    labs[u, bi] = yu[idx]
+            else:
+                toks[u], labs[u] = draw_local_epochs(
+                    xu, yu, self.local_epochs, rng)
         return {"tokens": toks, "labels": labs}
 
     def round_key(self, seed: int, cycle: int):
@@ -139,44 +152,61 @@ class FederatedScheme:
         tb = {k: torch.from_numpy(v).to(self.device)
               for k, v in batch.items()}
         # --- local phase (Alg. 1 lines 3-7), one user after another
-        states, metrics = FED.local_steps_vmapped(_local_step(lr),
-                                                  state.train, tb)
+        if self.prox_mu:
+            local_step = make_local_step_tiny(
+                CFG, None, lr, MOMENTUM, prox_mu=self.prox_mu,
+                anchor={"model": broadcast, "codec": {}})
+        else:
+            local_step = _local_step(lr)
+        states, metrics = FED.local_steps_vmapped(local_step, state.train,
+                                                  tb)
         # --- quantized channel upload + aggregation (lines 8-17)
         user_params = states.trainable["model"]
-        dlv = self.radio.send_stacked(key.fold_in(SYNC_KEY_FOLD).draws(),
-                                      user_params)
-        if self.capture:
-            fl_capture(self.captures, dlv.payload, broadcast,
-                       [batch["tokens"][u] for u in range(self.n_users)])
-        # users whose upload was erased (bounded ARQ) carry zero weight;
-        # below quorum the sync is abandoned and everyone re-anchors on
-        # the cycle's broadcast weights
-        erased = dlv.user_erased or (False,) * self.n_users
-        kept = [u for u in range(self.n_users) if not erased[u]]
-        need = max(1, math.ceil(self.quorum * self.n_users))
-        fmetrics = {}
-        if self.radio.arq_max_tx > 0:
-            fmetrics = {"n_erased_users": self.n_users - len(kept),
-                        "quorum_met": len(kept) >= need}
-        if len(kept) == self.n_users:
-            rx = dlv.payload
-        elif len(kept) >= need:
-            sel = torch.as_tensor(kept, device=self.device)
-            rx = tree_map(lambda r: r[sel], dlv.payload)
+        kch = key.fold_in(SYNC_KEY_FOLD)
+        fmetrics, extra = {}, {}
+        if self.dp_sigma > 0:
+            synced, bits, self.last_epsilon = dp.fedavg_dp_through_channel(
+                kch, user_params, broadcast, self.wcfg,
+                clip_c=self.dp_clip, sigma=self.dp_sigma)
+            # the DP uploads surface no per-packet diagnostics: bill the
+            # analytic expected transmissions, as the JAX package does
+            n_tx = (self.n_users * len(tree_leaves(user_params))
+                    * self.radio.expected_tx())
+            bits, energy = float(bits), self.radio.energy_j(bits)
         else:
-            rx = None      # abandoned round
-        avg = broadcast if rx is None else tree_map(FED.mean_users, rx)
-        synced = FED.replicate_for_users(avg, self.n_users)       # Eq. 4
+            dlv = self.radio.send_stacked(kch.draws(), user_params)
+            if self.capture:
+                fl_capture(self.captures, dlv.payload, broadcast,
+                           [batch["tokens"][u]
+                            for u in range(self.n_users)])
+            # users whose upload was erased (bounded ARQ) carry zero
+            # weight; below quorum the sync is abandoned and everyone
+            # re-anchors on the cycle's broadcast weights
+            erased = dlv.user_erased or (False,) * self.n_users
+            kept = [u for u in range(self.n_users) if not erased[u]]
+            need = max(1, math.ceil(self.quorum * self.n_users))
+            if self.radio.arq_max_tx > 0:
+                fmetrics = {"n_erased_users": self.n_users - len(kept),
+                            "quorum_met": len(kept) >= need}
+            if len(kept) == self.n_users:
+                rx = dlv.payload
+            elif len(kept) >= need:
+                sel = torch.as_tensor(kept, device=self.device)
+                rx = tree_map(lambda r: r[sel], dlv.payload)
+            else:
+                rx = None      # abandoned round
+            avg = broadcast if rx is None else tree_map(self.aggregate, rx)
+            synced = FED.replicate_for_users(avg, self.n_users)   # Eq. 4
+            bits, n_tx, energy = dlv.bits, dlv.n_tx, dlv.energy_j
+            extra = dict(erased_bits=dlv.erased_bits,
+                         outage_s=dlv.outage_s)
         new_train = TrainState(dict(states.trainable, model=synced),
                                states.opt_state, states.step)
         new = SchemeState(new_train, state.data, state.steps + j,
                           state.epoch + self.local_epochs)
         loss = float(metrics["loss"].cpu().numpy().mean())
-        return new, RoundReport(loss=loss, steps=j, bits=dlv.bits,
-                                n_tx=dlv.n_tx, energy_j=dlv.energy_j,
-                                metrics=fmetrics,
-                                erased_bits=dlv.erased_bits,
-                                outage_s=dlv.outage_s)
+        return new, RoundReport(loss=loss, steps=j, bits=bits, n_tx=n_tx,
+                                energy_j=energy, metrics=fmetrics, **extra)
 
     # -------------------------------------------------------------- eval
     def evaluate(self, state, xte, yte) -> float:

@@ -31,16 +31,17 @@ def build_scheme(wcfg=None, capture: bool = False, clients=None,
     """(WirelessConfig, arch) -> Scheme. None wcfg means the no-radio CL
     baseline. `capture=True` records each scheme's privacy observations
     into `RunResult.captures`. Extra kwargs go to the scheme constructor
-    (`device`, `key`; FL's `quorum`; SL's `protocol` and
-    `capture_every`)."""
+    (`device`, `key`; FL's `quorum`, `shards`, `dp_sigma`, `dp_clip`,
+    `prox_mu` and `sample_with_replacement`; SL's `protocol`,
+    `capture_every` and `perfect_eval`)."""
     if clients is not None:
         raise NotImplementedError(
             "build_scheme: populations and fleets (clients=) are not "
-            "ported yet (see ROADMAP.md)")
+            "ported yet (see ROADMAP.md, P14)")
     if cfg is not None and cfg.family != "tiny":
         raise NotImplementedError(
             f"build_scheme: the scaled schemes (family {cfg.family!r}) are "
-            f"not ported yet (see ROADMAP.md)")
+            f"not ported yet (see ROADMAP.md, P15)")
     mode = wcfg.mode if wcfg is not None else "cl"
     if mode == "cl":
         return CentralizedScheme(wcfg, capture=capture, **kwargs)
@@ -77,7 +78,7 @@ class Experiment:
         if self.checkpoint_every > 0 or self.resume_from is not None:
             raise NotImplementedError(
                 "Experiment: checkpointing and resume are not ported yet "
-                "(see ROADMAP.md)")
+                "(see ROADMAP.md, P14)")
         (xtr, ytr), (xte, yte) = corpus(self.n_train, self.n_test,
                                         self.seed)
         state, self.init_delivery = self.scheme.init(self.seed, xtr, ytr)

@@ -14,6 +14,8 @@ of `repro/schemes/split.py`. Two protocols, one interface:
 Eval (both protocols): the deployed function transmits through the REAL
 channel with fixed eval keys (`evaluate_sl`, `SLSession.predict`); on the
 card it runs the no-grad kernels K3 and K4 once per eval slice.
+`perfect_eval=True` scores over a noiseless (still quantized) link
+instead, to separate model quality from channel luck.
 
 Privacy capture (`capture=True`) records what the server receives on the
 uplink every `capture_every` steps, with the raw tokens it came from:
@@ -21,6 +23,8 @@ the fused protocol runs the user side again and sends it over its own
 key (`sl_observe`), the two-party protocol keeps the uplink's payload.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -94,10 +98,13 @@ def sl_cycle_drawn_tx(key, start: int, n_steps: int, radio: Radio) -> float:
 
 @torch.no_grad()
 def evaluate_sl(trainable, wcfg, xte, yte, batch: int = 2048,
-                key=Key) -> float:
+                key=Key, perfect_eval: bool = False) -> float:
     """Test accuracy of the deployed split function: user partition +
     codec + link + server partition, through the REAL channel with the
-    fixed per-slice keys key(999 + slice_start)."""
+    fixed per-slice keys key(999 + slice_start); `perfect_eval` scores
+    over a noiseless (still quantized) link."""
+    if perfect_eval:
+        wcfg = dataclasses.replace(wcfg, perfect_channel=True)
     dev = trainable["model"]["embed"].device
     accs = []
     for i in range(0, max(len(xte) - batch + 1, 1), batch):
@@ -114,7 +121,7 @@ def evaluate_sl(trainable, wcfg, xte, yte, batch: int = 2048,
 
 @torch.no_grad()
 def evaluate_two_party(sess, xte, yte, batch: int = 2048,
-                       key=Key) -> float:
+                       key=Key, perfect: bool = False) -> float:
     """`evaluate_sl` for the two-party protocol: each slice through
     `SLSession.predict` on key(999 + slice_start)."""
     dev = sess.user_params["embed"].device
@@ -124,7 +131,7 @@ def evaluate_two_party(sess, xte, yte, batch: int = 2048,
             xte[i:i + batch])).to(dev)
         labels = torch.from_numpy(np.ascontiguousarray(
             yte[i:i + batch])).to(dev)
-        logits = sess.predict(tokens, key(EVAL_KEY + i))
+        logits = sess.predict(tokens, key(EVAL_KEY + i), perfect=perfect)
         accs.append(float(lstm_tiny.accuracy(logits, labels)))
     return float(np.mean(accs))
 
@@ -148,7 +155,7 @@ class SplitScheme:
 
     def __init__(self, wcfg=None, capture: bool = False,
                  capture_every: int = 8, protocol: str = "fused",
-                 device="cuda", key=Key):
+                 perfect_eval: bool = False, device="cuda", key=Key):
         if protocol not in ("fused", "two_party"):
             raise ValueError(protocol)
         self.wcfg = wcfg or WirelessConfig(mode="sl", quant_bits=16)
@@ -156,6 +163,9 @@ class SplitScheme:
         self.key = key
         self.radio = Radio.from_wcfg(self.wcfg)
         self.protocol = protocol
+        # eval convention: the deployed function transmits through the
+        # REAL channel (see evaluate_sl); perfect_eval scores noiseless
+        self.perfect_eval = perfect_eval
         self.capture = capture
         self.capture_every = capture_every
         self.captures = {"smashed": [], "original": []} if capture else {}
@@ -234,9 +244,10 @@ class SplitScheme:
     # -------------------------------------------------------------- eval
     def evaluate(self, state, xte, yte) -> float:
         if self.protocol == "two_party":
-            return evaluate_two_party(state.train, xte, yte, key=self.key)
+            return evaluate_two_party(state.train, xte, yte, key=self.key,
+                                      perfect=self.perfect_eval)
         return evaluate_sl(state.train.trainable, self.wcfg, xte, yte,
-                           key=self.key)
+                           key=self.key, perfect_eval=self.perfect_eval)
 
     def flops(self, steps_total: int):
         cf = self.wcfg.compress_factor

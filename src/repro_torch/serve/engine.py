@@ -12,6 +12,10 @@ token per cycle through the decode step. `kv="paged"` keeps the KV in one
 shared page pool (serve/paging.PagePool), `kv="dense"` in a per-slot
 [B, Hkv, S, hd] cache. On CUDA every decode step runs the decode kernel
 (paged or dense) once per layer and every chunk the prefill kernel.
+The paper's tiny classifier serves too: its O(1) recurrent cache has
+nothing to page (`kv="paged"` degrades to dense), its chunks are
+prefilled by the exact scan of its decode step, and its "generated
+token" is the sentiment class (2 output logits).
 
 Billing is independent of all three switches: prompt tokens ride the
 uplink via `Radio.send_tokens` before the first chunk runs, every radio
@@ -38,8 +42,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.draws import seeded
 from repro_torch.models import api as M
 from repro_torch.models import transformer as _tfm
-from repro_torch.nn import resolve_device
-from repro_torch.runtime.serve_step import (make_decode_step,
+from repro_torch.nn import resolve_device, tree_map
+from repro_torch.runtime.serve_step import (logit_width, make_decode_step,
                                             make_paged_decode_step,
                                             make_paged_prefill_step,
                                             make_prefill_step)
@@ -49,7 +53,7 @@ from repro_torch.serve.paging import (PagePool, bucket_for, pages_needed,
 from repro_torch.serve.trace import RequestTrace
 
 #: families whose decode path accepts a per-slot [B] index vector (ported)
-SLOT_FAMILIES = ("dense",)
+SLOT_FAMILIES = ("dense", "tiny")
 #: families whose KV cache can live in the shared page pool (ported)
 PAGED_FAMILIES = ("dense",)
 #: the serving RNG stream offset (docs/ACCOUNTING.md §RNG)
@@ -206,7 +210,7 @@ class ServeEngine:
         if cfg.family not in SLOT_FAMILIES:
             raise ValueError(
                 f"family {cfg.family!r} has no per-slot decode path in the "
-                f"port; serving supports {SLOT_FAMILIES} (see ROADMAP.md)")
+                f"port; serving supports {SLOT_FAMILIES} (see ROADMAP.md, P15)")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if prefill not in ("chunked", "token"):
@@ -219,7 +223,8 @@ class ServeEngine:
             raise ValueError("page_size must be >= 1")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params.to(self.device)
+        self.params = tree_map(lambda a: a.to(self.device), params) \
+            if isinstance(params, dict) else params.to(self.device)
         self.n_slots = int(n_slots)
         self.radio = radio if radio is not None \
             else Radio(perfect=True, fading=False)
@@ -227,13 +232,14 @@ class ServeEngine:
         self.greedy = bool(greedy)
         self.max_link_tries = max(1, int(max_link_tries))
         self.prefill = prefill
+        # recurrent O(1) caches have nothing to page: degrade to dense
         self.kv = kv if cfg.family in PAGED_FAMILIES else "dense"
         self.chunk_size = int(chunk_size)
         self.page_size = int(page_size)
         self.page_budget = int(page_budget)
         self.prefill_impl = prefill_impl
         self.draws = draws
-        self.out_vocab = cfg.vocab_size
+        self.out_vocab = logit_width(cfg)
         self._model = M.get_model(cfg)
         self._built = {}
 
@@ -273,11 +279,15 @@ class ServeEngine:
             step = make_decode_step(cfg, sc)
             out["decode"] = lambda cache, toks, idx, act, tbl: step(
                 params, cache, toks, idx, act)[0]
-            out["new_cache"] = lambda: _tfm.init_cache(cfg, B, S, dev)
+            model = self._model
+            out["new_cache"] = lambda: model.init_cache(cfg, B, S, dev)
+            # each leaf's batch axis, as its cache_shapes names it
+            bax = {k: ax.index("batch") for k, (sh, ax, dt) in
+                   model.cache_shapes(cfg, B, S).items()}
 
             def clear(cache, b, pids):
-                for leaf in cache.values():
-                    leaf[:, b] = 0
+                for k, leaf in cache.items():
+                    leaf.select(bax[k], b).zero_()
             if self.prefill == "chunked":
                 pf = make_prefill_step(cfg, sc, self.prefill_impl, dev)
                 out["prefill"] = lambda cache, toks, st, nv, tbl: pf(

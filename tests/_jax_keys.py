@@ -4,8 +4,10 @@ port's `core.draws.Key`: it folds like a JAX key, and its `draws()`
 answer each draw name with the numbers the JAX package draws from that
 key for one crossing — (kf, kb) = split(key); fades ("fade", "arq")
 from kf, the flip words ("flip") from kb, the Gilbert-Elliott chain
-from split(fold_in(kf, 77)) — and each packet's bit error probability
-with the JAX package's own float32 erfc."""
+from split(fold_in(kf, 77)), normals ("normal") from the key itself —
+and each packet's bit error probability with the JAX package's own
+float32 erfc. `split(n)` is `jax.random.split`. `JaxServeDraws` hands
+the JAX serving engine's draws to the port's `ServeEngine`."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 from repro.core import channel as JCH
 from repro.core import wire as JW
+from repro_torch.serve.engine import SERVE_STREAM
 
 
 class JaxDraws:
@@ -37,6 +40,12 @@ class JaxDraws:
         w = jax.random.bits(self._key(name), tuple(shape), jnp.uint32)
         return torch.from_numpy(np.asarray(w).astype(np.int64))
 
+    def normal(self, name, shape):
+        """jax.random.normal of the key itself (core/dp.py draws one
+        leaf's noise per child key of `JaxKey.split`)."""
+        return torch.from_numpy(np.array(jax.random.normal(
+            self.key, tuple(shape), jnp.float32)))
+
     def bit_error_prob(self, snr_db, f2):
         f2 = np.asarray(f2.cpu() if torch.is_tensor(f2) else f2,
                         np.float32)
@@ -55,5 +64,69 @@ class JaxKey:
     def fold_in(self, i: int) -> "JaxKey":
         return JaxKey(jax.random.fold_in(self.key, i))
 
+    def split(self, n: int) -> list:
+        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
     def draws(self) -> JaxDraws:
         return JaxDraws(self.key)
+
+
+# ------------------------------------------- the JAX serving engine's draws
+class JaxLinkDraws:
+    """The port's `Draws` interface answered with the numbers the JAX
+    package draws from `key` for one `send_tokens` crossing:
+    `transmit_tokens` splits the key into (fade, flip) and the bounded
+    ARQ draw folds 4242, then splits (and folds 77 for Gilbert-Elliott).
+    """
+
+    def __init__(self, key, arq_key=None):
+        self.key = key
+        self.arq_key = arq_key if arq_key is not None \
+            else jax.random.fold_in(key, 4242)
+
+    def _key(self, name):
+        if name == "fade":
+            return jax.random.split(self.key)[0]
+        if name == "flip":
+            return jax.random.split(self.key)[1]
+        kf = jax.random.split(self.arq_key)[0]      # drawn_stacked_tx's
+        if name == "arq":
+            return kf
+        k0, kc = jax.random.split(jax.random.fold_in(kf, JW._GE_FOLD))
+        return {"ge_init": k0, "ge_chain": kc}[name]
+
+    def uniform(self, name, shape, lo, hi):
+        u = jax.random.uniform(self._key(name), tuple(shape), jnp.float32,
+                               lo, hi)
+        return torch.from_numpy(np.array(u))
+
+    def words(self, name, shape):
+        w = jax.random.bits(self._key(name), tuple(shape), jnp.uint32)
+        return torch.from_numpy(np.asarray(w).astype(np.int64))
+
+
+class JaxServeDraws:
+    """The JAX engine's serving draws (module docstring of
+    repro/serve/engine.py): kreq = fold_in(PRNGKey(seed + 13), rid);
+    prompt fold 3, uplink fold 1, downlink fold 2 (then the attempt),
+    sampling fold 9 (then the token index)."""
+
+    def __init__(self, seed):
+        self.base = jax.random.PRNGKey(seed + SERVE_STREAM)
+
+    def _req(self, rid):
+        return jax.random.fold_in(self.base, rid)
+
+    def prompt(self, rid, n, vocab):
+        return np.asarray(jax.random.randint(
+            jax.random.fold_in(self._req(rid), 3), (n,), 1, vocab,
+            jnp.int32))
+
+    def link(self, rid, leg, attempt):
+        return JaxLinkDraws(jax.random.fold_in(
+            jax.random.fold_in(self._req(rid), leg), attempt))
+
+    def gumbel(self, rid, t, vocab):
+        k = jax.random.fold_in(jax.random.fold_in(self._req(rid), 9), t)
+        return torch.from_numpy(np.array(
+            jax.random.gumbel(k, (vocab,), jnp.float32)))

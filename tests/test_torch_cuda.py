@@ -210,6 +210,41 @@ def test_paged_kernel_equals_dense_twin_bitwise(c, page, g, window, dtype,
                                atol=TOL[dtype])
 
 
+# one slot whose dense cache length S is not a multiple of the page, as
+# the engine lays out a short trace (dense S = the longest request, paged
+# n_lp = ceil(S / page) pages): the paged kernel then sees n_lp * page > S
+# columns, and where the split count's cap ceil(S / 32) binds (few slots
+# x KV heads) the two layouts could sum a row in different orders
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,page", [(96, 24), (100, 24), (96, 48),
+                                    (100, 48), (270, 16)])
+@pytest.mark.parametrize("c", [None, 8])
+def test_paged_equals_dense_where_the_page_does_not_divide_s(
+        s, page, c, dtype, cuda_device):
+    n_lp = -(-s // page)
+    q, k, v = attn_fixture(5, 1, 2, 4, n_lp * page, 64, c=c)
+    kp, vp, tables, _ = paged_from_dense(k, v, page, 6)
+    t = {n: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+         for n, a in dict(q=q, k=k[:, :, :s], v=v[:, :, :s], kp=kp, vp=vp,
+                          tables=tables).items()}
+    for n in ("q", "k", "v", "kp", "vp"):
+        t[n] = t[n].to(dtype)
+    if c is None:
+        fn, dense, plain = (dec.gqa_decode_paged, dec.gqa_decode,
+                            dec_ref.decode_attention_ref)
+    else:
+        fn, dense, plain = (pre.gqa_prefill_paged, pre.gqa_prefill,
+                            pre_ref.prefill_attention_ref)
+    for n in (1, 33, s - (c or 0)):
+        rows = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+        got = fn(t["q"], t["kp"], t["vp"], t["tables"], rows)
+        twin = dense(t["q"], t["k"], t["v"], rows)
+        assert torch.equal(got, twin), (s, page, n)
+        torch.testing.assert_close(
+            got, plain(t["q"], t["k"], t["v"], rows).float(),
+            rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("c", [None, 32])
 def test_paged_kernel_clamps_page_ids(c, dtype, cuda_device):

@@ -77,24 +77,23 @@ def test_split_mirror_rounds_p_to_v_dtype():
 
 
 def test_split_count_depends_on_shapes_only():
-    """`decode_splits` takes the shapes and nothing else (no lengths, so
-    the wrapper never reads them on the host), stays within
-    [1, ceil(S / 32)], and puts three CTAs on each of the H100's 132
-    SMs where the span allows: 4 at the serving shape (8 slots x 16 KV
-    heads)."""
+    """`decode_splits` takes the batch and head shapes and nothing else
+    (no lengths, so the wrapper never reads them on the host, and no
+    column count, so a dense cache and its paged copy get one count),
+    stays within [1, MAX_SPLITS], and puts three CTAs on each of the
+    H100's 132 SMs where the cap allows: 4 at the serving shape (8
+    slots x 16 KV heads)."""
     params = list(inspect.signature(pt_decode.decode_splits).parameters)
-    assert params == ["B", "Hkv", "G", "S"]
+    assert params == ["B", "Hkv", "G"]
     for B in (1, 2, 8, 64):
         for Hkv, G in ((16, 1), (4, 4), (2, 8), (1, 3)):
-            for S in (1, 31, 32, 33, 100, 272, 4096):
-                n = pt_decode.decode_splits(B, Hkv, G, S)
-                assert 1 <= n <= max(1, math.ceil(S / 32))
-                units = B * Hkv * math.ceil(G / pt_decode.group_rows(G))
-                if n < math.ceil(S / 32):
-                    assert units * n >= pt_decode.TARGET_CTAS
-                    assert n == 1 or units * (n - 1) < \
-                        pt_decode.TARGET_CTAS
-    assert pt_decode.decode_splits(8, 16, 1, 272) == 4
+            n = pt_decode.decode_splits(B, Hkv, G)
+            assert 1 <= n <= pt_decode.MAX_SPLITS
+            units = B * Hkv * math.ceil(G / pt_decode.group_rows(G))
+            if n < pt_decode.MAX_SPLITS:
+                assert units * n >= pt_decode.TARGET_CTAS
+                assert n == 1 or units * (n - 1) < pt_decode.TARGET_CTAS
+    assert pt_decode.decode_splits(8, 16, 1) == 4
 
 
 # ---------------------------------------------------- the paged kernel (K8)

@@ -79,7 +79,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: T.init_paged_cache(cfg, 4, 8),
                  lambda: init_params(M.param_specs(cfg), torch.Generator()),
                  lambda: launch.main(["--arch", "qwen1.5-0.5b",
-                                      "--reduced"])):
+                                      "--reduced"]),
+                 lambda: launch.main(["--arch", "paper-tinylstm"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_keys import JaxLinkDraws, JaxServeDraws
 from repro.configs import get_arch as jax_arch
 from repro.core import channel as JCH
 from repro.core import wire as JW
@@ -38,7 +39,6 @@ from repro_torch.schemes.radio import Radio
 from repro_torch.serve import (PagePool, Request, RequestTrace, ServeEngine,
                                bucket_for, make_trace, pages_needed,
                                prefill_buckets)
-from repro_torch.serve.engine import SERVE_STREAM
 
 JCFG = jax_arch("qwen1.5-0.5b").reduced()
 CFG = get_arch("qwen1.5-0.5b").reduced()
@@ -48,67 +48,6 @@ LINK = dict(snr_db=10.0, fading=True, arq_max_tx=1, arq_attempts=1,
             arq_min_f2=0.4)
 MODES = [("chunked", "paged"), ("chunked", "dense"), ("token", "paged"),
          ("token", "dense")]
-
-
-# ------------------------------------------------ the JAX draws as seams
-class JaxLinkDraws:
-    """The port's `Draws` interface answered with the numbers the JAX
-    package draws from `key` for one `send_tokens` crossing:
-    `transmit_tokens` splits the key into (fade, flip) and the bounded
-    ARQ draw folds 4242, then splits (and folds 77 for Gilbert-Elliott).
-    """
-
-    def __init__(self, key, arq_key=None):
-        self.key = key
-        self.arq_key = arq_key if arq_key is not None \
-            else jax.random.fold_in(key, 4242)
-
-    def _key(self, name):
-        if name == "fade":
-            return jax.random.split(self.key)[0]
-        if name == "flip":
-            return jax.random.split(self.key)[1]
-        kf = jax.random.split(self.arq_key)[0]      # drawn_stacked_tx's
-        if name == "arq":
-            return kf
-        k0, kc = jax.random.split(jax.random.fold_in(kf, JW._GE_FOLD))
-        return {"ge_init": k0, "ge_chain": kc}[name]
-
-    def uniform(self, name, shape, lo, hi):
-        u = jax.random.uniform(self._key(name), tuple(shape), jnp.float32,
-                               lo, hi)
-        return torch.from_numpy(np.array(u))
-
-    def words(self, name, shape):
-        w = jax.random.bits(self._key(name), tuple(shape), jnp.uint32)
-        return torch.from_numpy(np.asarray(w).astype(np.int64))
-
-
-class JaxServeDraws:
-    """The JAX engine's serving draws (module docstring of
-    repro/serve/engine.py): kreq = fold_in(PRNGKey(seed + 13), rid);
-    prompt fold 3, uplink fold 1, downlink fold 2 (then the attempt),
-    sampling fold 9 (then the token index)."""
-
-    def __init__(self, seed):
-        self.base = jax.random.PRNGKey(seed + SERVE_STREAM)
-
-    def _req(self, rid):
-        return jax.random.fold_in(self.base, rid)
-
-    def prompt(self, rid, n, vocab):
-        return np.asarray(jax.random.randint(
-            jax.random.fold_in(self._req(rid), 3), (n,), 1, vocab,
-            jnp.int32))
-
-    def link(self, rid, leg, attempt):
-        return JaxLinkDraws(jax.random.fold_in(
-            jax.random.fold_in(self._req(rid), leg), attempt))
-
-    def gumbel(self, rid, t, vocab):
-        k = jax.random.fold_in(jax.random.fold_in(self._req(rid), 9), t)
-        return torch.from_numpy(np.array(
-            jax.random.gumbel(k, (vocab,), jnp.float32)))
 
 
 # ------------------------------------------------------------ fixtures
