@@ -123,8 +123,26 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    weights through Hamming(7,4) and each constellation at Q8, 5 dB
    (bit for bit with the CPU on the same draws); it prints each
    option's seconds beside the card;
-10. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5, 7, 8 and 9 together; K1, K3 and K4
+10. runs fleets, faults and resume on the card (benchmarks/fleet.py's
+   corpus, 4,096 / 512 rows): its two parity fleets (parity_mixed_4:
+   FL Q8 20 dB, FL Q4 6 dB, SL Q16 12 dB, SL Q8 20 dB, 2 cycles;
+   parity_faulty_6: bounded ARQ with Gilbert-Elliott and backoff,
+   Bernoulli(0.8), quorum 0.3, a FaultPlan, 3 cycles) under
+   `PopulationScheme` and `FleetScheme`, the loop also on the CPU:
+   every round's bill equal between the engines and card = CPU, bit for
+   bit, the last round's per-client detail too, accuracy within 0.01 of
+   the CPU, parity_mixed_4 at 6,581,100 bits a round (the JAX package's
+   number), K1 once per FL group and twice per SL step in each round,
+   K3 and K4 once per eval slice; then kill-and-resume at the full
+   corpus (tests/test_resume.py's faulty FL, and parity_mixed_4 under a
+   FaultPlan, 4 cycles killed at 2): accuracies, losses, total bits,
+   every report and every state tensor equal to the uninterrupted run
+   (`torch.equal`); then the synthetic billing plane at 10^4 (3 rounds)
+   and 10^5 (2 rounds) clients, printing seconds per round, the SL
+   replay's share, n_active, bits and erased bits, with one 10^4 round
+   again on the CPU, bit for bit. No attention kernel may launch;
+11. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5, 7, 8, 9 and 10 together; K1, K3 and K4
    also per timed shape, under "by_shape"), the card's name and power
    limit, and as the last line {"ok": true, "device": ...}.
 
@@ -2375,6 +2393,496 @@ def options_phase(seed: int, sl_run: dict, weights: dict, card_name: str,
     return launches, summary, failures
 
 
+# ------------------------------------------ fleets, faults and resume
+# phase 10. (a) benchmarks/fleet.py's two parity fleets on its corpus
+# (4,096 / 512 rows, seed 0) under the loop engine and the fleet engine
+# on the card, the loop also on the CPU: every round's bill equal
+# between the engines and between card and CPU, bit for bit, accuracy
+# card vs CPU within ACC_TOL, and parity_mixed_4 billing the JAX
+# package's MIXED4_ROUND_BITS a round (no ARQ, so no draw enters it).
+# (b) kill at cycle KILL_AT of RESUME_CYCLES and resume, at the full
+# corpus: the resumed run equal to the uninterrupted one, bit for bit.
+# The training plane: an all-FL fleet of two groups, two of three
+# clients a round, under FleetScheme(train="on") beside the loop on the
+# card: bills, losses and global weights equal, K1 once per active group.
+# (c) the synthetic billing plane at FLEET_SCALE clients (rounds), one
+# 10^4 round again on the CPU, bit for bit. (d) launch/train.py's
+# --fleet-* flags on the card: a 6-client FL fleet on the training plane
+# and a synthetic fleet of LAUNCH_FLEET clients.
+FLEET_N_TRAIN, FLEET_N_TEST = 4096, 512
+MIXED4_ROUND_BITS = 717_384 + 358_692 + 2 * 1_835_008 + 2 * 917_504
+RESUME_CYCLES, KILL_AT = 4, 2
+FLEET_SCALE = ((10_000, 3), (100_000, 2))
+TRAIN_PLANE_CYCLES = 3
+LAUNCH_FLEET = 10_000
+FLEET_BILLS = ("bits", "n_tx", "energy_j", "erased_bits", "outage_s",
+               "steps")
+
+
+def _parity_fleets() -> dict:
+    """name -> (specs, cycles, scheme options): benchmarks/fleet.py's
+    parity_mixed_4 and parity_faulty_6."""
+    from repro_torch.configs import WirelessConfig
+    from repro_torch.schemes import ClientSpec, FaultPlan, \
+        ParticipationPolicy
+    base = WirelessConfig(mode="fl", quant_bits=8)
+    arq = WirelessConfig(mode="fl", quant_bits=8, arq_max_tx=3,
+                         ge_p_gb=0.2, arq_backoff_s=0.01, snr_db=4.0)
+    mixed = [ClientSpec.fl(base, snr_db=20.0),
+             ClientSpec.fl(base, snr_db=6.0, quant_bits=4),
+             ClientSpec.sl(base, snr_db=12.0, quant_bits=16),
+             ClientSpec.sl(base, snr_db=20.0)]
+    faulty = [ClientSpec.fl(arq), ClientSpec.fl(arq, snr_db=8.0),
+              ClientSpec.sl(arq, quant_bits=16),
+              ClientSpec.sl(arq, quant_bits=16, local_epochs=2),
+              ClientSpec.cl(arq), ClientSpec.fl(arq, snr_db=12.0)]
+    return {"parity_mixed_4": (mixed, 2, {}),
+            "parity_faulty_6": (faulty, 3, dict(
+                policy=ParticipationPolicy.bernoulli(0.8), quorum=0.3,
+                fault_plan=FaultPlan(seed=1, p_outage=0.25,
+                                     p_dropout=0.25)))}
+
+
+def _train_plane_specs() -> list:
+    """Three FL clients over two radios (two groups)."""
+    from repro_torch.configs import WirelessConfig
+    from repro_torch.schemes import ClientSpec
+    base = WirelessConfig(mode="fl", quant_bits=8)
+    return [ClientSpec.fl(base, snr_db=20.0), ClientSpec.fl(base, snr_db=20.0),
+            ClientSpec.fl(base, snr_db=6.0, quant_bits=4)]
+
+
+def _fleet_run(scheme, cycles: int, seed: int, data=None, **exp_kw):
+    """`scheme` through `Experiment`, with K1's, K3's and K4's launches
+    counted inside each round and each eval apart, each cycle's host
+    seconds, and the fleet engine's per-round detail and timing kept."""
+    import torch
+    from repro_torch.schemes import Experiment
+    rounds, evals, walls, details = [], [], [], []
+    sync = scheme.device.type == "cuda"
+
+    def counted(fn, out):
+        def run(*a):
+            n0 = _tiny_counts()
+            r = fn(*a)
+            if sync:
+                torch.cuda.synchronize()
+            out.append(tuple(b - a for a, b in zip(n0, _tiny_counts())))
+            return r
+        return run
+    scheme.round = counted(scheme.round, rounds)
+    scheme.evaluate = counted(scheme.evaluate, evals)
+    t = [time.perf_counter()]
+
+    def on_cycle(cyc, acc, rep):
+        walls.append(time.perf_counter() - t[0])
+        if getattr(scheme, "last_round_detail", None) is not None:
+            details.append((dict(scheme.last_round_detail),
+                            dict(scheme.last_round_seconds)))
+        t[0] = time.perf_counter()
+    exp = Experiment(scheme, cycles=cycles, seed=seed, data=data,
+                     on_cycle=on_cycle, **exp_kw)
+    res = exp.run()
+    return dict(exp=exp, res=res, rounds=rounds, evals=evals, walls=walls,
+                details=details)
+
+
+def _bills(exp) -> list:
+    return [tuple(getattr(r, f) for f in FLEET_BILLS) for r in exp.reports]
+
+
+def _client_bills(exp) -> list:
+    """Each round's per-client bills and decisions (not the losses)."""
+    return [[(c.name, c.status, c.bits, c.n_tx, c.energy_j, c.erased_bits,
+              c.weight, c.steps, c.est_round_s) for c in r.clients]
+            for r in exp.reports]
+
+
+def _expected_k1(scheme, rep) -> int:
+    """K1 launches a population round makes: one per FL group with an
+    active member, two per SL step."""
+    groups = sum(1 for g in scheme._groups
+                 if any(rep.clients[i].steps > 0 for i in g.members))
+    return groups + 2 * sum(rep.clients[i].steps for i in scheme._sl_idx)
+
+
+def _detail_equal(loop_rep, detail) -> bool:
+    return all(
+        (c.bits, c.n_tx, c.energy_j, c.erased_bits, c.status, c.weight,
+         c.est_round_s) == (detail["bits"][i], detail["n_tx"][i],
+                            detail["energy_j"][i], detail["erased_bits"][i],
+                            detail["status_names"][i], detail["weight"][i],
+                            detail["est_round_s"][i])
+        for i, c in enumerate(loop_rep.clients))
+
+
+def fleet_parity(seed: int, card_name: str) -> tuple:
+    """Phase 10 (a): each parity fleet under both engines on the card and
+    the loop on the CPU (one intra-op thread). Returns (summary,
+    failures)."""
+    import torch
+    from repro_torch.schemes import (ClientBatch, FleetScheme,
+                                     PopulationScheme, corpus)
+    data = corpus(FLEET_N_TRAIN, FLEET_N_TEST, seed)
+    summary, failures = {}, []
+    for name, (specs, cycles, kw) in _parity_fleets().items():
+        loop = _fleet_run(PopulationScheme(None, specs, device="cuda",
+                                           **kw), cycles, seed, data)
+        fleet = _fleet_run(FleetScheme(None, ClientBatch.from_specs(specs),
+                                       device="cuda", **kw),
+                           cycles, seed, data)
+        n_thr = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            cpu = _fleet_run(PopulationScheme(None, specs, device="cpu",
+                                              **kw), cycles, seed, data)
+        finally:
+            torch.set_num_threads(n_thr)
+        le, fe, ce = loop["exp"], fleet["exp"], cpu["exp"]
+        engines_equal = _bills(le) == _bills(fe) and _detail_equal(
+            le.reports[-1], fleet["details"][-1][0])
+        cpu_equal = (_bills(le) == _bills(ce)
+                     and _client_bills(le) == _client_bills(ce))
+        d_acc = max(abs(a - b) for a, b in zip(loop["res"].accuracy,
+                                               cpu["res"].accuracy))
+        want_k1 = [_expected_k1(le.scheme, r) for r in le.reports]
+        sl_eval = bool(le.scheme._sl_idx)
+        want_eval = (1 if sl_eval else 0, 1, 1)
+        launches_ok = ([r[0] for r in loop["rounds"]] == want_k1
+                       and all(r[1:] == (0, 0) for r in loop["rounds"])
+                       and all(e == want_eval for e in loop["evals"])
+                       and all(r == (0, 0, 0) for r in fleet["rounds"])
+                       and all(e == (0, 1, 1) for e in fleet["evals"]))
+        bits = [r.bits for r in le.reports]
+        statuses = [{s: [c.status for c in r.clients].count(s)
+                     for s in {c.status for c in r.clients}}
+                    for r in le.reports]
+        print(f"fleet {name} ({len(specs)} clients, {cycles} cycles): bits "
+              f"per round {bits}; erased {[r.erased_bits for r in le.reports]}"
+              f"; statuses {statuses}; loop = fleet engine on the card "
+              f"{engines_equal}; card = CPU (loop) {cpu_equal}; accuracy "
+              f"card {loop['res'].accuracy} CPU {cpu['res'].accuracy} "
+              f"(|d| {d_acc:.4f}, tol {ACC_TOL}); (K1, K3, K4) per round "
+              f"loop {loop['rounds']} (K1 wanted {want_k1}), fleet "
+              f"{fleet['rounds']}; per eval loop {loop['evals']}, fleet "
+              f"{fleet['evals']}; s per cycle loop "
+              f"{['%.3f' % w for w in loop['walls']]}, fleet "
+              f"{['%.4f' % w for w in fleet['walls']]}, CPU loop "
+              f"{['%.3f' % w for w in cpu['walls']]} ({card_name})",
+              flush=True)
+        summary[name] = dict(
+            bits=bits, erased_bits=[r.erased_bits for r in le.reports],
+            statuses=statuses, engines_equal=engines_equal,
+            cpu_equal=cpu_equal, accuracy=loop["res"].accuracy,
+            cpu_accuracy=cpu["res"].accuracy, launches_round=loop["rounds"],
+            launches_eval=loop["evals"], fleet_launches=fleet["rounds"],
+            wall_s=loop["walls"], fleet_wall_s=fleet["walls"],
+            cpu_wall_s=cpu["walls"])
+        if not engines_equal:
+            failures.append(f"{name}: the loop and fleet engines bill apart")
+        if not cpu_equal:
+            failures.append(f"{name}: card and CPU bills differ")
+        if not d_acc <= ACC_TOL:
+            failures.append(f"{name}: card vs CPU accuracy {d_acc}")
+        if not launches_ok:
+            failures.append(f"{name}: launches per round {loop['rounds']} "
+                            f"(K1 wanted {want_k1}) / eval {loop['evals']}, "
+                            f"fleet {fleet['rounds']} / {fleet['evals']}")
+        if name == "parity_mixed_4" and bits != [MIXED4_ROUND_BITS] * cycles:
+            failures.append(f"{name} billed {bits}, not "
+                            f"{MIXED4_ROUND_BITS} a round")
+        if not all(math.isfinite(a) for a in loop["res"].accuracy):
+            failures.append(f"{name}: non-finite accuracy")
+    summary["train_plane"], f = train_plane_parity(seed, card_name, data)
+    return summary, failures + f
+
+
+def train_plane_parity(seed: int, card_name: str, data) -> tuple:
+    """The fleet engine's training plane on the card beside the loop:
+    equal bills and losses, `torch.equal` global weights, K1 once per
+    active FL group a round in both. Returns (summary, failures)."""
+    import torch
+    from repro_torch.nn import tree_leaves
+    from repro_torch.schemes import (ClientBatch, FleetScheme,
+                                     ParticipationPolicy, PopulationScheme)
+    kw = dict(policy=ParticipationPolicy.uniform(2))
+    loop = _fleet_run(PopulationScheme(None, _train_plane_specs(),
+                                       device="cuda", **kw),
+                      TRAIN_PLANE_CYCLES, seed, data)
+    scheme = FleetScheme(None, ClientBatch.from_specs(_train_plane_specs()),
+                         train="on", device="cuda", **kw)
+    fleet = _fleet_run(scheme, TRAIN_PLANE_CYCLES, seed, data)
+    le, fe = loop["exp"], fleet["exp"]
+    bills_equal = (_bills(le) == _bills(fe)
+                   and [r.loss for r in le.reports] == [r.loss for r in
+                                                       fe.reports])
+    gl = tree_leaves(le.final_state.train.global_trainable["model"])
+    gf = tree_leaves(fe.final_state.train.glob["model"])
+    weights_equal = len(gl) == len(gf) > 0 and all(
+        a.device.type == "cuda" and torch.equal(a, b)
+        for a, b in zip(gf, gl))
+    want_k1 = [_expected_k1(le.scheme, r) for r in le.reports]
+    launches_ok = all(
+        [r[0] for r in run["rounds"]] == want_k1
+        and all(r[1:] == (0, 0) for r in run["rounds"])
+        and all(e == (0, 1, 1) for e in run["evals"])
+        for run in (loop, fleet))
+    statuses = [[c.status for c in r.clients] for r in le.reports]
+    print(f"fleet train_plane_fl_3 (2 groups, uniform(2), "
+          f"{TRAIN_PLANE_CYCLES} cycles): train_on {scheme.train_on}; bits "
+          f"per round {[r.bits for r in le.reports]}; statuses {statuses}; "
+          f"loop = fleet bills and losses {bills_equal}; global weights "
+          f"torch.equal {weights_equal}; accuracy loop "
+          f"{loop['res'].accuracy} fleet {fleet['res'].accuracy}; (K1, K3, "
+          f"K4) per round loop {loop['rounds']} fleet {fleet['rounds']} (K1 "
+          f"wanted {want_k1}); s per cycle loop "
+          f"{['%.3f' % w for w in loop['walls']]}, fleet "
+          f"{['%.3f' % w for w in fleet['walls']]} ({card_name})",
+          flush=True)
+    failures = []
+    if not scheme.train_on:
+        failures.append("train_plane: the fleet is not on its training plane")
+    if not bills_equal:
+        failures.append("train_plane: the loop and fleet engines bill apart")
+    if not weights_equal:
+        failures.append("train_plane: global weights differ between engines")
+    if not launches_ok:
+        failures.append(f"train_plane: launches loop {loop['rounds']} / "
+                        f"{loop['evals']}, fleet {fleet['rounds']} / "
+                        f"{fleet['evals']} (K1 wanted {want_k1})")
+    return dict(bits=[r.bits for r in le.reports], bills_equal=bills_equal,
+                weights_equal=weights_equal, statuses=statuses,
+                accuracy=fleet["res"].accuracy, launches_round=fleet["rounds"],
+                k1_wanted=want_k1), failures
+
+
+def _resume_schemes() -> dict:
+    """name -> a function making the scheme: tests/test_resume.py's
+    faulty FL, and parity_mixed_4 under a FaultPlan."""
+    from repro_torch.configs import WirelessConfig
+    from repro_torch.schemes import FaultPlan, build_scheme
+    mixed = _parity_fleets()["parity_mixed_4"][0]
+    return {
+        "fl_faulty": lambda: build_scheme(WirelessConfig(
+            mode="fl", quant_bits=8, n_users=3, local_steps=2,
+            arq_max_tx=2, arq_min_f2=0.4, ge_p_gb=0.2, ge_p_bg=0.6,
+            arq_backoff_s=0.01)),
+        "mixed_4_faultplan": lambda: build_scheme(
+            WirelessConfig(mode="fl", quant_bits=8), clients=mixed,
+            fault_plan=FaultPlan(seed=0, p_outage=0.25, p_dropout=0.25)),
+    }
+
+
+def _state_leaves(train) -> list:
+    from repro_torch.checkpoint import ckpt as CKPT
+    out = []
+    CKPT._map_with_path(lambda k, leaf: out.append((k, leaf)) or leaf,
+                        train)
+    return out
+
+
+def fleet_resume(seed: int, card_name: str) -> tuple:
+    """Phase 10 (b): each of `_resume_schemes` for RESUME_CYCLES cycles
+    straight, and killed after KILL_AT then resumed from its snapshot,
+    on the card at the full corpus. Returns (summary, failures)."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    summary, failures = {}, []
+    for name, make in _resume_schemes().items():
+        t0 = time.perf_counter()
+        straight = _fleet_run(make(), RESUME_CYCLES, seed)
+        with tempfile.TemporaryDirectory() as ck:
+            _fleet_run(make(), KILL_AT, seed, checkpoint_dir=ck,
+                       checkpoint_every=1)
+            resumed = _fleet_run(make(), RESUME_CYCLES, seed,
+                                 resume_from=ck)
+        a, b = straight, resumed
+        la = _state_leaves(a["exp"].final_state.train)
+        lb = _state_leaves(b["exp"].final_state.train)
+        weights_equal = [k for k, _ in la] == [k for k, _ in lb] and all(
+            torch.equal(x, y) if torch.is_tensor(x) else
+            bool(np.array_equal(x, y)) for (_, x), (_, y) in zip(la, lb))
+        on_card = all(x.device.type == "cuda" for _, x in lb
+                      if torch.is_tensor(x))
+        same = dict(
+            accuracy=a["res"].accuracy == b["res"].accuracy,
+            loss=a["res"].loss == b["res"].loss,
+            total_bits=a["res"].total_bits == b["res"].total_bits,
+            reports=[dataclasses.asdict(r) for r in a["exp"].reports]
+            == [dataclasses.asdict(r) for r in b["exp"].reports],
+            weights=weights_equal, on_card=on_card)
+        secs = time.perf_counter() - t0
+        print(f"resume {name}: {RESUME_CYCLES} cycles straight vs killed "
+              f"after {KILL_AT} and resumed: equal {same}; accuracy "
+              f"{a['res'].accuracy}; total bits {a['res'].total_bits}; "
+              f"{len(lb)} state leaves; {secs:.1f} s ({card_name})",
+              flush=True)
+        summary[name] = dict(same, accuracy_list=a["res"].accuracy,
+                             total_bits_value=a["res"].total_bits,
+                             wall_s=secs, leaves=len(lb))
+        if not all(same.values()):
+            failures.append(f"resume {name}: {same}")
+    return summary, failures
+
+
+def fleet_scale(seed: int, card_name: str) -> tuple:
+    """Phase 10 (c): benchmarks/fleet.py's synthetic fleet at each of
+    FLEET_SCALE on the card (the billing plane), its seconds per round
+    and the SL replay's share, and one 10^4 round again on the CPU, bit
+    for bit. Returns (summary, failures)."""
+    import numpy as np
+    from repro_torch.schemes import (ClientBatch, FleetScheme,
+                                     ParticipationPolicy, corpus)
+    data = corpus(FLEET_N_TRAIN, FLEET_N_TEST, seed)
+
+    def fleet(n, device):
+        batch = ClientBatch.synthetic(
+            n, seed=0, arq_max_tx=3, arq_backoff_s=0.001, ge_p_gb=0.05,
+            sl_frac=0.3, compute_s_range=(0.0, 2.0), p_outage=0.01,
+            p_dropout=0.01)
+        return FleetScheme(None, batch, deadline_s=1e9, device=device,
+                           policy=ParticipationPolicy.bernoulli(0.5))
+    summary, failures = {}, []
+    for n, rounds in FLEET_SCALE:
+        run = _fleet_run(fleet(n, "cuda"), rounds, seed, data)
+        reps = run["exp"].reports
+        shares = [s["sl_replay"] / s["round"] for _, s in run["details"]]
+        steady = run["walls"][1:] or run["walls"]
+        rec = dict(wall_s=run["walls"],
+                   steady_s=sum(steady) / len(steady),
+                   round_s=[s["round"] for _, s in run["details"]],
+                   sl_replay_s=[s["sl_replay"] for _, s in run["details"]],
+                   sl_replay_share=shares,
+                   n_active=[r.metrics["n_active"] for r in reps],
+                   bits=[r.bits for r in reps],
+                   erased_bits=[r.erased_bits for r in reps],
+                   status_counts=[r.metrics["fleet"]["status_counts"]
+                                  for r in reps],
+                   launches_round=run["rounds"], launches_eval=run["evals"])
+        for c, r in enumerate(reps):
+            print(f"fleet synthetic n={n} round {c}: {run['walls'][c]:.3f} s"
+                  f" (round {rec['round_s'][c]:.3f} s, SL replay "
+                  f"{rec['sl_replay_s'][c]:.3f} s = {shares[c]:.3f}); "
+                  f"n_active {rec['n_active'][c]}; bits {r.bits}; erased "
+                  f"{r.erased_bits}; {rec['status_counts'][c]} "
+                  f"({card_name})", flush=True)
+        print(f"fleet synthetic n={n}: steady {rec['steady_s']:.3f} s per "
+              f"round over rounds 1..{rounds - 1}", flush=True)
+        if any(r != (0, 0, 0) for r in run["rounds"]) or \
+                any(e != (0, 1, 1) for e in run["evals"]):
+            failures.append(f"synthetic n={n}: launches per round "
+                            f"{run['rounds']}, per eval {run['evals']}")
+        if n == 10_000:
+            cpu = _fleet_run(fleet(n, "cpu"), 1, seed, data)
+            det, cdet = run["details"][0][0], cpu["details"][0][0]
+            equal = _bills(run["exp"])[:1] == _bills(cpu["exp"]) and all(
+                np.array_equal(det[k], cdet[k], equal_nan=True)
+                for k in ("status", "bits", "n_tx", "energy_j",
+                          "erased_bits", "weight", "est_round_s",
+                          "drop_frac"))
+            rec["cpu_round0_equal"] = equal
+            rec["cpu_round_s"] = cpu["walls"][0]
+            print(f"fleet synthetic n={n} round 0 on the CPU: bills and "
+                  f"per-client detail equal {equal} "
+                  f"({cpu['walls'][0]:.3f} s)", flush=True)
+            if not equal:
+                failures.append(f"synthetic n={n}: card and CPU bills differ")
+        summary[f"synthetic_{n}"] = rec
+    return summary, failures
+
+
+def fleet_launch(seed: int, card_name: str) -> tuple:
+    """Phase 10 (d): `launch/train.py --fleet-*` on the card, 2 rounds
+    each: a 6-client FL fleet (engine `fleet`, 4 a round: the training
+    plane, one group, so K1 once a round) and a synthetic fleet of
+    LAUNCH_FLEET clients, 30 % SL. Returns (summary, failures)."""
+    from repro_torch.launch import train
+    common = ["--arch", "paper-tinylstm", "--steps", "2", "--seed",
+              str(seed), "--n-train", str(FLEET_N_TRAIN), "--n-test",
+              str(FLEET_N_TEST)]
+    runs = {"fl_6_fleet": ["--fleet-size", "6", "--fleet-engine", "fleet",
+                           "--fleet-sample", "4"],
+            f"synthetic_{LAUNCH_FLEET}": [
+                "--fleet-size", str(LAUNCH_FLEET), "--fleet-engine",
+                "synthetic", "--fleet-sl-frac", "0.3", "--fleet-sample",
+                "0"]}
+    summary, failures = {}, []
+    for name, argv in runs.items():
+        n0 = _tiny_counts()
+        t0 = time.perf_counter()
+        out = train.main(common + argv)
+        secs = time.perf_counter() - t0
+        k = tuple(b - a for a, b in zip(n0, _tiny_counts()))
+        exp = out["experiment"]
+        scheme = exp.scheme
+        reps = exp.reports
+        ok = (scheme.device.type == "cuda" and len(reps) == 2
+              and all(math.isfinite(a) for a in out["result"].accuracy)
+              and all(math.isfinite(r.bits) and r.bits > 0 for r in reps))
+        if name == "fl_6_fleet":
+            # one group, 4 of 6 clients a round; FL evaluates with no wire
+            ok = ok and scheme.train_on and k == (2, 2, 2) and all(
+                r.metrics["n_active"] == 4 for r in reps)
+        else:
+            ok = ok and not scheme.train_on and all(
+                sum(r.metrics["fleet"]["status_counts"].values())
+                == LAUNCH_FLEET for r in reps)
+        print(f"launch.train {name}: {secs:.1f} s; bits per round "
+              f"{[r.bits for r in reps]}; (K1, K3, K4) {k}; accuracy "
+              f"{out['result'].accuracy}; ok {ok} ({card_name})", flush=True)
+        summary[name] = dict(wall_s=secs, bits=[r.bits for r in reps],
+                             launches=k, ok=ok)
+        if not ok:
+            failures.append(f"launch.train {name}: {summary[name]}")
+    return summary, failures
+
+
+def fleet_phase(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 10: engine parity, kill and resume, and the synthetic fleet
+    on the card (counters set to 0 before, read after; K1's, K3's and
+    K4's launches by shape into `shapes`). Returns ({kernel name:
+    launches}, summary, failures)."""
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.kernels.prefill_attention import ops as pre
+    counters = dict(_wire_counters(), conv_pool=cp.user_conv_pool,
+                    lstm_final_state=lc.lstm_final_state,
+                    decode_attention=dec.gqa_decode,
+                    paged_decode_attention=dec.gqa_decode_paged,
+                    prefill_attention=pre.gqa_prefill,
+                    paged_prefill_attention=pre.gqa_prefill_paged)
+    for f in counters.values():
+        f.launches = 0
+    summary, failures, secs = {}, [], {}
+    with launch_shapes({}) as phase_shapes:
+        for part, fn in (("parity", fleet_parity), ("resume", fleet_resume),
+                         ("scale", fleet_scale),
+                         ("launch", fleet_launch)):
+            t0 = time.perf_counter()
+            summary[part], f = fn(seed, card_name)
+            secs[part] = time.perf_counter() - t0
+            failures += f
+    launches = {k: f.launches for k, f in counters.items()}
+    failures += merge_shapes(shapes, phase_shapes, launches, "fleets")
+    attn = {k: launches[k] for k in ("decode_attention",
+                                     "paged_decode_attention",
+                                     "prefill_attention",
+                                     "paged_prefill_attention")}
+    if any(attn.values()):
+        failures.append(f"fleets launched attention kernels {attn}")
+    for k in ("packed_wire_mean_2d", "quant_channel_2d",
+              "packed_wire_2d_philox"):
+        if launches[k]:
+            failures.append(f"{k} launched on the fleet path")
+    summary["seconds"] = secs
+    print(f"fleet phase parts: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}",
+          flush=True)
+    return launches, summary, failures
+
+
 # ------------------------------------------------------------------ main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2475,16 +2983,24 @@ def main() -> None:
     print(f"FL/SL options phase: {time.perf_counter() - t_opt:.1f} s; "
           f"launches {opt_launches}", flush=True)
     failures += opt_failures
-    # the paper path's launches: phases 5, 7, 8 and 9 together
+    t_fleet = time.perf_counter()
+    fleet_launches, fleet_summary, fleet_failures = fleet_phase(
+        args.seed, card, shapes)
+    print(f"fleets, faults and resume phase: "
+          f"{time.perf_counter() - t_fleet:.1f} s; launches "
+          f"{fleet_launches}", flush=True)
+    failures += fleet_failures
+    # the paper path's launches: phases 5, 7, 8, 9 and 10 together
     for r in wire_rows + tiny_rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in (
-            train_launches, priv_launches, tiny_launches, opt_launches))
+            train_launches, priv_launches, tiny_launches, opt_launches,
+            fleet_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
     shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
               for k, c in shapes.items()}
-    print(f"launches by shape over phases 5, 7, 8 and 9: {shapes}",
+    print(f"launches by shape over phases 5, 7, 8, 9 and 10: {shapes}",
           flush=True)
     rows += wire_rows + tiny_rows
     if args.out:
@@ -2500,6 +3016,7 @@ def main() -> None:
                                    "privacy": priv_summary,
                                    "tiny_serve": tiny_serve_summary,
                                    "options": opt_summary,
+                                   "fleets": fleet_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

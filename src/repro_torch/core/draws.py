@@ -13,6 +13,15 @@ draws (the parity tests do). The names a send uses:
   "ge_chain"  [n_packets, n] uniforms           Gilbert-Elliott steps
   "normal"    [*leaf.shape] standard normals    DP-FedAvg noise (core/dp.py)
 
+Fleets (schemes/faults.py, schemes/population.py) draw on their own
+streams under their own names:
+
+  "fault_outage"   [n] uniforms in [0, 1)   whole-cycle outages
+  "fault_dropout"  [n] uniforms in [0, 1)   mid-round dropouts
+  "fault_frac"     [n] uniforms in [0, 1)   how far a dropout got
+  "participation"  k of n indices (`choice`) or [n] bools (`bernoulli`)
+  "jitter"         [n] standard normals     deadline compute jitter
+
 The packed wire (core/wire.py) draws "arq" (its per-packet fades, with
 or without ARQ), "flip" ([n, R, C] words), the Gilbert-Elliott names
 and, behind the in-kernel generator flag, "kernel_seed" (one word).
@@ -57,6 +66,15 @@ class Draws:
     def normal(self, name: str, shape):
         return torch.randn(tuple(shape), generator=self.generator,
                            dtype=torch.float32)
+
+    def choice(self, name: str, n: int, k: int) -> torch.Tensor:
+        """k distinct indices of range(n), in draw order."""
+        return torch.randperm(n, generator=self.generator)[:k]
+
+    def bernoulli(self, name: str, p: float, shape) -> torch.Tensor:
+        """Bools, each True with probability p."""
+        return torch.rand(tuple(shape), generator=self.generator,
+                          dtype=torch.float32) < p
 
     def bit_error_prob(self, snr_db, f2) -> torch.Tensor:
         """p of each packet from its fade: the port's own BPSK formula."""
@@ -108,6 +126,14 @@ class KeyDraws(Draws):
     def normal(self, name: str, shape):
         self.generator = self._gen(name)
         return super().normal(name, shape)
+
+    def choice(self, name: str, n: int, k: int):
+        self.generator = self._gen(name)
+        return super().choice(name, n, k)
+
+    def bernoulli(self, name: str, p: float, shape):
+        self.generator = self._gen(name)
+        return super().bernoulli(name, p, shape)
 
 
 SPLIT_FOLD = -1     # path element that marks `Key.split`'s children

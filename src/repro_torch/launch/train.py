@@ -3,30 +3,52 @@ path of `repro/launch/train.py`:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
         --mode fl --steps 160
+    # a 10,000-client synthetic fleet, 3 rounds (the billing plane)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
+        --fleet-size 10000 --fleet-sl-frac 0.3 --fleet-sample 0 --steps 3
+    # snapshot every cycle; a rerun with the same --ckpt-dir resumes
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
+        --mode fl --steps 320 --ckpt-dir ck --ckpt-every 1
 
 runs `build_scheme(...)` + `Experiment` on the sentiment corpus at the
 paper's size (24,576 training / 2,560 test rows unless `--n-train`/
 `--n-test` say otherwise) with the paper's lr schedule, and prints each
-cycle's loss, test accuracy and bill. `--steps` is the target TOTAL
+cycle's loss, test accuracy and bill (every `--log-every` cycles, and
+the last). `--steps` is the target TOTAL
 optimizer steps per client; a CL/SL cycle is one corpus epoch, an FL
-cycle J local epochs. Runs on the GPU by default and raises without one
-(`--device cpu` runs the plain versions). Weights are drawn from
-`--seed`. The scaled architectures, fleets and checkpointing are still
-to port and raise.
+cycle J local epochs, a fleet round one cycle per step.
+
+`--fleet-size N` runs an N-client fleet instead of the single-link
+schemes: `--fleet-engine synthetic` (default) a `ClientBatch` with no
+per-client Python objects (the billing plane, 10^5 clients and more),
+`loop` the per-client `PopulationScheme`, `fleet` the struct-of-arrays
+`FleetScheme` on the same specs (bills equal to the loop's), `auto` the
+loop; `--fleet-sl-frac` of the clients run SL, `--fleet-sample k`
+samples k clients a round (0 = all). Fleet rounds print their status
+counts. `--ckpt-dir` snapshots the whole run every `--ckpt-every`
+cycles (checkpoint/ckpt.py) and, when the directory already holds a
+snapshot, resumes from the latest one, bit for bit.
+
+Runs on the GPU by default and raises without one (`--device cpu` runs
+the plain versions). Weights are drawn from `--seed`. The scaled
+architectures are still to port and raise.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 
 import numpy as np
 
+from repro_torch.checkpoint.ckpt import latest_experiment_cycle
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import WirelessConfig
 from repro_torch.nn import resolve_device
-from repro_torch.schemes import BATCH, N_TEST, N_TRAIN, Experiment, \
-    build_scheme
+from repro_torch.schemes import (BATCH, N_TEST, N_TRAIN, ClientBatch,
+                                 ClientSpec, Experiment,
+                                 ParticipationPolicy, build_scheme, corpus)
 
 
 def parse_args(argv=None):
@@ -44,8 +66,27 @@ def parse_args(argv=None):
                     choices=["float32", "int8", "int4"],
                     help="FL sync codeword container (int4: two "
                          "codewords/byte, needs --quant-bits<=4)")
+    ap.add_argument("--fleet-size", type=int, default=0,
+                    help="run an N-client fleet of the paper's model "
+                         "instead of the single-link schemes (one cycle "
+                         "per --steps step)")
+    ap.add_argument("--fleet-engine", default="synthetic",
+                    choices=["auto", "loop", "fleet", "synthetic"],
+                    help="loop = per-client PopulationScheme, fleet = "
+                         "FleetScheme on the same specs (bills equal to "
+                         "loop), synthetic = a ClientBatch with no "
+                         "per-client Python objects, auto = loop")
+    ap.add_argument("--fleet-sl-frac", type=float, default=0.0,
+                    help="fraction of fleet clients on the SL paradigm")
+    ap.add_argument("--fleet-sample", type=int, default=8,
+                    help="uniform-k participation per round (0 = all)")
     ap.add_argument("--n-train", type=int, default=N_TRAIN)
     ap.add_argument("--n-test", type=int, default=N_TEST)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="checkpoint every k cycles")
+    ap.add_argument("--log-every", type=int, default=1,
+                    help="print every k cycles")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -64,6 +105,32 @@ def build_wcfg(args):
                           quant_bits=args.quant_bits)
 
 
+def build_fleet(args, device, data):
+    """The `--fleet-*` fleet: a synthetic ClientBatch, or loop-expressible
+    specs that share one batch-sized shard (so the corpus bounds the
+    shard, not the fleet size), the first `--fleet-sl-frac` of them SL."""
+    kwargs = {}
+    if args.fleet_sample > 0:
+        kwargs["policy"] = ParticipationPolicy.uniform(
+            min(args.fleet_sample, args.fleet_size))
+    base = WirelessConfig(mode="fl", snr_db=args.snr_db,
+                          quant_bits=args.quant_bits)
+    if args.fleet_engine == "synthetic":
+        batch = ClientBatch.synthetic(args.fleet_size, seed=args.seed,
+                                      quant_bits=args.quant_bits,
+                                      sl_frac=args.fleet_sl_frac)
+        return build_scheme(base, clients=batch, device=device, **kwargs)
+    (xtr, ytr), _ = data
+    shard = (xtr[:BATCH], ytr[:BATCH])
+    n_sl = int(round(args.fleet_size * args.fleet_sl_frac))
+    specs = [(ClientSpec.sl(base, shard=shard, quant_bits=16,
+                            name=f"sl{i}") if i < n_sl else
+              ClientSpec.fl(base, shard=shard, name=f"fl{i}"))
+             for i in range(args.fleet_size)]
+    return build_scheme(base, clients=specs, engine=args.fleet_engine,
+                        device=device, **kwargs)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = get_arch(args.arch)
@@ -72,36 +139,60 @@ def main(argv=None) -> dict:
             f"training {args.arch!r} (family {cfg.family!r}) is not ported "
             f"yet; the port trains paper-tinylstm (see ROADMAP.md, P15)")
     device = resolve_device(args.device)
-    scheme = build_scheme(build_wcfg(args), device=device)
-    if args.mode == "fl":
-        spc = args.local_steps * (args.n_train // args.n_users // BATCH)
+    data = corpus(args.n_train, args.n_test, args.seed)
+    if args.fleet_size > 0:
+        scheme = build_fleet(args, device, data)
+        spc = 1                  # one communication cycle per step
     else:
-        spc = args.n_train // BATCH
+        scheme = build_scheme(build_wcfg(args), device=device)
+        if args.mode == "fl":
+            spc = args.local_steps * (args.n_train // args.n_users // BATCH)
+        else:
+            spc = args.n_train // BATCH
     cycles = max(1, math.ceil(args.steps / max(spc, 1)))
     history = []
     t0 = time.time()
 
     def on_cycle(cyc, acc, rep):
+        if cyc % args.log_every and cyc != cycles - 1:
+            return
         dt = (time.time() - t0) / (cyc + 1)
+        extra = ""
+        if "fleet" in rep.metrics:   # streamed fleet summaries
+            counts = rep.metrics["fleet"]["status_counts"]
+            extra = "  [" + " ".join(
+                f"{k}={v}" for k, v in sorted(counts.items())) + "]"
         print(f"cycle {cyc:4d}  loss {rep.loss:.4f}  acc {acc:.3f}  "
               f"bits {rep.bits:.3e}  n_tx {rep.n_tx:.0f}  "
-              f"energy {rep.energy_j:.3e} J  ({dt:.2f}s/cycle)", flush=True)
+              f"energy {rep.energy_j:.3e} J  ({dt:.2f}s/cycle){extra}",
+              flush=True)
         history.append({"cycle": cyc, "loss": rep.loss, "acc": acc,
                         "bits": rep.bits})
         if not np.isfinite(rep.loss):
             raise FloatingPointError(f"loss diverged at cycle {cyc}")
 
+    resume = None
+    if args.ckpt_dir and latest_experiment_cycle(args.ckpt_dir) is not None:
+        resume = args.ckpt_dir
+        print(f"resuming from cycle "
+              f"{latest_experiment_cycle(args.ckpt_dir)} "
+              f"({os.path.abspath(args.ckpt_dir)})", flush=True)
     exp = Experiment(scheme, cycles=cycles, seed=args.seed,
-                     n_train=args.n_train, n_test=args.n_test,
-                     on_cycle=on_cycle)
+                     n_train=args.n_train, n_test=args.n_test, data=data,
+                     on_cycle=on_cycle,
+                     checkpoint_dir=args.ckpt_dir or None,
+                     checkpoint_every=(args.ckpt_every if args.ckpt_dir
+                                       else 0),
+                     resume_from=resume)
     res = exp.run()
     init_bits = exp.init_delivery.bits if exp.init_delivery else 0.0
     print(f"done: {cycles} cycles on {device}, final acc "
           f"{res.final_accuracy:.3f}, total bits {res.total_bits:.3e} "
           f"(init {init_bits:.3e}), "
           f"energy {sum(r.energy_j for r in exp.reports):.3e} J")
-    return {"history": history, "final_loss": history[-1]["loss"],
-            "result": res,
+    final_loss = (history[-1]["loss"] if history
+                  else (res.loss[-1] if res.loss else 0.0))
+    return {"history": history, "final_loss": final_loss, "result": res,
             "experiment": exp}
 
 

@@ -1,14 +1,23 @@
-"""The paper's CL/FL/SL schemes behind one interface (tiny model)."""
+"""The paper's CL/FL/SL schemes, heterogeneous populations and large
+fleets behind one interface (tiny model)."""
 from repro_torch.schemes.base import (BATCH, CFG, LR0, MOMENTUM, N_TEST,
-                                      N_TRAIN, RoundReport, RunResult,
-                                      SchemeState, corpus, lr_at)
+                                      N_TRAIN, ClientReport, RoundReport,
+                                      RunResult, SchemeState, corpus, lr_at)
 from repro_torch.schemes.centralized import CentralizedScheme
+from repro_torch.schemes.faults import FaultPlan
 from repro_torch.schemes.federated import FederatedScheme
+from repro_torch.schemes.fleet import ClientBatch, FleetScheme
+from repro_torch.schemes.population import (ClientSpec, ParticipationPolicy,
+                                            PopulationScheme,
+                                            aggregate_weighted)
 from repro_torch.schemes.radio import Delivery, Radio
 from repro_torch.schemes.run import Experiment, build_scheme
 from repro_torch.schemes.split import SplitScheme, evaluate_sl
 
 __all__ = ["BATCH", "CFG", "LR0", "MOMENTUM", "N_TEST", "N_TRAIN",
-           "RoundReport", "RunResult", "SchemeState", "corpus", "lr_at",
-           "CentralizedScheme", "FederatedScheme", "Delivery", "Radio",
-           "Experiment", "build_scheme", "SplitScheme", "evaluate_sl"]
+           "ClientReport", "RoundReport", "RunResult", "SchemeState",
+           "corpus", "lr_at", "CentralizedScheme", "FaultPlan",
+           "FederatedScheme", "ClientBatch", "FleetScheme", "ClientSpec",
+           "ParticipationPolicy", "PopulationScheme", "aggregate_weighted",
+           "Delivery", "Radio", "Experiment", "build_scheme", "SplitScheme",
+           "evaluate_sl"]

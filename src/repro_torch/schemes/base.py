@@ -169,16 +169,45 @@ class RunResult:
 
 
 @dataclasses.dataclass
+class ClientReport:
+    """One client's slice of a population round
+    (schemes/population.py): `bits` / `n_tx` / `energy_j` crossed THIS
+    client's own Radio; `weight` is its sample-count aggregation weight,
+    renormalized over the round's participants (0 for a client that sat
+    the round out). `status`: "ok", "sampled_out" (the participation
+    policy left it out), "straggler" (its estimated round time passed
+    the deadline), "erased" (a FaultPlan outage, or its upload erased
+    under bounded ARQ) or "dropped_midround" (a FaultPlan death part of
+    the way through its upload). `est_round_s` is the deadline model's
+    estimate; `erased_bits` the attempted-but-undelivered slice of
+    `bits`."""
+    name: str
+    paradigm: str           # "fl" | "sl" | "cl"
+    loss: float
+    steps: int              # optimizer steps this client took this round
+    bits: float = 0.0
+    n_tx: float = 0.0
+    energy_j: float = 0.0
+    weight: float = 0.0
+    status: str = "ok"
+    est_round_s: float = 0.0
+    erased_bits: float = 0.0
+
+
+@dataclasses.dataclass
 class RoundReport:
     """Accounting of ONE communication cycle: `n_tx` is the DRAWN
     transmission count (the fused SL path replays its per-step draws,
-    `split.sl_cycle_drawn_diag`)."""
+    `split.sl_cycle_drawn_diag`). For a population round the fields are
+    fleet totals (`loss` the weighted mean) and `clients` holds one
+    `ClientReport` per client in population order."""
     loss: float
     steps: int
     bits: float = 0.0
     n_tx: float = 0.0
     energy_j: float = 0.0
     metrics: dict = dataclasses.field(default_factory=dict)
+    clients: tuple = ()
     erased_bits: float = 0.0
     outage_s: float = 0.0
 

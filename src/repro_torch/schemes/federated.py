@@ -60,6 +60,34 @@ def draw_local_epochs(xu, yu, local_epochs: int, rng):
     return toks, labs
 
 
+def fl_local_phase(train_states, batch, key, lr, prox_mu: float = 0.0,
+                   anchor=None):
+    """The FL round's local phase (Alg. 1 lines 3-7) for ONE group of
+    users: J local steps per user from the group's stacked TrainState.
+    Batch leaves are [N, J, B, ...] tensors on the states' device. The
+    tiny model's local step draws nothing, so `key` is unused; it keeps
+    the JAX package's signature for a step that draws.
+    `PopulationScheme` drives heterogeneous FL sub-populations through
+    this same body."""
+    del key
+    if prox_mu:
+        local_step = make_local_step_tiny(
+            CFG, None, lr, MOMENTUM, prox_mu=prox_mu,
+            anchor={"model": anchor, "codec": {}})
+    else:
+        local_step = _local_step(lr)
+    return FED.local_steps_vmapped(local_step, train_states, batch)
+
+
+def fl_upload(radio, key, user_params):
+    """The FL round's quantized sync upload (Alg. 1 lines 8-11): a
+    group's whole stacked model through ONE packed-wire pass (one K1
+    launch on the card) on the group's own Radio, drawn on
+    key.fold_in(999). The Delivery carries the per-user split."""
+    return radio.send_stacked(key.fold_in(SYNC_KEY_FOLD).draws(),
+                              user_params)
+
+
 def flat_uploads(received, pre_broadcast) -> np.ndarray:
     """[N, P] received weight deltas (against the cycle's broadcast
     weights), leaves in the tree's order: the FL privacy observation."""
@@ -152,14 +180,8 @@ class FederatedScheme:
         tb = {k: torch.from_numpy(v).to(self.device)
               for k, v in batch.items()}
         # --- local phase (Alg. 1 lines 3-7), one user after another
-        if self.prox_mu:
-            local_step = make_local_step_tiny(
-                CFG, None, lr, MOMENTUM, prox_mu=self.prox_mu,
-                anchor={"model": broadcast, "codec": {}})
-        else:
-            local_step = _local_step(lr)
-        states, metrics = FED.local_steps_vmapped(local_step, state.train,
-                                                  tb)
+        states, metrics = fl_local_phase(state.train, tb, key, lr,
+                                         self.prox_mu, broadcast)
         # --- quantized channel upload + aggregation (lines 8-17)
         user_params = states.trainable["model"]
         kch = key.fold_in(SYNC_KEY_FOLD)
@@ -174,7 +196,7 @@ class FederatedScheme:
                     * self.radio.expected_tx())
             bits, energy = float(bits), self.radio.energy_j(bits)
         else:
-            dlv = self.radio.send_stacked(kch.draws(), user_params)
+            dlv = fl_upload(self.radio, key, user_params)
             if self.capture:
                 fl_capture(self.captures, dlv.payload, broadcast,
                            [batch["tokens"][u]

@@ -226,7 +226,7 @@ class Radio:
         bits = float(row_bits * n_tx.sum())
         erased_bits = float(row_bits * (n_tx * erased).sum())
         if erased.any():
-            er = torch.as_tensor(erased)
+            er = torch.as_tensor(erased, device=payload.device)
             payload = torch.where(er[:, None] if tokens.ndim > 1 else er[0],
                                   0, payload)
         return Delivery(

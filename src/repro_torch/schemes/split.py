@@ -48,6 +48,12 @@ EVAL_KEY = 999     # slice i of the test set is scored on Key(999 + i)
 CAPTURE_FOLD = 12345   # a fused capture sends on its step key's fold
 
 
+def _wcfg_key(wcfg) -> tuple:
+    """A WirelessConfig as a sorted, hashable tuple of its fields (the
+    fleet engine's config table is keyed on it)."""
+    return tuple(sorted(dataclasses.asdict(wcfg).items()))
+
+
 def sl_train_step(wcfg, lr: float):
     """The fused SL train step at learning rate `lr`."""
     step = make_train_step(CFG, train_shape(), wcfg, optimizer="sgd",

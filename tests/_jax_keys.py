@@ -4,10 +4,15 @@ port's `core.draws.Key`: it folds like a JAX key, and its `draws()`
 answer each draw name with the numbers the JAX package draws from that
 key for one crossing — (kf, kb) = split(key); fades ("fade", "arq")
 from kf, the flip words ("flip") from kb, the Gilbert-Elliott chain
-from split(fold_in(kf, 77)), normals ("normal") from the key itself —
-and each packet's bit error probability with the JAX package's own
-float32 erfc. `split(n)` is `jax.random.split`. `JaxServeDraws` hands
-the JAX serving engine's draws to the port's `ServeEngine`."""
+from split(fold_in(kf, 77)), normals ("normal", "jitter") from the key
+itself — and each packet's bit error probability with the JAX package's
+own float32 erfc. A FaultPlan's uniforms ("fault_outage",
+"fault_dropout", "fault_frac") are the three children of split(key, 3);
+participation is `jax.random.choice(key, n, (k,), replace=False)` or
+`jax.random.bernoulli(key, p, (n,))`. `split(n)` is `jax.random.split`.
+`JaxServeDraws` hands the JAX serving engine's draws to the port's
+`ServeEngine`. `port_train_state` and `port_pop_state` turn the JAX
+package's initial states into the port's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +27,12 @@ class JaxDraws:
     def __init__(self, key):
         self.key = key
 
+    FAULT_NAMES = ("fault_outage", "fault_dropout", "fault_frac")
+
     def _key(self, name):
+        if name in self.FAULT_NAMES:
+            return jax.random.split(self.key, 3)[
+                self.FAULT_NAMES.index(name)]
         kf, kb = jax.random.split(self.key)
         if name in ("fade", "arq"):
             return kf
@@ -45,6 +55,14 @@ class JaxDraws:
         leaf's noise per child key of `JaxKey.split`)."""
         return torch.from_numpy(np.array(jax.random.normal(
             self.key, tuple(shape), jnp.float32)))
+
+    def choice(self, name, n, k):
+        return torch.from_numpy(np.array(jax.random.choice(
+            self.key, n, (k,), replace=False)))
+
+    def bernoulli(self, name, p, shape):
+        return torch.from_numpy(np.array(jax.random.bernoulli(
+            self.key, p, tuple(shape))))
 
     def bit_error_prob(self, snr_db, f2):
         f2 = np.asarray(f2.cpu() if torch.is_tensor(f2) else f2,
@@ -130,3 +148,35 @@ class JaxServeDraws:
         k = jax.random.fold_in(jax.random.fold_in(self._req(rid), 9), t)
         return torch.from_numpy(np.array(
             jax.random.gumbel(k, (vocab,), jnp.float32)))
+
+
+# ------------------------------------------------ the JAX package's states
+def _torch_tree(tree):
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def port_train_state(js):
+    """A JAX TrainState of one user as the port's."""
+    from repro_torch.optim import SGDState
+    from repro_torch.runtime.train_step import TrainState
+    return TrainState(_torch_tree(js.trainable),
+                      SGDState(_torch_tree(js.opt_state.velocity),
+                               int(np.asarray(js.opt_state.step).reshape(
+                                   -1)[0])),
+                      int(np.asarray(js.step).reshape(-1)[0]))
+
+
+def port_pop_state(jpop, like):
+    """The JAX PopulationScheme's initial `_PopState` as the port's
+    (`like`, the port's own initial one, gives the group sizes)."""
+    import dataclasses
+    from repro_torch.core import federated as FED
+    groups = [FED.broadcast_state(port_train_state(jax.tree.map(
+        lambda a: a[0], g)), int(jax.tree.leaves(g)[0].shape[0]))
+        for g in jpop.groups]
+    assert len(groups) == len(like.groups)
+    return dataclasses.replace(
+        like, groups=groups,
+        sl_states=[port_train_state(s) for s in jpop.sl_states],
+        cl_states=[port_train_state(s) for s in jpop.cl_states],
+        global_trainable=_torch_tree(jpop.global_trainable))

@@ -741,3 +741,141 @@ def test_tiny_forward_runs_the_kernels_only_without_grad(cuda_device):
         (n3 + 1, n4 + 1)
     torch.testing.assert_close(fast, plain.detach(), rtol=TINY_TOL,
                                atol=TINY_TOL)
+
+
+# ------------------------------------------------ fleets and resume
+def _mixed_population(dev, **kw):
+    from repro_torch.configs import WirelessConfig
+    from repro_torch.schemes import ClientSpec, PopulationScheme
+    base = WirelessConfig(mode="fl", quant_bits=8)
+    return PopulationScheme(None, [
+        ClientSpec.fl(base, snr_db=20.0), ClientSpec.fl(base, snr_db=6.0,
+                                                         quant_bits=4),
+        ClientSpec.sl(base, snr_db=12.0, quant_bits=16),
+        ClientSpec.sl(base, snr_db=20.0)], device=dev, **kw)
+
+
+def test_population_bills_on_card_equal_cpu(cuda_device):
+    """A 4-client population (2 FL groups, 2 SL clients of 1 step each)
+    for one cycle: the card bills exactly as the CPU, client by client,
+    and its round launches K1 once per FL group and twice per SL step."""
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.schemes import Experiment
+    exps = {}
+    for dev in ("cuda", "cpu"):
+        scheme = _mixed_population(dev)
+        launches = []
+        round_fn = scheme.round
+
+        def counted(*a, round_fn=round_fn, launches=launches):
+            n0 = qc.packed_wire_2d.launches
+            out = round_fn(*a)
+            launches.append(qc.packed_wire_2d.launches - n0)
+            return out
+        scheme.round = counted
+        exps[dev] = Experiment(scheme, cycles=1, seed=0, n_train=2048,
+                               n_test=256)
+        exps[dev].run()
+        exps[dev].launches = launches
+    card, cpu = exps["cuda"], exps["cpu"]
+    (rc,), (rh,) = card.reports, cpu.reports
+    assert (rc.bits, rc.n_tx, rc.energy_j) == (rh.bits, rh.n_tx, rh.energy_j)
+    assert rc.bits == 717_384 + 358_692 + 1_835_008 + 917_504
+    for c, h in zip(rc.clients, rh.clients):
+        assert (c.status, c.bits, c.n_tx, c.energy_j, c.weight, c.steps) \
+            == (h.status, h.bits, h.n_tx, h.energy_j, h.weight, h.steps)
+    assert card.launches == [2 + 2 * 2] and cpu.launches == [0]
+
+
+def test_fleet_training_plane_on_card_is_the_loop(cuda_device):
+    """An all-FL fleet of two groups, two of three clients a round, on the
+    fleet engine's training plane and under the loop engine on the card:
+    equal bills and losses, `torch.equal` global weights, and K1 once per
+    active group a round in both."""
+    from repro_torch.configs import WirelessConfig
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.nn import tree_leaves
+    from repro_torch.schemes import (ClientBatch, ClientSpec, Experiment,
+                                     FleetScheme, ParticipationPolicy,
+                                     PopulationScheme)
+    base = WirelessConfig(mode="fl", quant_bits=8)
+    specs = [ClientSpec.fl(base, snr_db=20.0), ClientSpec.fl(base, snr_db=20.0),
+             ClientSpec.fl(base, snr_db=6.0, quant_bits=4)]
+    policy = ParticipationPolicy.uniform(2)
+    runs = []
+    for scheme in (PopulationScheme(None, specs, policy=policy),
+                   FleetScheme(None, ClientBatch.from_specs(specs),
+                               policy=policy, train="on")):
+        launches = []
+        round_fn = scheme.round
+
+        def counted(*a, round_fn=round_fn, launches=launches):
+            n0 = qc.packed_wire_2d.launches
+            out = round_fn(*a)
+            launches.append(qc.packed_wire_2d.launches - n0)
+            return out
+        scheme.round = counted
+        exp = Experiment(scheme, cycles=2, seed=0, n_train=2048, n_test=256)
+        exp.run()
+        runs.append((exp, launches))
+    (el, kl), (ef, kf) = runs
+    assert [(r.bits, r.n_tx, r.energy_j, r.loss) for r in el.reports] == \
+        [(r.bits, r.n_tx, r.energy_j, r.loss) for r in ef.reports]
+    # clients 0 and 1 share a radio (group 0), client 2 is group 1
+    groups = [len({min(i, 2) for i, c in enumerate(r.clients)
+                   if c.steps > 0}) for r in el.reports]
+    assert kl == kf == groups
+    for a, b in zip(tree_leaves(ef.final_state.train.glob["model"]),
+                    tree_leaves(el.final_state.train.global_trainable[
+                        "model"])):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_resume_on_card_is_bit_for_bit(cuda_device, tmp_path):
+    """A FaultPlan population on the card for 2 cycles, straight and
+    killed after 1 then resumed: every report equal and every state
+    tensor `torch.equal`, back on the card."""
+    import dataclasses
+    from repro_torch.checkpoint import ckpt as CKPT
+    from repro_torch.schemes import Experiment, FaultPlan
+
+    def run(**kw):
+        scheme = _mixed_population("cuda", fault_plan=FaultPlan(
+            seed=0, p_outage=0.25, p_dropout=0.25))
+        exp = Experiment(scheme, cycles=kw.pop("cycles", 2), seed=0,
+                         n_train=2048, n_test=256, **kw)
+        return exp, exp.run()
+    e1, r1 = run()
+    run(cycles=1, checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    e3, r3 = run(resume_from=str(tmp_path))
+    assert r1.accuracy == r3.accuracy and r1.loss == r3.loss
+    assert r1.total_bits == r3.total_bits
+    assert [dataclasses.asdict(r) for r in e1.reports] == \
+        [dataclasses.asdict(r) for r in e3.reports]
+    a, b = [], []
+    CKPT._map_with_path(lambda k, x: a.append(x) or x, e1.final_state.train)
+    CKPT._map_with_path(lambda k, x: b.append(x) or x, e3.final_state.train)
+    tensors = [(x, y) for x, y in zip(a, b) if torch.is_tensor(x)]
+    assert len(a) == len(b) and tensors
+    for x, y in tensors:
+        assert y.device.type == "cuda" and torch.equal(x, y)
+
+
+def test_token_uplink_erasures_on_card_equal_cpu(cuda_device):
+    """The CL token uplink under bounded ARQ with erased rows (a CL
+    member of a faulty population): the card delivers the CPU's tokens,
+    erased rows as zeros, and the same bill."""
+    from repro_torch.core.draws import Key
+    from repro_torch.schemes.radio import Radio
+    radio = Radio(quant_bits=8, snr_db=4.0, arq_max_tx=3, ge_p_gb=0.2,
+                  arq_backoff_s=0.01)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 10_001, (64, 30)).astype(np.int32))
+    labels = torch.ones(64, dtype=torch.int32)
+    card = radio.send_tokens(Key(7).draws(), tokens.to(cuda_device),
+                             10_001, labels=labels)
+    cpu = radio.send_tokens(Key(7).draws(), tokens, 10_001, labels=labels)
+    assert any(cpu.user_erased)
+    assert torch.equal(card.payload.cpu(), cpu.payload)
+    assert (card.bits, card.n_tx, card.erased_bits, card.outage_s) == \
+        (cpu.bits, cpu.n_tx, cpu.erased_bits, cpu.outage_s)

@@ -363,18 +363,21 @@ def test_launch_train_runs_on_cpu_when_asked(capsys):
 
 
 def test_unported_paths_raise_and_name_the_roadmap():
-    """What is still to port raises and names its ROADMAP item:
-    populations and fleets, checkpointing and resume (P14), the scaled
-    schemes (P15). DP, FedProx, the median and sampling with replacement
-    run now (tests/test_torch_extensions.py)."""
+    """What is still to port raises and names its ROADMAP item: the
+    scaled schemes and the other families' training (P15). Populations,
+    fleets and checkpointing (P14) run now (tests/test_torch_population.py,
+    tests/test_torch_fleet.py, tests/test_torch_resume.py); DP, FedProx,
+    the median and sampling with replacement too
+    (tests/test_torch_extensions.py)."""
+    from repro_torch.launch import train
     for call, item in (
-            (lambda: build_scheme(WirelessConfig(mode="fl"), clients=[]),
-             "P14"),
             (lambda: build_scheme(WirelessConfig(mode="fl"),
                                   cfg=get_arch("qwen1.5-0.5b")), "P15"),
-            (lambda: Experiment(build_scheme(None, device="cpu"), 1,
-                                checkpoint_every=1).run(), "P14"),
-            (lambda: Experiment(build_scheme(None, device="cpu"), 1,
-                                resume_from="ckpt").run(), "P14")):
+            (lambda: train.main(["--arch", "qwen1.5-0.5b", "--device",
+                                 "cpu"]), "P15")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
             call()
+    # the P14 entry points answer now: an empty population is refused
+    # as the JAX package refuses it
+    with pytest.raises(ValueError, match="at least one"):
+        build_scheme(WirelessConfig(mode="fl"), clients=[], device="cpu")
