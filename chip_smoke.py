@@ -141,8 +141,33 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    and 10^5 (2 rounds) clients, printing seconds per round, the SL
    replay's share, n_active, bits and erased bits, with one 10^4 round
    again on the CPU, bit for bit. No attention kernel may launch;
-11. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5, 7, 8, 9 and 10 together; K1, K3 and K4
+11. trains qwen1.5-0.5b at full width and depth (24 layers, d_model
+   1024, vocab 151,936; random weights from --seed) through the scaled
+   schemes on the synthetic Zipf corpus (512 / 128 rows, seq 128, batch
+   8, lr 3e-4), counters set to 0 before and read after: CL (AdamW,
+   corpus over 20 dB) and SL (split 2, compress 4, Q8, 20 dB, AdamW), 2
+   cycles of 5 steps; FL (3 users, J 5, Q8, 20 dB, SGD) one barrier
+   cycle through K1, one through K2 (`use_kernel`) and 2 delayed cycles
+   at Q4 on the int4 wire. SL and the K2 cycle run through the training
+   CLI (`launch.train --arch qwen1.5-0.5b --mode sl|fl ...`), the others
+   through `build_scheme` + `Experiment`. It checks the bills (FL 3,711,901,696 bits a
+   user a Q8 cycle, 1,855,950,848 at int4, n_tx 42; SL 4,194,304 a step;
+   CL's corpus 1,179,648 once), K1 twice a SL step at [1024, 256] and
+   once an eval slice (counted apart), K1 once a K1 FL cycle at the
+   sync's [5,437,368, 256], K2 once a K2 cycle, no K3-K10 launch, every
+   loss finite and CL's and SL's last-cycle loss below their first
+   step's; it prints each run's seconds per cycle, the sync's seconds
+   and its host flip-word draws, the peak RSS, `max_memory_allocated`,
+   and the idle share of a traced CL step and FL cycle. Then the same
+   schemes at the reduced config on the card and the CPU (bills equal,
+   losses within 2e-3, accuracy within 0.01, an FL cycle's uploads
+   synced through K1 and K2 bit for bit with the CPU), and K2 at one
+   stacked [24, 1024, 1024] leaf of the sync (3 x 98,304 rows) and K1
+   at the SL leg against their plain versions, timed beside their
+   bounds; and K1 and K2 at the whole sync, [5,437,368, 256], timed and
+   held against their plain versions bit for bit, 65,536 rows a slab;
+12. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5, 7, 8, 9, 10 and 11 together; K1-K4
    also per timed shape, under "by_shape"), the card's name and power
    limit, and as the last line {"ok": true, "device": ...}.
 
@@ -165,10 +190,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores
-# 32-bit integer operations per second: 132 SMs x 64 INT32 lanes at the
-# 1,980 MHz boost clock (NVIDIA H100 whitepaper), every operation,
-# multiplies included, counted at one lane-cycle
-I32_OPS_PER_S = 132 * 64 * 1.98e9
+# instructions per second, in lanes: 132 SMs x 4 schedulers x 32 lanes
+# at the 1,980 MHz boost clock (NVIDIA H100 whitepaper). Integer work
+# shares two pipes, the ALU (logic, shifts, compares, adds) and the FMA
+# pipe (IMAD, and shifts or moves the compiler issues as IMAD), so no one
+# pipe's rate bounds it; the schedulers' issue rate does
+ISSUE_LANES_PER_S = 132 * 4 * 32 * 1.98e9
 L2_BYTES = 50 * 2 ** 20
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # first-chunk logits against the teacher-forced forward: 8 bf16 ulps at
@@ -232,13 +259,13 @@ def l2_copies(args) -> list:
 def bound_ms(nbytes: float, flops: float, dtype,
              int_ops: float = 0.0) -> tuple:
     """The least time of a call: bytes over HBM's rate, or its float
-    operations over their peak, or its 32-bit integer operations over
-    theirs (the float and integer lanes run side by side), whichever is
-    longest; and which of bytes and operations that is."""
+    operations over their peak, or its integer instructions (a lower
+    count) over the issue rate, whichever is longest; and which of bytes
+    and operations that is."""
     import torch
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(flops / peak, int_ops / I32_OPS_PER_S)
+    t_ops = max(flops / peak, int_ops / ISSUE_LANES_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -535,25 +562,25 @@ K6_P, K6_TOL = 0.05, 0.02
 
 
 def wire_int_ops(bits: int) -> int:
-    """32-bit integer operations the packed wire needs per element,
-    counted from its plain version (ref.py), not from compiled code.
-    fmix32's first step, x ^= x >> 16, distributes over the XOR with
-    the plane's constant, so it is taken once per word and each plane
-    XORs in a folded constant (bit for bit; tests/test_torch_kernel_
-    design.py). Per bit plane: that XOR, the rest of fmix32 (2 shifts,
-    2 XORs, 2 multiplies), the compare with the threshold, and the
-    shift and OR into the mask (10). Per element: the first xor-shift
-    (2), the float-to-int conversion, the code offset, the mask XOR,
-    the offset back, the two-sided clip and the int-to-float conversion
-    (7). The float work (a division, rint, a clip, a product: 5
-    operations) takes less than a tenth of the integer time at the
-    float rate, so it is not counted."""
-    return 10 * bits + 9
+    """The fewest integer instructions the packed wire can issue per
+    element, a lower count. fmix32's first step, x ^= x >> 16,
+    distributes over the XOR with the plane's constant (bit for bit;
+    tests/test_torch_kernel_design.py), so its shift is taken once per
+    word and each plane starts with one three-input XOR (LOP3) of the
+    word, its shift and the plane's folded constant. Per bit plane, 9:
+    that XOR, fmix32's two multiplies (IMAD) and two shift-XOR pairs
+    (SHF, LOP3), the compare with the threshold and its accumulation
+    into the mask. Per element, 3: the word's shift, the mask's XOR
+    onto the code and one instruction to form the code. Conversions,
+    the float work (a division, rint, a clip, a product) and addressing
+    are not counted."""
+    return 9 * bits + 3
 
 
-# Philox4x32-10 per 32-bit word (K6): 10 rounds of 2 low and 2 high
-# multiplies, 4 XORs and 2 key additions, for 4 words
-PHILOX_INT_OPS_PER_WORD = 10 * (4 + 4 + 2) / 4
+# Philox4x32-10 per 32-bit word (K6), a lower count: each of the 10
+# rounds issues two wide multiplies (IMAD.WIDE, both halves at once) and
+# two three-input XORs for 4 words; the key schedule is not counted
+PHILOX_INT_OPS_PER_WORD = 10 * (2 + 2) / 4
 
 
 def wire_inputs(rng, rows: int, bits: int, cols: int = 256):
@@ -663,6 +690,7 @@ def check_wire_kernels(seed: int) -> tuple:
     rows.append(dict(
         name="packed_wire_mean_2d", route="cuda", source=QC_SRC,
         replaces=f"{QC}:207", launches=None, max_abs_err=err2,
+        shape=[n * r, 256],
         **_timed(lambda *a: qc.packed_wire_mean_2d(*a, 8, n),
                  lambda *a: qref.packed_wire_mean_ref(*a, 8, n),
                  (buf, words, scale, p, w),
@@ -1249,16 +1277,17 @@ class _ShapeLog:
 
 @contextlib.contextmanager
 def launch_shapes(log: dict):
-    """While open, count K1's, K3's and K4's launches per input shape
-    into `log` ({row name: Counter}). The path reaches K1 through the
-    ops module (core/wire.py), K3 through models/lstm_tiny.py's own
-    import and K4 through `lstm_layer` in its ops module, so those three
-    names are swapped for `_ShapeLog`s."""
+    """While open, count K1's, K2's, K3's and K4's launches per input
+    shape into `log` ({row name: Counter}). The path reaches K1 and K2
+    through the ops module (core/wire.py), K3 through
+    models/lstm_tiny.py's own import and K4 through `lstm_layer` in its
+    ops module, so those four names are swapped for `_ShapeLog`s."""
     from collections import Counter
     from repro_torch.kernels.lstm_cell import ops as lc
     from repro_torch.kernels.quant_channel import ops as qc
     from repro_torch.models import lstm_tiny as LT
     sites = [(qc, "packed_wire_2d", "packed_wire_2d"),
+             (qc, "packed_wire_mean_2d", "packed_wire_mean_2d"),
              (LT, "user_conv_pool", "conv_pool"),
              (lc, "lstm_final_state", "lstm_final_state")]
     kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
@@ -2883,6 +2912,578 @@ def fleet_phase(seed: int, card_name: str, shapes: dict) -> tuple:
     return launches, summary, failures
 
 
+# ------------------------------------ qwen1.5-0.5b training (P15, dense)
+# phase 11. (a) qwen1.5-0.5b at full width and depth (24 layers, d_model
+# 1024, 16 heads, d_ff 2816, vocab 151,936; random weights from --seed)
+# on the synthetic Zipf corpus (512 / 128 rows, seq 128, batch 8, lr
+# 3e-4) through `build_scheme` + `Experiment` or the training CLI
+# (QWEN_CLI): CL (AdamW, corpus over a 20 dB link) and SL (split 2,
+# compress 4, Q8, 20 dB, AdamW), 2 cycles of 5 steps; FL (3 users, J 5,
+# Q8, 20 dB, SGD): one barrier cycle through K1, one with use_kernel
+# through K2, 2 delayed cycles at Q4 on the int4 wire. (b) the same schemes at the reduced config (2 layers, d_model
+# 256, vocab 1,024), 2 cycles on the card and on the CPU: bills equal,
+# losses within LOSS_TOL, accuracy within ACC_TOL; one more FL cycle's
+# uploads synced through K1 and K2 on the card and their plain versions
+# on the CPU, bit for bit. (c) K2 at one stacked [24, 1024, 1024] leaf of
+# the qwen sync and K1 at the SL leg, against their plain versions, timed;
+# K1 and K2 at the whole sync against theirs, slab by slab
+QWEN = "qwen1.5-0.5b"
+SCALED_N_TRAIN, SCALED_N_TEST, SCALED_STEPS = 512, 128, 5
+QWEN_PARAMS = 463_987_712
+QWEN_SL_STEP_BITS = 4_194_304      # 2 legs x 8 x 128 x 1024 / 4 x Q8
+QWEN_CL_BITS = 512 * 128 * 18      # 18-bit token ids (vocab 151,936)
+QWEN_LEAF_ROWS = 24 * 1024 * 1024 // 256      # one stacked attention leaf
+SYNC_SLAB_ROWS = 1 << 16     # rows a slab of the plain version at the sync
+ATTN_ROWS = ("decode_attention", "paged_decode_attention",
+             "prefill_attention", "paged_prefill_attention")
+
+
+def _scaled_runs() -> dict:
+    """name -> (WirelessConfig, scheme options, cycles) of phase 11."""
+    from repro_torch.configs import WirelessConfig
+    fl = dict(mode="fl", quant_bits=8, snr_db=20.0, n_users=3,
+              local_steps=5)
+    steps = dict(optimizer="adamw", steps_per_cycle=SCALED_STEPS)
+    return {
+        "cl": (WirelessConfig(mode="cl", snr_db=20.0), steps, 2),
+        "sl": (WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
+                              split_layer=2, compress_factor=4), steps, 2),
+        "fl_k1": (WirelessConfig(**fl), {}, 1),
+        "fl_k2": (WirelessConfig(use_kernel=True, **fl), {}, 1),
+        "fl_delayed_int4": (WirelessConfig(**dict(fl, quant_bits=4),
+                                           wire_dtype="int4",
+                                           sync="delayed"), {}, 2),
+    }
+
+
+# the runs driven through the training CLI (launch/train.py), as a user
+# types them: the flags give _scaled_runs()'s settings, which the run
+# checks on the scheme the CLI built
+QWEN_CLI = {
+    "sl": ["--mode", "sl", "--steps", str(2 * SCALED_STEPS), "--cycle-steps",
+           str(SCALED_STEPS), "--split-layer", "2"],
+    "fl_k2": ["--mode", "fl", "--steps", "5", "--use-kernel"],
+}
+
+
+def _all_counters() -> dict:
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.kernels.prefill_attention import ops as pre
+    return dict(_wire_counters(), conv_pool=cp.user_conv_pool,
+                lstm_final_state=lc.lstm_final_state,
+                decode_attention=dec.gqa_decode,
+                paged_decode_attention=dec.gqa_decode_paged,
+                prefill_attention=pre.gqa_prefill,
+                paged_prefill_attention=pre.gqa_prefill_paged)
+
+
+@contextlib.contextmanager
+def _sync_clock(log: dict):
+    """While open, add the synchronized wall seconds of every stacked
+    send (`wire.transmit_stacked` / `transmit_stacked_mean`, the FL
+    sync) and the host seconds of every flip-word draw
+    (`Draws.words_u32`) into `log`."""
+    import torch
+    from repro_torch.core import wire as W
+    from repro_torch.core.draws import Draws
+    kept = [(W, "transmit_stacked"), (W, "transmit_stacked_mean"),
+            (Draws, "words_u32")]
+    fns = [getattr(o, a) for o, a in kept]
+
+    def timed(fn, what, sync):
+        def call(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            log[what] = log.get(what, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+    W.transmit_stacked = timed(fns[0], "sync_s", True)
+    W.transmit_stacked_mean = timed(fns[1], "sync_s", True)
+    Draws.words_u32 = timed(fns[2], "words_host_s", False)
+    try:
+        yield log
+    finally:
+        for (o, a), f in zip(kept, fns):
+            setattr(o, a, f)
+
+
+def _peak_rss_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _counted(scheme, kinds: list, step_losses=None):
+    """Wrap `scheme.round` / `scheme.evaluate` (and `scheme._step`) so
+    every call appends (kind, launches by kernel, seconds) to `kinds`
+    (and each step's loss to `step_losses`)."""
+    import torch
+    counters = _all_counters()
+
+    def wrap(fn, kind):
+        def call(*a, **kw):
+            n0 = {k: f.launches for k, f in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            kinds.append((kind, {k: f.launches - n0[k]
+                                 for k, f in counters.items()},
+                          time.perf_counter() - t0))
+            return out
+        return call
+    scheme.round = wrap(scheme.round, "round")
+    scheme.evaluate = wrap(scheme.evaluate, "eval")
+    if step_losses is not None:
+        step = scheme._step
+
+        def logged(*a, **kw):
+            st, m = step(*a, **kw)
+            if not m["loss"].is_meta:     # not the FLOP count's pass
+                step_losses.append(float(m["loss"]))
+            return st, m
+        scheme._step = logged
+
+
+def _qwen_run(name: str, seed: int, card_name: str, profile_one: bool):
+    """One phase-11 run at full width on the card. Returns its record."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.schemes import Experiment, build_scheme
+    wcfg, opts, cycles = _scaled_runs()[name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kinds, losses, clock = [], [], {}
+    if name in QWEN_CLI:
+        from repro_torch.launch import train
+        kept = train.build_scheme
+
+        def counted_scheme(*a, **kw):
+            sch = kept(*a, **kw)
+            _counted(sch, kinds, losses if wcfg.mode != "fl" else None)
+            return sch
+        train.build_scheme = counted_scheme
+        try:
+            with _sync_clock(clock):
+                out = train.main(["--arch", QWEN, "--seed", str(seed)]
+                                 + QWEN_CLI[name])
+        finally:
+            train.build_scheme = kept
+        exp, res = out["experiment"], out["result"]
+        scheme = exp.scheme
+        del out
+        same = (scheme.wcfg == wcfg and len(exp.reports) == cycles
+                and all(getattr(scheme, k) == v for k, v in opts.items()))
+    else:
+        scheme = build_scheme(wcfg, cfg=get_arch(QWEN), device="cuda",
+                              **opts)
+        _counted(scheme, kinds, losses if wcfg.mode != "fl" else None)
+        exp = Experiment(scheme, cycles=cycles, seed=seed,
+                         n_train=SCALED_N_TRAIN, n_test=SCALED_N_TEST)
+        with _sync_clock(clock):
+            res = exp.run()
+        same = True
+    wall = time.perf_counter() - t0
+    if profile_one:
+        prof = _profile_scaled(exp, scheme, name, seed)
+    main, extra = kinds[:-1] if profile_one else kinds, \
+        kinds[-1:] if profile_one else []
+    rec = dict(bits=[r.bits for r in exp.reports],
+               n_tx=[r.n_tx for r in exp.reports],
+               loss=res.loss, accuracy=res.accuracy, step_losses=losses,
+               init_bits=(exp.init_delivery.bits if exp.init_delivery
+                          else None),
+               total_bits=res.total_bits,
+               round_s=[s for k, _, s in main if k == "round"],
+               eval_s=[s for k, _, s in main if k == "eval"],
+               rounds=[c for k, c, _ in main if k == "round"],
+               evals=[c for k, c, _ in main if k == "eval"],
+               profiled_rounds=[c for _, c, _ in extra],
+               wall_s=wall, max_memory_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, peak_rss_gib=_peak_rss_gib(),
+               user_flops=res.user_flops, server_flops=res.server_flops,
+               entry="launch.train" if name in QWEN_CLI else
+               "build_scheme + Experiment", settings_as_asked=same, **clock)
+    if profile_one:
+        rec["profile"] = prof
+    del exp, scheme
+    torch.cuda.empty_cache()
+    print(f"qwen {name} through {rec['entry']}: {cycles} cycles, "
+          f"{wall:.1f} s (round "
+          f"{[round(s, 3) for s in rec['round_s']]} s, eval "
+          f"{[round(s, 3) for s in rec['eval_s']]} s); sync "
+          f"{rec.get('sync_s', 0.0):.2f} s of which flip-word draws "
+          f"{rec.get('words_host_s', 0.0):.2f} s on the host; peak RSS "
+          f"{rec['peak_rss_gib']:.2f} GiB; max_memory_allocated "
+          f"{rec['max_memory_gib']:.2f} GiB; bits {rec['bits']}; n_tx "
+          f"{rec['n_tx']}; init {rec['init_bits']}; loss {res.loss} "
+          f"(steps {[round(x, 4) for x in losses]}); accuracy "
+          f"{res.accuracy} ({card_name})", flush=True)
+    return rec
+
+
+def _profile_scaled(exp, scheme, name: str, seed: int) -> dict:
+    """One more CL step (or FL cycle) from the run's final state under
+    torch.profiler, device activity only (an FL cycle launches ~130,000
+    kernels; host op events would multiply the trace's processing
+    time): the device's idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    state = exp.final_state
+    rng = np.random.default_rng(seed + 11)
+    batch = scheme.cycle_batches(state, rng, 99)
+    if scheme.mode == "cl":
+        batch = batch[:1]
+    key = scheme.round_key(seed, 99)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scheme.round(state, batch, key, 3e-4)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _idle_summary(prof, wall_us, f"qwen {name}, one "
+                         f"{'step' if scheme.mode == 'cl' else 'cycle'}")
+
+
+def _fl_sync_rows(n_users: int) -> int:
+    """K1's rows at qwen1.5-0.5b's FL sync: n_users x the plan's rows
+    (each leaf padded to whole 256-wide rows, the total to 8)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.schemes.scaled import packet_sizes
+    rows = sum(-(-int(s) // 256) for s in packet_sizes(get_arch(QWEN)))
+    return n_users * (-(-rows // 8) * 8)
+
+
+def _qwen_checks(runs: dict) -> list:
+    """The phase-11 gates on the full-width runs."""
+    import math
+    failures = []
+    k1, k2 = "packed_wire_2d", "packed_wire_mean_2d"
+
+    def want(name, ok, what):
+        if not ok:
+            failures.append(f"qwen {name}: {what}")
+    for name, r in runs.items():
+        want(name, all(math.isfinite(x) for x in r["loss"] + r["step_losses"]),
+             f"a loss is not finite {r['loss']}")
+        want(name, r["settings_as_asked"], f"{r['entry']} did not build "
+             f"the run's settings")
+        for c in r["rounds"] + r["evals"]:
+            want(name, not any(c[k] for k in ("conv_pool",
+                                              "lstm_final_state",
+                                              "quant_channel_2d",
+                                              "packed_wire_2d_philox")
+                                + ATTN_ROWS), f"K3-K10 launched: {c}")
+    cl, sl = runs["cl"], runs["sl"]
+    want("cl", cl["init_bits"] == QWEN_CL_BITS, f"init bits "
+         f"{cl['init_bits']}")
+    want("cl", all(c[k1] == c[k2] == 0 for c in cl["rounds"] + cl["evals"]),
+         "CL launched the wire")
+    want("sl", sl["bits"] == [SCALED_STEPS * QWEN_SL_STEP_BITS] * 2,
+         f"bits {sl['bits']}")
+    want("sl", all(c[k1] == 2 * SCALED_STEPS and c[k2] == 0
+                   for c in sl["rounds"]), "K1 not twice a step")
+    want("sl", all(c[k1] == SCALED_N_TEST // 8 for c in sl["evals"]),
+         "K1 not once an eval slice")
+    for name in ("cl", "sl"):
+        r = runs[name]
+        want(name, r["loss"][-1] < r["step_losses"][0],
+             f"loss did not drop {r['step_losses']}")
+    for name, bits, kern in (("fl_k1", 8, k1), ("fl_k2", 8, k2),
+                             ("fl_delayed_int4", 4, k1)):
+        r = runs[name]
+        per_user = [b / 3 for b in r["bits"]]
+        want(name, per_user == [float(bits * QWEN_PARAMS)] * len(r["bits"]),
+             f"bits per user {per_user}")
+        want(name, r["n_tx"] == [42.0] * len(r["bits"]), f"n_tx {r['n_tx']}")
+        other = k2 if kern == k1 else k1
+        want(name, all(c[kern] == 1 and c[other] == 0 for c in r["rounds"]),
+             f"{kern} not once a cycle: {r['rounds']}")
+        want(name, all(c[k1] == c[k2] == 0 for c in r["evals"]),
+             "an FL eval launched the wire")
+    return failures
+
+
+def _reduced_card_vs_cpu(seed: int, card_name: str) -> tuple:
+    """Phase 11 (b): CL, SL and FL (K1, K2) at the reduced config, 2
+    cycles on the card and on the CPU; then one FL cycle's uploads from
+    the card synced through K1 and K2 on both. Returns (summary,
+    failures)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.draws import Key
+    from repro_torch.nn import tree_leaves, tree_map
+    from repro_torch.runtime import fl_runtime as FL
+    from repro_torch.schemes import Experiment, build_scheme
+    cfg = get_arch(QWEN).reduced()
+    runs = _scaled_runs()
+    summary, failures = {}, []
+    for name in ("cl", "sl", "fl_k1", "fl_k2"):
+        wcfg, opts, _ = runs[name]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            exp = Experiment(build_scheme(wcfg, cfg=cfg, device=dev, **opts),
+                             cycles=2, seed=seed, n_train=128, n_test=32)
+            out[dev] = (exp, exp.run())
+        (ec, rc), (eh, rh) = out["cuda"], out["cpu"]
+        bills = [(r.bits, r.n_tx, r.erased_bits) for r in ec.reports] == \
+            [(r.bits, r.n_tx, r.erased_bits) for r in eh.reports] and \
+            (ec.init_delivery is None) == (eh.init_delivery is None) and \
+            (ec.init_delivery is None
+             or ec.init_delivery.bits == eh.init_delivery.bits)
+        dloss = max(abs(a - b) for a, b in zip(rc.loss, rh.loss))
+        dacc = max(abs(a - b) for a, b in zip(rc.accuracy, rh.accuracy))
+        summary[name] = dict(bills_equal=bills, loss_gap=dloss,
+                             accuracy_gap=dacc, loss=rc.loss,
+                             accuracy=rc.accuracy)
+        print(f"reduced {name}: card vs CPU bills equal {bills}, loss gap "
+              f"{dloss:.3e}, accuracy gap {dacc:.4f} ({card_name})",
+              flush=True)
+        if not bills or dloss > LOSS_TOL or dacc > ACC_TOL:
+            failures.append(f"reduced {name} card vs CPU: {summary[name]}")
+        if name == "fl_k1":
+            state = ec.final_state
+    key = Key(seed, 11)
+    # uploads: one more local phase from the card's state (the delayed
+    # step's new state is the unsynced local phase)
+    wcfg = runs["fl_k1"][0]
+    shape = build_scheme(wcfg, cfg=cfg, device="cpu").shape
+    step = FL.make_fl_train_step(cfg, shape, wcfg, n_users=3,
+                                 sync="delayed")
+    rng = np.random.default_rng(seed + 12)
+    x = rng.integers(1, cfg.vocab_size, (3, shape.global_batch,
+                                         shape.seq_len)).astype(np.int32)
+    b = {"tokens": torch.from_numpy(x).cuda(),
+         "labels": torch.from_numpy(x).cuda()}
+    carry, _ = step({"state": state.train, "agg":
+                     state.train.trainable["model"]}, b, key, 3e-4)
+    uploads = carry["state"].trainable["model"]
+    for kern, use_kernel in (("K1", False), ("K2", True)):
+        sync = FL.make_fl_sync(dataclasses.replace(
+            wcfg, use_kernel=use_kernel), 3)
+        on_card = sync(key, uploads, uploads)
+        cpu_up = tree_map(lambda a: a.cpu(), uploads)
+        on_cpu = sync(key, cpu_up, cpu_up)
+        equal = all(torch.equal(a.cpu(), c) for a, c in
+                    zip(tree_leaves(on_card), tree_leaves(on_cpu)))
+        summary[f"sync_{kern}_equal"] = equal
+        print(f"reduced FL sync through {kern} from the card's uploads, "
+              f"redone on the CPU: equal {equal}", flush=True)
+        if not equal:
+            failures.append(f"reduced FL sync {kern}: card != CPU")
+    return summary, failures
+
+
+def _sync_inputs(gen, rows: int, bits: int = 8):
+    """Packed-wire operands of `rows` rows made on the card from `gen`:
+    per-row scaled normals, 32-bit words as int32 patterns, each row's
+    amax scale and a p in [0, 0.1)."""
+    import torch
+    from repro_torch.core import quantization as Q
+    buf = torch.randn((rows, 256), device="cuda", generator=gen)
+    buf *= torch.rand((rows, 1), device="cuda", generator=gen) * 3 + 0.01
+    words = torch.empty((rows, 256), dtype=torch.int32, device="cuda") \
+        .random_(-2 ** 31, 2 ** 31 - 1, generator=gen)
+    scale = Q.scale_from_amax(buf.abs().amax(1, keepdim=True), bits)
+    p = torch.rand((rows, 1), device="cuda", generator=gen) * 0.1
+    return buf, words, scale.contiguous(), p
+
+
+def _events_ms(fn, reps: int = 3) -> float:
+    """Mean device time of `fn()` over `reps` calls between two CUDA
+    events (after one call to warm up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _slab_check(got, inputs, plain, rows: int) -> tuple:
+    """`got` [rows, 256] against `plain(*inputs(a, b))`, the plain version
+    on the operands of its rows a:b, slab by slab (the plain version's
+    temporaries at the whole size would not fit). Returns (equal,
+    max_abs_err, the plain slabs' summed device ms)."""
+    import torch
+    equal, err, ms = True, 0.0, 0.0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for a in range(0, rows, SYNC_SLAB_ROWS):
+        b = min(rows, a + SYNC_SLAB_ROWS)
+        args = inputs(a, b)
+        e0.record()
+        want = plain(*args)
+        e1.record()
+        e1.synchronize()
+        ms += e0.elapsed_time(e1)
+        equal = equal and bool(torch.equal(got[a:b], want))
+        err = max(err, float((got[a:b] - want).abs().max()))
+    return equal, err, ms
+
+
+def _qwen_kernels(seed: int) -> tuple:
+    """Phase 11 (c): K2 at one stacked [24, 1024, 1024] leaf of the qwen
+    sync (3 users) and K1 at the full-width SL leg [1024, 256], each
+    against its plain version bit for bit and timed beside its bound;
+    then K1 and K2 at the whole FL sync (3 x 1,812,456 rows, the shape
+    the path gives them), timed with events and held against their plain
+    versions bit for bit slab by slab: the row geometry, K1's size_t
+    element index and K2's u * rows + row at 5.4 M rows. Returns ({row
+    name: {shape: times}}, {shape: times at the whole sync}, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.kernels.quant_channel import ref as qref
+    rng = np.random.default_rng(seed + 13)
+    timed, failures = {}, []
+    n, r = 3, QWEN_LEAF_ROWS
+    buf, words, scale, p = wire_inputs(rng, n * r, 8)
+    w = torch.full((n * r, 1), 1.0 / 3.0, device="cuda")
+    got = qc.packed_wire_mean_2d(buf, words, scale, p, w, 8, n)
+    want = qref.packed_wire_mean_ref(buf, words, scale, p, w, 8, n)
+    equal = bool(torch.equal(got, want))
+    print(f"  check packed_wire_mean_2d Q8 3 users [{n * r}, 256]: equal "
+          f"{equal}", flush=True)
+    if not equal:
+        failures.append(f"K2 at [{n * r}, 256] differs from its plain version")
+    del got, want
+    timed["packed_wire_mean_2d"] = {(n * r, 256): _timed(
+        lambda *a: qc.packed_wire_mean_2d(*a, 8, n),
+        lambda *a: qref.packed_wire_mean_ref(*a, 8, n),
+        (buf, words, scale, p, w),
+        n * r * 256 * 8 + n * r * 12 + r * 256 * 4,
+        n * r * 256 * wire_int_ops(8))}
+    del buf, words, scale, p, w
+    r = 1024
+    buf, words, scale, p = wire_inputs(rng, r, 8)
+    got = qc.packed_wire_2d(buf, words, scale, p, 8)
+    equal = bool(torch.equal(got, qref.packed_wire_ref(buf, words, scale,
+                                                       p, 8)))
+    print(f"  check packed_wire_2d Q8 SL leg [1024, 256]: equal {equal}",
+          flush=True)
+    if not equal:
+        failures.append("K1 at [1024, 256] differs from its plain version")
+    timed["packed_wire_2d"] = {(r, 256): _timed(
+        lambda *a: qc.packed_wire_2d(*a, 8),
+        lambda *a: qref.packed_wire_ref(*a, 8), (buf, words, scale, p),
+        r * 256 * 12 + r * 8, r * 256 * wire_int_ops(8))}
+    del buf, words, scale, p
+    # the whole FL sync: K1 over the 3 users' stacked rows, K2 to their
+    # mean; its inputs are 11 GB, so one copy, events around 3 launches
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    rows = _fl_sync_rows(3)
+    R = rows // 3
+    whole = {}
+    buf, words, scale, p = _sync_inputs(gen, rows)
+    got = qc.packed_wire_2d(buf, words, scale, p, 8)
+    ms = _events_ms(lambda: qc.packed_wire_2d(buf, words, scale, p, 8))
+    equal, err, plain_ms = _slab_check(
+        got, lambda a, b: (buf[a:b], words[a:b], scale[a:b], p[a:b]),
+        lambda *a: qref.packed_wire_ref(*a, 8), rows)
+    bms, by = bound_ms(rows * 256 * 12 + rows * 8, 0.0, torch.float32,
+                       rows * 256 * wire_int_ops(8))
+    whole["packed_wire_2d"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                   bound_by=by, library_ms=None,
+                                   equal=equal, max_abs_err=err)
+    del got
+    w = torch.full((rows, 1), 1.0 / 3.0, device="cuda")
+
+    def users(a, b):     # rows a:b of each user's block, stacked
+        return tuple(torch.cat([t[u * R + a:u * R + b] for u in range(3)])
+                     for t in (buf, words, scale, p, w))
+    got = qc.packed_wire_mean_2d(buf, words, scale, p, w, 8, 3)
+    ms = _events_ms(lambda: qc.packed_wire_mean_2d(buf, words, scale, p,
+                                                   w, 8, 3))
+    equal, err, plain_ms = _slab_check(
+        got, users, lambda *a: qref.packed_wire_mean_ref(*a, 8, 3), R)
+    bms, by = bound_ms(rows * 256 * 8 + rows * 12 + R * 256 * 4, 0.0,
+                       torch.float32, rows * 256 * wire_int_ops(8))
+    whole["packed_wire_mean_2d"] = dict(ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bms, bound_by=by,
+                                        library_ms=None, equal=equal,
+                                        max_abs_err=err)
+    del buf, words, scale, p, w, got
+    torch.cuda.empty_cache()
+    for name, t in whole.items():
+        print(f"  check {name} Q8 at the whole FL sync [{rows}, 256], "
+              f"{SYNC_SLAB_ROWS} rows a slab: equal {t['equal']} "
+              f"(max_abs_err {t['max_abs_err']:.3e})", flush=True)
+        if not t["equal"]:
+            failures.append(f"{name} at the whole FL sync [{rows}, 256] "
+                            f"differs from its plain version")
+        timed[name][(rows, 256)] = {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    for name, t in timed.items():
+        for shape, v in t.items():
+            print(f"  time  {name} {list(shape)}: kernel {v['ms']:.5f} ms, "
+                  f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.5f}"
+                  f" ms ({v['bound_by']})", flush=True)
+    return timed, {(rows, 256): whole}, failures
+
+
+def scaled_phase(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 11: the scaled schemes at full width (counters set to 0
+    before, read after; K1's and K2's launches by shape into `shapes`),
+    then card vs CPU at the reduced config and the kernel checks at the
+    qwen shapes. Returns ({kernel name: launches}, summary, timed
+    shapes, failures)."""
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    runs, secs = {}, {}
+    with launch_shapes({}) as phase_shapes:
+        for name in _scaled_runs():
+            t0 = time.perf_counter()
+            runs[name] = _qwen_run(name, seed, card_name,
+                                   profile_one=name in ("cl", "fl_k1"))
+            secs[name] = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    failures = merge_shapes(shapes, phase_shapes, launches, "qwen")
+    failures += _qwen_checks(runs)
+    k1_shapes = dict(phase_shapes.get("packed_wire_2d", {}))
+    sl, fl = runs["sl"], ("fl_k1", "fl_k2", "fl_delayed_int4")
+    want_k1 = {(1024, 256): sum(c["packed_wire_2d"] for c in
+                                sl["rounds"] + sl["evals"]),
+               (_fl_sync_rows(3), 256): sum(
+                   c["packed_wire_2d"] for n in fl
+                   for c in runs[n]["rounds"] + runs[n]["profiled_rounds"])}
+    print(f"qwen launches {launches}; K1 by shape {k1_shapes} (want "
+          f"{want_k1})", flush=True)
+    if k1_shapes != want_k1:
+        failures.append(f"qwen: K1 by shape {k1_shapes}, want {want_k1}")
+    t0 = time.perf_counter()
+    reduced, f = _reduced_card_vs_cpu(seed, card_name)
+    failures += f
+    secs["reduced_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed, sync_time, f = _qwen_kernels(seed)
+    failures += f
+    secs["kernels"] = time.perf_counter() - t0
+    print(f"qwen phase parts: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}",
+          flush=True)
+    summary = dict(runs=runs, reduced=reduced, seconds=secs,
+                   k1_by_shape={str(list(k)): v
+                                for k, v in k1_shapes.items()},
+                   whole_sync={str(list(k)): v
+                               for k, v in sync_time.items()})
+    return launches, summary, timed, failures
+
+
 # ------------------------------------------------------------------ main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2990,17 +3591,32 @@ def main() -> None:
           f"{time.perf_counter() - t_fleet:.1f} s; launches "
           f"{fleet_launches}", flush=True)
     failures += fleet_failures
-    # the paper path's launches: phases 5, 7, 8, 9 and 10 together
+    t_qwen = time.perf_counter()
+    qwen_launches, qwen_summary, qwen_timed, qwen_failures = scaled_phase(
+        args.seed, card, shapes)
+    print(f"qwen1.5-0.5b training phase: "
+          f"{time.perf_counter() - t_qwen:.1f} s; launches "
+          f"{qwen_launches}", flush=True)
+    failures += qwen_failures
+    # the training paths' launches: phases 5, 7, 8, 9, 10 and 11 together
     for r in wire_rows + tiny_rows:
+        extra = qwen_timed.get(r["name"])
+        if extra:
+            if "by_shape" not in r:
+                r["by_shape"] = _by_shape({tuple(r["shape"]): {
+                    k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}})
+            r["by_shape"] += _by_shape(extra)
+        r.pop("shape", None)
         r["launches"] = sum(p.get(r["name"], 0) for p in (
             train_launches, priv_launches, tiny_launches, opt_launches,
-            fleet_launches))
+            fleet_launches, qwen_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
     shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
               for k, c in shapes.items()}
-    print(f"launches by shape over phases 5, 7, 8, 9 and 10: {shapes}",
+    print(f"launches by shape over phases 5, 7, 8, 9, 10 and 11: {shapes}",
           flush=True)
     rows += wire_rows + tiny_rows
     if args.out:
@@ -3017,6 +3633,7 @@ def main() -> None:
                                    "tiny_serve": tiny_serve_summary,
                                    "options": opt_summary,
                                    "fleets": fleet_summary,
+                                   "qwen_training": qwen_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

@@ -1,6 +1,6 @@
 """Importing this package populates the architecture registry (the
 configurations ported so far; ROADMAP.md lists the rest)."""
 from repro_torch.configs.base import (ArchConfig, ShapeConfig, WirelessConfig,
-                                      get_arch)
+                                      get_arch, list_archs)
 from repro_torch.configs import paper_tinylstm  # noqa: F401
 from repro_torch.configs import qwen1_5_0_5b  # noqa: F401

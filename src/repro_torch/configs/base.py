@@ -145,3 +145,8 @@ def get_arch(name: str) -> ArchConfig:
                        f"{sorted(_REGISTRY)} (the rest are still to port, "
                        f"see ROADMAP.md)")
     return _REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)

@@ -121,10 +121,14 @@ class _ChannelCrossing(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, key, link):
         ctx.key, ctx.link = key, link
+        if x.is_meta:       # a shape-only pass (FLOP counting) sends nothing
+            return x.clone()
         return W.transmit_tree(key.draws(), x, **_link_kw(link))
 
     @staticmethod
     def backward(ctx, g):
+        if g.is_meta:
+            return g.clone(), None, None
         tau = ctx.link["grad_clip"]
         g = clip_array_by_norm(g, tau)
         g_hat = W.transmit_tree(ctx.key.fold_in(1).draws(), g,

@@ -63,6 +63,35 @@ class Draws:
         return torch.randint(0, 1 << 32, tuple(shape),
                              generator=self.generator, dtype=torch.int64)
 
+    def _offset_words(self, name: str, n: int) -> torch.Tensor:
+        """`words(name, (n,))` minus 2^31, as int32: the same range of
+        2^32 values from the same 64-bit draws, half the bytes."""
+        return torch.randint(-(1 << 31), 1 << 31, (n,),
+                             generator=self.generator, dtype=torch.int32)
+
+    # words drawn and copied at a time by `words_u32`
+    WORD_SLAB = 1 << 25
+
+    def words_u32(self, name: str, shape, device) -> torch.Tensor:
+        """`words(name, shape)` as the int32 bit patterns the kernels
+        read, on `device`. The words are drawn and copied in slabs of
+        WORD_SLAB along the flattened shape, so the host holds one slab
+        at a time, not the whole draw (a full-width FL sync of
+        qwen1.5-0.5b draws 1.39 G words, 11.1 GB as int64). The numbers
+        are those of one `words` call: torch fills a CPU tensor from its
+        generator serially, one 64-bit draw per value whatever the
+        dtype, so consecutive slabs continue one stream, and word w
+        drawn as w - 2^31 has w's bit pattern with the top bit flipped,
+        which one XOR on `device` restores (tests/test_torch_scaled.py
+        holds it to `words`)."""
+        out = torch.empty(tuple(shape), dtype=torch.int32, device=device)
+        flat = out.view(-1)
+        n = flat.numel()
+        for i in range(0, n, self.WORD_SLAB):
+            m = min(self.WORD_SLAB, n - i)
+            flat[i:i + m].copy_(self._offset_words(name, m))
+        return out.bitwise_xor_(-(1 << 31))
+
     def normal(self, name: str, shape):
         return torch.randn(tuple(shape), generator=self.generator,
                            dtype=torch.float32)
@@ -122,6 +151,10 @@ class KeyDraws(Draws):
     def words(self, name: str, shape):
         self.generator = self._gen(name)
         return super().words(name, shape)
+
+    def _offset_words(self, name: str, n: int):
+        self.generator = self._gen(name)
+        return super()._offset_words(name, n)
 
     def normal(self, name: str, shape):
         self.generator = self._gen(name)

@@ -1,30 +1,25 @@
-"""Split learning (paper Alg. 2) — the port of `repro/core/split.py`,
-tiny family only: the model is cut after conv+pool; the user-side
-activation is semantically compressed (x4), crosses the wireless
-channel (forward AND backward — the gradient is tau-clipped and
+"""Split learning (paper Alg. 2) — the port of `repro/core/split.py`:
+the model is cut at `wcfg.split_layer` (the tiny model after conv+pool);
+the user-side activation is semantically compressed (x4), crosses the
+wireless channel (forward AND backward — the gradient is tau-clipped and
 re-quantized on the way down, Alg. 2 lines 11-17), and the server side
-finishes the pass. The other families' cuts are still to port
-(ROADMAP.md)."""
+finishes the pass. The cut is a layer for the dense family; the
+super-block cuts of xLSTM / hybrid stacks and the encoder/decoder cut
+are still to port (ROADMAP.md, P15)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import semantic
 from repro_torch.core.channel import channel_crossing
-from repro_torch.models import lstm_tiny
+from repro_torch.models import layers as L
+from repro_torch.models import lstm_tiny, transformer
 from repro_torch.nn import init_tree
 
 
-def _tiny_only(cfg) -> None:
-    if cfg.family != "tiny":
-        raise NotImplementedError(
-            f"split learning for family {cfg.family!r} is not ported yet; "
-            f"the port splits the tiny family only (see ROADMAP.md, P15)")
-
-
 def codec_specs(cfg, wcfg) -> dict:
-    _tiny_only(cfg)
-    return semantic.codec_specs(lstm_tiny.CONV_F, wcfg.compress_factor)
+    d = lstm_tiny.CONV_F if cfg.family == "tiny" else cfg.d_model
+    return semantic.codec_specs(d, wcfg.compress_factor)
 
 
 def init_codec(generator, cfg, wcfg, device="cuda") -> dict:
@@ -40,6 +35,22 @@ def _link(codec, x, wcfg, key):
     return semantic.decode(codec, z)
 
 
+def _split_transformer(params, codec, batch, cfg, wcfg, key, window):
+    """Layers [0, cut) on the user, the link, layers [cut, L) on the
+    server, with cut = min(split_layer, n_layers - 1)."""
+    x = transformer.embed_inputs(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    layers = transformer.layer_list(params["layers"])
+    cut = min(wcfg.split_layer, cfg.n_layers - 1)
+    x = transformer.apply_blocks(layers[:cut], x, cfg, positions, window)
+    x = _link(codec, x, wcfg, key)
+    x = transformer.apply_blocks(layers[cut:], x, cfg, positions, window)
+    x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed(params["embed"], x), {"aux_loss": aux / cfg.n_layers}
+
+
 def _split_tiny(params, codec, batch, cfg, wcfg, key):
     smashed = lstm_tiny.user_forward(params, batch["tokens"])
     smashed = _link(codec, smashed, wcfg, key)
@@ -48,14 +59,29 @@ def _split_tiny(params, codec, batch, cfg, wcfg, key):
 
 
 def crossing_elems(cfg, shape_cfg, wcfg) -> int:
-    """Element count of ONE link leg of one full-batch train step:
-    B x T_pool x (d / compress_factor)."""
-    _tiny_only(cfg)
-    c = max(1, lstm_tiny.CONV_F // wcfg.compress_factor)
-    s = (lstm_tiny.SEQ - lstm_tiny.CONV_K + 1) // 2
+    """Element count of ONE link leg (the encoded smashed activation) of
+    one full-batch train step: B x S' x (d / compress_factor), S' the
+    family's sequence length at the cut (pooled for the tiny model,
+    frontend-extended for VLM, the encoder grid for enc-dec)."""
+    d = lstm_tiny.CONV_F if cfg.family == "tiny" else cfg.d_model
+    c = max(1, d // wcfg.compress_factor)
+    if cfg.family == "tiny":
+        s = (lstm_tiny.SEQ - lstm_tiny.CONV_K + 1) // 2
+    elif cfg.family == "audio":
+        s = max(cfg.attn_chunk, shape_cfg.seq_len // 4)   # encdec.src_len
+    elif cfg.frontend == "vision":
+        s = shape_cfg.seq_len + cfg.n_frontend_tokens
+    else:
+        s = shape_cfg.seq_len
     return shape_cfg.global_batch * s * c
 
 
 def split_forward(params, codec, batch, cfg, wcfg, key, window: int = 0):
-    _tiny_only(cfg)
-    return _split_tiny(params, codec, batch, cfg, wcfg, key)
+    if cfg.family == "dense":
+        return _split_transformer(params, codec, batch, cfg, wcfg, key,
+                                  window)
+    if cfg.family == "tiny":
+        return _split_tiny(params, codec, batch, cfg, wcfg, key)
+    raise NotImplementedError(
+        f"split learning for family {cfg.family!r} is not ported yet; the "
+        f"port splits the dense and tiny families (see ROADMAP.md, P15)")

@@ -396,11 +396,10 @@ def _transmit_per_leaf(leaves, plan: WirePlan, rand, p, bits: int):
 
 def _link_draws(draws, n: int, plan: WirePlan, snr_db, fading: bool,
                 perfect: bool, arq_attempts: int, arq_min_f2: float,
-                arq_max_tx: int, ge_p_gb: float, ge_p_bg: float,
-                words: bool = True):
-    """(p [n, P] float32, n_tx [n, P], erased [n, P], flip words
-    [n, R, C] int64 or None) of one stacked send, all on the CPU, in the
-    JAX package's order: the fades first ("arq"), then the words."""
+                arq_max_tx: int, ge_p_gb: float, ge_p_bg: float):
+    """(p [n, P] float32, n_tx [n, P], erased [n, P]) of one stacked
+    send, on the CPU: the fades ("arq"), which the JAX package draws
+    before the flip words."""
     npk = plan.n_packets
     if perfect:
         p = torch.zeros((n, npk))
@@ -412,9 +411,19 @@ def _link_draws(draws, n: int, plan: WirePlan, snr_db, fading: bool,
                                          arq_max_tx, ge_p_gb, ge_p_bg)
         p = torch.as_tensor(draws.bit_error_prob(snr_db, f2),
                             dtype=torch.float32)
-    rand = draws.words("flip", (n, plan.n_rows, plan.cols)) if words \
-        else None
-    return p, n_tx, erased, rand
+    return p, n_tx, erased
+
+
+def _flip_words(draws, n: int, plan: WirePlan) -> torch.Tensor:
+    """The [n, R, C] flip words (int64) of one stacked send."""
+    return draws.words("flip", (n, plan.n_rows, plan.cols))
+
+
+def _flip_words_u32(draws, n: int, plan: WirePlan, device) -> torch.Tensor:
+    """The same words as the kernels read them: [n * R, C] int32 bit
+    patterns on `device`, converted slab by slab (`Draws.words_u32`)."""
+    return draws.words_u32("flip", (n, plan.n_rows, plan.cols),
+                           device).view(n * plan.n_rows, plan.cols)
 
 
 def _scale_rows(leaves, plan: WirePlan, bits: int, row_id):
@@ -446,13 +455,14 @@ def _transmit_stacked_planned(draws, leaves, plan: WirePlan, bits: int,
     # the in-kernel generator (K6, off by default) replaces the words
     kernel_rng = impl != "per_leaf" and rounding == "nearest" \
         and _kernel_rng(dev)
-    p, n_tx, erased, rand = _link_draws(
+    p, n_tx, erased = _link_draws(
         draws, n, plan, snr_db, fading, perfect, arq_attempts, arq_min_f2,
-        arq_max_tx, ge_p_gb, ge_p_bg, words=not kernel_rng)
+        arq_max_tx, ge_p_gb, ge_p_bg)
     can_erase = (not perfect) and arq_max_tx > 0
     if impl == "per_leaf":
-        out = _transmit_per_leaf(leaves, plan, rand.to(dev), p.to(dev),
-                                 bits)
+        out = _transmit_per_leaf(leaves, plan,
+                                 _flip_words(draws, n, plan).to(dev),
+                                 p.to(dev), bits)
         if can_erase:
             er = erased.to(dev)
             out = [torch.where(er[:, i].reshape((n,) + (1,) * (o.ndim - 1)),
@@ -467,7 +477,8 @@ def _transmit_stacked_planned(draws, leaves, plan: WirePlan, bits: int,
     r, c = plan.n_rows, plan.cols
     if rounding == "stochastic":
         # only the plain version rounds stochastically (any device)
-        y = wire_transform(buf, rand.to(dev), scale_row, p_row, bits,
+        y = wire_transform(buf, _flip_words(draws, n, plan).to(dev),
+                           scale_row, p_row, bits,
                            code_dtype=("uint8" if wire_dtype == "int8"
                                        else "uint32"),
                            stochastic=True,
@@ -480,7 +491,7 @@ def _transmit_stacked_planned(draws, leaves, plan: WirePlan, bits: int,
             wire_dtype=wire_dtype).reshape(n, r, c)
     else:
         y = K.packed_wire_2d(buf.reshape(n * r, c),
-                             K.words_u32(rand.reshape(n * r, c), dev),
+                             _flip_words_u32(draws, n, plan, dev),
                              scale_row.reshape(n * r, 1),
                              p_row.reshape(n * r, 1), bits,
                              wire_dtype=wire_dtype).reshape(n, r, c)
@@ -609,7 +620,7 @@ def transmit_stacked_mean(draws, tree, bits: int, snr_db,
                              tuple(l.dtype for l in leaves), WIRE_COLS)
     n = leaves[0].shape[0]
     dev = leaves[0].device
-    p, n_tx, erased, rand = _link_draws(
+    p, n_tx, erased = _link_draws(
         draws, n, plan, snr_db, bool(fading), bool(perfect),
         int(arq_attempts), float(arq_min_f2), int(arq_max_tx),
         float(ge_p_gb), float(ge_p_bg))
@@ -625,7 +636,7 @@ def transmit_stacked_mean(draws, tree, bits: int, snr_db,
     r, c = plan.n_rows, plan.cols
     w_row = w[:, None, None].expand(n, r, 1).reshape(n * r, 1).to(dev)
     acc = K.packed_wire_mean_2d(
-        buf.reshape(n * r, c), K.words_u32(rand.reshape(n * r, c), dev),
+        buf.reshape(n * r, c), _flip_words_u32(draws, n, plan, dev),
         scale_row.reshape(n * r, 1), p_row.reshape(n * r, 1), w_row,
         int(bits), n, wire_dtype=wire_dtype)
     out = tree_unflatten(plan.treedef,

@@ -1,8 +1,11 @@
-"""Training entry point for the paper's model — the `paper-tinylstm`
-path of `repro/launch/train.py`:
+"""Training entry point — the port of `repro/launch/train.py`, for the
+paper's model and the dense family:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
         --mode fl --steps 160
+    # qwen1.5-0.5b at full width through the scaled FL cycle, K2 sync
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+        --mode fl --steps 5 --use-kernel
     # a 10,000-client synthetic fleet, 3 rounds (the billing plane)
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
         --fleet-size 10000 --fleet-sl-frac 0.3 --fleet-sample 0 --steps 3
@@ -29,9 +32,18 @@ counts. `--ckpt-dir` snapshots the whole run every `--ckpt-every`
 cycles (checkpoint/ckpt.py) and, when the directory already holds a
 snapshot, resumes from the latest one, bit for bit.
 
+Any other registered arch (the dense family; `--reduced` for its
+smoke-scale variant) runs the scaled schemes (schemes/scaled.py) on a
+synthetic Zipf LM corpus (512 / 128 rows unless `--n-train`/`--n-test`
+say otherwise) at a constant `--lr` (3e-4): a CL/SL cycle is
+`--cycle-steps` optimizer steps (AdamW unless `--optimizer sgd`), an FL
+cycle `--local-steps` SGD-momentum steps per user and one sync
+(`--sync barrier|delayed`, `--use-kernel` for K2's fused mean). The
+mesh and compile flags of the JAX driver (`--mesh`, `--aot-warmup`,
+`--no-compile-cache`) are still to port (ROADMAP.md, P16).
+
 Runs on the GPU by default and raises without one (`--device cpu` runs
-the plain versions). Weights are drawn from `--seed`. The scaled
-architectures are still to port and raise.
+the plain versions). Weights are drawn from `--seed`.
 """
 from __future__ import annotations
 
@@ -44,7 +56,7 @@ import numpy as np
 
 from repro_torch.checkpoint.ckpt import latest_experiment_cycle
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import WirelessConfig
+from repro_torch.configs.base import ShapeConfig, WirelessConfig
 from repro_torch.nn import resolve_device
 from repro_torch.schemes import (BATCH, N_TEST, N_TRAIN, ClientBatch,
                                  ClientSpec, Experiment,
@@ -57,6 +69,27 @@ def parse_args(argv=None):
     ap.add_argument("--mode", default="cl", choices=["cl", "fl", "sl"])
     ap.add_argument("--steps", type=int, default=20,
                     help="target total optimizer steps (per client)")
+    ap.add_argument("--cycle-steps", type=int, default=5,
+                    help="scaled CL/SL: optimizer steps per cycle")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the smoke-scale variant (CPU-friendly)")
+    ap.add_argument("--optimizer", default=None, choices=["adamw", "sgd"],
+                    help="scaled cl/sl optimizer (default adamw); the "
+                         "FL cycle and the paper schemes are "
+                         "SGD-momentum by construction")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="constant lr (default: 3e-4 scaled; the paper "
+                         "schedule for paper-tinylstm)")
+    ap.add_argument("--split-layer", type=int, default=2)
+    ap.add_argument("--sync", default="barrier",
+                    choices=["barrier", "delayed"],
+                    help="FL cycle scheduling: barrier (paper) or "
+                         "delayed (one cycle of staleness)")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="FL: quantize -> channel -> dequantize -> mean "
+                         "in one launch (K2)")
     ap.add_argument("--snr-db", type=float, default=20.0)
     ap.add_argument("--quant-bits", type=int, default=8)
     ap.add_argument("--n-users", type=int, default=3, help="FL users N")
@@ -80,8 +113,10 @@ def parse_args(argv=None):
                     help="fraction of fleet clients on the SL paradigm")
     ap.add_argument("--fleet-sample", type=int, default=8,
                     help="uniform-k participation per round (0 = all)")
-    ap.add_argument("--n-train", type=int, default=N_TRAIN)
-    ap.add_argument("--n-test", type=int, default=N_TEST)
+    ap.add_argument("--n-train", type=int, default=0,
+                    help=f"corpus rows (0 = {N_TRAIN} tiny / 512 scaled)")
+    ap.add_argument("--n-test", type=int, default=0,
+                    help=f"held-out rows (0 = {N_TEST} tiny / 128 scaled)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=10,
                     help="checkpoint every k cycles")
@@ -99,10 +134,12 @@ def build_wcfg(args):
         return WirelessConfig(mode="fl", snr_db=args.snr_db,
                               quant_bits=args.quant_bits,
                               local_steps=args.local_steps,
-                              n_users=args.n_users,
-                              wire_dtype=args.wire_dtype)
+                              n_users=args.n_users, sync=args.sync,
+                              wire_dtype=args.wire_dtype,
+                              use_kernel=args.use_kernel)
     return WirelessConfig(mode="sl", snr_db=args.snr_db,
-                          quant_bits=args.quant_bits)
+                          quant_bits=args.quant_bits,
+                          split_layer=args.split_layer)
 
 
 def build_fleet(args, device, data):
@@ -131,24 +168,54 @@ def build_fleet(args, device, data):
                         device=device, **kwargs)
 
 
+def build_scaled(args, cfg, device):
+    """The scaled scheme of `--mode` at `--batch` x `--seq`, and its
+    optimizer steps per cycle (per user for FL)."""
+    shape = ShapeConfig("cli", args.seq, args.batch, "train",
+                        microbatch=args.batch)
+    if args.mode == "fl":
+        if args.optimizer not in (None, "sgd"):
+            raise SystemExit(f"--mode fl runs SGD-momentum local steps; "
+                             f"--optimizer {args.optimizer} is not "
+                             f"supported")
+        kwargs = {}
+    else:
+        kwargs = {"optimizer": args.optimizer or "adamw"}
+    scheme = build_scheme(build_wcfg(args), cfg=cfg, shape=shape,
+                          steps_per_cycle=args.cycle_steps, device=device,
+                          **kwargs)
+    return scheme, (args.local_steps if args.mode == "fl"
+                    else args.cycle_steps)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = get_arch(args.arch)
-    if cfg.family != "tiny":
-        raise NotImplementedError(
-            f"training {args.arch!r} (family {cfg.family!r}) is not ported "
-            f"yet; the port trains paper-tinylstm (see ROADMAP.md, P15)")
+    if args.reduced:
+        cfg = cfg.reduced()
+    tiny = cfg.family == "tiny"
     device = resolve_device(args.device)
-    data = corpus(args.n_train, args.n_test, args.seed)
-    if args.fleet_size > 0:
-        scheme = build_fleet(args, device, data)
-        spc = 1                  # one communication cycle per step
+    args.n_train = args.n_train or (N_TRAIN if tiny else 512)
+    args.n_test = args.n_test or (N_TEST if tiny else 128)
+    lr_schedule = (lambda e: args.lr) if args.lr is not None else None
+    data = None
+    if not tiny:
+        if args.fleet_size > 0:
+            raise SystemExit("--fleet-size runs the paper's tiny model; "
+                             "use --arch paper-tinylstm")
+        scheme, spc = build_scaled(args, cfg, device)
     else:
-        scheme = build_scheme(build_wcfg(args), device=device)
-        if args.mode == "fl":
-            spc = args.local_steps * (args.n_train // args.n_users // BATCH)
+        data = corpus(args.n_train, args.n_test, args.seed)
+        if args.fleet_size > 0:
+            scheme = build_fleet(args, device, data)
+            spc = 1                  # one communication cycle per step
         else:
-            spc = args.n_train // BATCH
+            scheme = build_scheme(build_wcfg(args), device=device)
+            if args.mode == "fl":
+                spc = args.local_steps * (args.n_train // args.n_users
+                                          // BATCH)
+            else:
+                spc = args.n_train // BATCH
     cycles = max(1, math.ceil(args.steps / max(spc, 1)))
     history = []
     t0 = time.time()
@@ -179,7 +246,7 @@ def main(argv=None) -> dict:
               f"({os.path.abspath(args.ckpt_dir)})", flush=True)
     exp = Experiment(scheme, cycles=cycles, seed=args.seed,
                      n_train=args.n_train, n_test=args.n_test, data=data,
-                     on_cycle=on_cycle,
+                     lr_schedule=lr_schedule, on_cycle=on_cycle,
                      checkpoint_dir=args.ckpt_dir or None,
                      checkpoint_every=(args.ckpt_every if args.ckpt_dir
                                        else 0),

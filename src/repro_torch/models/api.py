@@ -1,12 +1,15 @@
-"""Unified model API: dispatch by family — the port of
-`repro/models/api.py`. The `dense` family and the paper's `tiny`
-classifier (a streaming decoder with no fused prefill, so serving
+"""Unified model API: dispatch by family, input specs per shape, losses —
+the port of `repro/models/api.py`. The `dense` family and the paper's
+`tiny` classifier (a streaming decoder with no fused prefill, so serving
 prefills it by the exact scan) are ported; the others raise and are
-listed in ROADMAP.md."""
+listed in ROADMAP.md (P15). The logical sharding axes (`param_axes`,
+`input_axes`) belong to the mesh machinery, still to port (P16)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch.models import lstm_tiny, transformer
 
@@ -19,15 +22,19 @@ class ModelApi:
     init_cache: Optional[Callable] = None
     decode_step: Optional[Callable] = None
     prefill_step: Optional[Callable] = None
+    # the trainable layout (the JAX package's param tree); `specs` is
+    # the serving layout
+    train_specs: Optional[Callable] = None
 
 
 _FAMILIES = {
     "dense": ModelApi(transformer.model_specs, transformer.forward,
                       transformer.init_cache_shapes, transformer.init_cache,
-                      transformer.decode_step, transformer.prefill_step),
+                      transformer.decode_step, transformer.prefill_step,
+                      transformer.train_specs),
     "tiny": ModelApi(lstm_tiny.model_specs, lstm_tiny.forward,
                      lstm_tiny.cache_shapes, lstm_tiny.init_cache,
-                     lstm_tiny.decode_step),
+                     lstm_tiny.decode_step, None, lstm_tiny.model_specs),
 }
 
 
@@ -40,4 +47,40 @@ def get_model(cfg) -> ModelApi:
 
 
 def param_specs(cfg):
+    """The serving parameter layout."""
     return get_model(cfg).specs(cfg)
+
+
+def train_param_specs(cfg):
+    """The trainable parameter layout: the JAX package's `param_specs`
+    (transformer layers stacked `[L, ...]`)."""
+    return get_model(cfg).train_specs(cfg)
+
+
+# ------------------------------------------------------------- inputs
+def input_specs(cfg, shape_cfg) -> dict:
+    """{name: (shape, dtype)} of every model input of one step."""
+    B, S = shape_cfg.global_batch, shape_cfg.seq_len
+    i32 = torch.int32
+    if shape_cfg.kind in ("train", "prefill"):
+        if cfg.frontend == "vision" or cfg.family == "audio":
+            raise NotImplementedError(
+                f"frontend inputs of family {cfg.family!r} are not ported "
+                f"yet (see ROADMAP.md, P15)")
+        return {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+    # decode: ONE new token against a seq_len cache
+    return {"token": ((B, 1), i32), "index": ((), i32)}
+
+
+# ------------------------------------------------------------- losses
+def lm_loss(logits: torch.Tensor, batch: dict, cfg) -> torch.Tensor:
+    """Next-token CE over the label positions, in float32; label 0 is
+    padding and carries no loss."""
+    labels = batch["labels"]
+    S = labels.shape[1]
+    logits = logits[:, -S:][:, :-1]              # drop any prefix
+    targets = labels[:, 1:].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = (targets != 0).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

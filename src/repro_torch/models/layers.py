@@ -1,6 +1,6 @@
-"""Shared layer library, serving subset — the port of
-`repro/models/layers.py`: norms, RoPE, GQA attention (teacher-forced,
-cached decode, chunk prefill; dense or paged KV), gated MLP, embeddings.
+"""Shared layer library — the port of `repro/models/layers.py`: norms,
+RoPE, GQA attention (teacher-forced through `chunked_attention`, cached
+decode, chunk prefill; dense or paged KV), gated MLP, embeddings.
 Pure functions over `ParamDict` parameters.
 
 Attention on the serving path goes through the kernel wrappers
@@ -140,28 +140,55 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def causal_attention(q, k, v, causal: bool = True, window: int = 0):
-    """Teacher-forced GQA attention, q [B,S,H,hd], k/v [B,S,Hkv,hd], as a
-    masked softmax over the whole sequence. The JAX package computes the
-    same function blockwise (`chunked_attention`, a memory bound for
-    long training sequences); the port's teacher-forced pass is the
-    parity and reference path, so it does it in one block."""
-    B, S, H, hd = q.shape
+def chunked_attention(q, k, v, cfg, causal: bool = True, window: int = 0,
+                      kv_offset: int = 0) -> torch.Tensor:
+    """Memory-bounded GQA attention with an online softmax, q [B,Sq,H,hd],
+    k/v [B,Skv,Hkv,hd]: the JAX package's blocks in its order — query
+    chunks outer, key chunks inner, running (max, sum, acc) in float32 —
+    so scores never exceed [B,H,cq,ck]. Both lengths are padded to chunk
+    multiples; padded keys are masked, padded queries sliced off. Plain
+    PyTorch: the JAX package computes this outside any Pallas kernel."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
     G = H // k.shape[2]
-    kg = k.repeat_interleave(G, dim=2)
-    vg = v.repeat_interleave(G, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, kg).float() / math.sqrt(hd)
-    qp = torch.arange(S, device=q.device)[:, None]
-    kp = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qp >= kp
-    if window:
-        mask &= qp - kp < window
-    logits = logits.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype), vg)
-    return out.to(q.dtype)
+    cq = min(cfg.attn_chunk, Sq)
+    ck = min(cfg.attn_chunk, Skv)
+    pq, pk = (-Sq) % cq, (-Skv) % ck
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    outs = []
+    for i in range(0, Sq + pq, cq):
+        qb = q[:, i:i + cq]
+        qp = kv_offset + torch.arange(i, i + cq, device=dev)
+        m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=dev)
+        s = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, cq, hd), dtype=torch.float32, device=dev)
+        for j in range(0, Skv + pk, ck):
+            kbg = k[:, j:j + ck].repeat_interleave(G, dim=2)
+            vbg = v[:, j:j + ck].repeat_interleave(G, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", qb, kbg) * scale
+            kp = torch.arange(j, j + ck, device=dev)
+            mask = (kp < Skv)[None, :].expand(cq, ck)
+            if causal:
+                mask = mask & (qp[:, None] >= kp[None, :])
+            if window:
+                mask = mask & (qp[:, None] - kp[None, :] < window)
+            logits = torch.where(mask, logits.float(), NEG_INF)
+            bm = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - bm[..., None])
+            corr = torch.exp(m - bm)
+            s = s * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(qb.dtype), vbg).float()
+            m = bm
+        out = acc / torch.clamp(s[..., None], min=1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))      # [B,cq,H,hd]
+    return torch.cat(outs, dim=1)[:, :Sq]
 
 
 def attention_train(p, x, cfg, positions=None, causal=True, window=0):
@@ -169,7 +196,7 @@ def attention_train(p, x, cfg, positions=None, causal=True, window=0):
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(p, x, cfg, positions)
-    out = causal_attention(q, k, v, causal=causal, window=window)
+    out = chunked_attention(q, k, v, cfg, causal=causal, window=window)
     return linear(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.hd))
 
 

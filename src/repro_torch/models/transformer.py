@@ -2,18 +2,26 @@
 `repro/models/transformer.py` (teacher-forced forward, per-slot decode,
 fused chunk prefill; dense and paged KV caches).
 
-The JAX package scans stacked `[L, ...]` parameters; here the layers are
-a list walked by a Python loop. The caches keep the stacked `[L, ...]`
-layout and are updated IN PLACE: `decode_step` and `prefill_step` write
-the new K/V columns into the tensors they are given and return those
-same tensors.
+Two parameter layouts. Serving (`model_specs`, `init_params`) holds the
+layers as a list of per-layer subtrees. Training (`train_specs`,
+`init_tree`) holds them as the JAX package's stacked `[L, ...]` leaves,
+so the trainable tree has JAX's leaves (14 for qwen1.5-0.5b): the wire
+bills and quantizes one packet per leaf, and the optimizer state has the
+same layout. `forward` takes either; it unbinds the stacked leaves into
+per-layer views (one `stack` per leaf in the backward pass) and walks
+the layers in a Python loop, each through `torch.utils.checkpoint` when
+`cfg.remat` is set. The caches keep the stacked `[L, ...]` layout and
+are updated IN PLACE: `decode_step` and `prefill_step` write the new K/V
+columns into the tensors they are given and return those same tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.nn import resolve_device
+from repro_torch.nn import (Spec, resolve_device, tree_leaves, tree_map,
+                            tree_unflatten)
 
 
 # ------------------------------------------------------------- specs
@@ -31,15 +39,44 @@ def block_specs(cfg) -> dict:
     return s
 
 
-def model_specs(cfg) -> dict:
+def _no_frontend(cfg) -> None:
     if cfg.frontend:
         raise NotImplementedError("multimodal frontends are not ported yet "
                                   "(ROADMAP.md, P15)")
+
+
+def model_specs(cfg) -> dict:
+    """The serving layout: `layers` a list of per-layer subtrees."""
+    _no_frontend(cfg)
     return {
         "embed": L.embed_specs(cfg.vocab_size, cfg.d_model),
         "layers": [block_specs(cfg) for _ in range(cfg.n_layers)],
         "ln_f": L.norm_specs(cfg.d_model, cfg.norm),
     }
+
+
+def train_specs(cfg) -> dict:
+    """The training layout, the JAX package's `model_specs`: every layer
+    leaf stacked to `[L, ...]` with a leading "layers" axis."""
+    _no_frontend(cfg)
+    stacked = tree_map(lambda s: Spec((cfg.n_layers,) + s.shape,
+                                      ("layers",) + s.axes, s.init,
+                                      s.dtype, s.scale), block_specs(cfg))
+    return {
+        "embed": L.embed_specs(cfg.vocab_size, cfg.d_model),
+        "layers": stacked,
+        "ln_f": L.norm_specs(cfg.d_model, cfg.norm),
+    }
+
+
+def layer_list(layers) -> list:
+    """Per-layer parameter subtrees: the serving list as it is, or the
+    training tree's stacked leaves unbound into per-layer views."""
+    if not isinstance(layers, dict):
+        return list(layers)
+    cols = [leaf.unbind(0) for leaf in tree_leaves(layers)]
+    return [tree_unflatten(layers, [c[l] for c in cols])
+            for l in range(len(cols[0]))]
 
 
 # ------------------------------------------------------------- blocks
@@ -74,16 +111,37 @@ def apply_block_prefill(lp, x, cfg, ck, cv, start, n_valid, window=0,
 
 
 # ------------------------------------------------------------- forward
+def embed_inputs(params, batch: dict, cfg) -> torch.Tensor:
+    """tokens -> [B, S, d] activations (the dense path; the vision
+    frontend's patch embeddings are still to port)."""
+    _no_frontend(cfg)
+    return L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
+
+
+def apply_blocks(layers: list, x, cfg, positions, window: int = 0):
+    """x through the given per-layer subtrees in order, each block
+    recomputed in the backward pass when `cfg.remat` is set. Dense
+    blocks carry no auxiliary loss."""
+    for lp in layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(apply_block, lp, x, cfg, positions, True, window,
+                           use_reentrant=False)
+        else:
+            x = apply_block(lp, x, cfg, positions, True, window)
+    return x
+
+
 def forward(params, batch: dict, cfg, window: int = 0) -> tuple:
-    """Full-sequence teacher-forced forward. Returns (logits, aux)."""
-    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
+    """Full-sequence teacher-forced forward, either parameter layout.
+    Returns (logits, aux) with aux_loss summed over layers / n_layers."""
+    x = embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    for lp in params["layers"]:
-        x = apply_block(lp, x, cfg, positions, True, window)
+    x = apply_blocks(layer_list(params["layers"]), x, cfg, positions,
+                     window)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
-    return L.unembed(params["embed"], x), {
-        "aux_loss": torch.zeros((), device=x.device)}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed(params["embed"], x), {"aux_loss": aux / cfg.n_layers}
 
 
 # ------------------------------------------------------------- caches

@@ -22,4 +22,5 @@ def clip_array_by_norm(x: torch.Tensor, max_norm: float) -> torch.Tensor:
     """Per-tensor norm clip, used on the smashed-data gradient in SL."""
     norm = torch.sqrt(torch.sum(torch.square(x.float())))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return (x * scale).to(x.dtype)
+    # a bf16 x is scaled in float32 and rounded once, as jnp promotes it
+    return (x.float() * scale).to(x.dtype)

@@ -1,14 +1,17 @@
-"""Train-step builders for the paper's tiny model — the tiny subset of
-`repro/runtime/train_step.py`. The wireless mode is woven in here: SL
-routes the forward through the split + channel link (core/split.py);
-CL with a noisy link corrupts the raw uplink tokens. FL wraps these in
-runtime/fl_runtime.py.
+"""Step builders: training (with gradient accumulation over microbatches)
+and prefill — the port of `repro/runtime/train_step.py` for the paper's
+tiny model and the dense family. The wireless mode is woven in here: SL
+routes the forward through the split + channel link (core/split.py); CL
+with a noisy link corrupts the tiny model's raw uplink tokens. FL wraps
+these in runtime/fl_runtime.py.
 
 Gradients come from autograd: a step differentiates detached copies of
 the trainable tree's leaves (`torch.autograd.grad`) and applies the
-plain-tensor SGD update (optim/sgd.py), in the JAX step's order. The
-tiny model has no mesh, so no sharding code comes along; AdamW and the
-scaled families are still to port (ROADMAP.md).
+plain-tensor optimizer update (optim/sgd.py, optim/adamw.py), in the
+JAX step's order. There is no mesh, so the sharding helpers of the JAX
+module (`trainable_axes`, `train_state_axes`, `axes_to_shardings`,
+`train_state_sds_and_shardings`, `key_sds`) are still to port
+(ROADMAP.md, P16); the other families' training is P15.
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ import torch
 
 from repro_torch.core import centralized
 from repro_torch.core.split import init_codec, split_forward
+from repro_torch.models import api as M
 from repro_torch.models import lstm_tiny
 from repro_torch.nn import init_tree, tree_leaves, tree_map, tree_unflatten
-from repro_torch.optim import sgd_momentum
+from repro_torch.optim import adamw, sgd_momentum
 
 MOE_AUX_COEF = 0.01
+TRAINED_FAMILIES = ("tiny", "dense")
 
 
 class TrainState(NamedTuple):
@@ -31,39 +36,72 @@ class TrainState(NamedTuple):
     step: int
 
 
-def _tiny_sgd(cfg, optimizer: str) -> None:
-    if cfg.family != "tiny":
+def _check_family(cfg) -> None:
+    if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"training family {cfg.family!r} is not ported yet; the port "
-            f"trains the paper's tiny model (see ROADMAP.md, P15)")
-    if optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet; the paper's "
-            f"schemes train with SGD-momentum (see ROADMAP.md, P15)")
+            f"trains {list(TRAINED_FAMILIES)} (see ROADMAP.md, P15)")
 
 
-def _forward(trainable, batch, cfg, wcfg, key):
+def _optimizer(optimizer: str, momentum: float = 0.9):
+    if optimizer == "adamw":
+        return adamw()
+    if optimizer == "sgd":
+        return sgd_momentum(momentum)
+    raise ValueError(f"unknown optimizer {optimizer!r} (adamw|sgd)")
+
+
+def window_for(cfg, shape_cfg) -> int:
+    """long_500k needs sub-quadratic attention: attention families run a
+    sliding window; SSM/hybrid are natively O(1)-state."""
+    if shape_cfg.name == "long_500k" and cfg.family in ("dense", "moe",
+                                                        "vlm", "audio"):
+        return 8192
+    return 0
+
+
+# data shards of the JAX package's production mesh, which the last rule
+# of `auto_microbatch` divides the batch by (the port has no mesh yet:
+# ROADMAP.md, P16)
+N_DATA_SHARDS = 16
+
+
+def auto_microbatch(cfg, shape_cfg) -> int:
+    """Number of grad-accumulation microbatches: the shape's override,
+    then the arch's microbatch_size, then one sample per data shard."""
+    if shape_cfg.microbatch:
+        return shape_cfg.global_batch // shape_cfg.microbatch
+    if cfg.microbatch_size and shape_cfg.global_batch > cfg.microbatch_size:
+        return shape_cfg.global_batch // cfg.microbatch_size
+    return max(1, shape_cfg.global_batch // N_DATA_SHARDS)
+
+
+def _forward(trainable, batch, cfg, wcfg, key, window: int = 0):
     if wcfg is not None and wcfg.mode == "sl":
         return split_forward(trainable["model"], trainable["codec"], batch,
-                             cfg, wcfg, key)
-    return lstm_tiny.forward(trainable["model"], batch, cfg)
+                             cfg, wcfg, key, window)
+    return M.get_model(cfg).forward(trainable["model"], batch, cfg, window)
 
 
-def _loss(trainable, batch, cfg, wcfg, key):
-    logits, aux = _forward(trainable, batch, cfg, wcfg, key)
-    loss = lstm_tiny.bce_loss(logits, batch["labels"])
-    metrics = {"loss": loss,
-               "accuracy": lstm_tiny.accuracy(logits, batch["labels"]),
-               "aux_loss": aux["aux_loss"]}
+def _loss(trainable, batch, cfg, wcfg, key, window: int = 0):
+    logits, aux = _forward(trainable, batch, cfg, wcfg, key, window)
+    if cfg.family == "tiny":
+        loss = lstm_tiny.bce_loss(logits, batch["labels"])
+        metrics = {"loss": loss,
+                   "accuracy": lstm_tiny.accuracy(logits, batch["labels"])}
+    else:
+        loss = M.lm_loss(logits, batch, cfg)
+        metrics = {"loss": loss}
+    metrics["aux_loss"] = aux["aux_loss"]
     return loss + MOE_AUX_COEF * aux["aux_loss"], metrics
 
 
-def value_and_grad(trainable, batch, cfg, wcfg, key):
+def value_and_grad(trainable, batch, cfg, wcfg, key, window: int = 0):
     """(metrics, grads) of `_loss` at `trainable` (grads shaped like
     it); the tree itself is left untouched."""
     leaves = [l.detach().requires_grad_() for l in tree_leaves(trainable)]
     total, metrics = _loss(tree_unflatten(trainable, leaves), batch, cfg,
-                           wcfg, key)
+                           wcfg, key, window)
     grads = torch.autograd.grad(total, leaves)
     return ({k: v.detach() for k, v in metrics.items()},
             tree_unflatten(trainable, list(grads)))
@@ -71,10 +109,11 @@ def value_and_grad(trainable, batch, cfg, wcfg, key):
 
 def make_local_step(cfg, lr, momentum: float = 0.9, prox_mu: float = 0.0,
                     anchor=None):
-    """ONE plain SGD+momentum step of `_loss` — the FL local-phase core.
-    FL local steps are radio-free (only the sync crosses the channel).
-    With prox_mu > 0 it becomes FedProx (Li et al. 2020): grad += mu *
-    (w - anchor) over the trainable tree, `anchor` shaped like it.
+    """ONE plain SGD+momentum step of `_loss` — the FL local-phase core
+    of the tiny round and the scaled FL step. FL local steps are
+    radio-free (only the sync crosses the channel). With prox_mu > 0 it
+    becomes FedProx (Li et al. 2020): grad += mu * (w - anchor) over the
+    trainable tree, `anchor` shaped like it.
     local_step(state, batch, key=None) -> (state, metrics)."""
     _, opt_update = sgd_momentum(momentum)
 
@@ -91,38 +130,35 @@ def make_local_step(cfg, lr, momentum: float = 0.9, prox_mu: float = 0.0,
 
 
 def init_train_state(generator: torch.Generator, cfg, wcfg=None,
-                     optimizer: str = "sgd", momentum: float = 0.9,
+                     optimizer: str = "adamw", momentum: float = 0.9,
                      device="cuda") -> TrainState:
-    """Model (+ SL codec) params drawn from `generator` on `device`, and
-    the optimizer's zero state."""
-    _tiny_sgd(cfg, optimizer)
-    params = init_tree(lstm_tiny.model_specs(cfg), generator, device)
+    """Model (+ SL codec) params drawn from `generator` on `device` in the
+    trainable layout (`models.api.train_param_specs`), and the
+    optimizer's zero state."""
+    _check_family(cfg)
+    opt_init, _ = _optimizer(optimizer, momentum)
+    params = init_tree(M.train_param_specs(cfg), generator, device)
     codec = (init_codec(generator, cfg, wcfg, device)
              if (wcfg is not None and wcfg.mode == "sl") else {})
     trainable = {"model": params, "codec": codec}
-    opt_init, _ = sgd_momentum(momentum)
     return TrainState(trainable, opt_init(trainable), 0)
 
 
-def auto_microbatch(shape_cfg) -> int:
-    if shape_cfg.microbatch:
-        return shape_cfg.global_batch // shape_cfg.microbatch
-    return 1
-
-
-def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "sgd",
+def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
                     lr: float = 3e-4, momentum: float = 0.9):
     """Returns train_step(state, batch, key[, lr]) -> (state, metrics):
-    gradients averaged over microbatches (key folded by microbatch
-    index), one SGD-momentum update. `key` is a `core.draws.Key`; the SL
-    link draws from it."""
-    _tiny_sgd(cfg, optimizer)
-    n_micro = auto_microbatch(shape_cfg)
-    _, opt_update = sgd_momentum(momentum)
+    gradients summed over `auto_microbatch` microbatches in float32
+    accumulators (microbatch i on key.fold_in(i)), divided by their
+    count, then one optimizer update. `key` is a `core.draws.Key`; the
+    SL link draws from it."""
+    _check_family(cfg)
+    window = window_for(cfg, shape_cfg)
+    n_micro = auto_microbatch(cfg, shape_cfg)
+    _, opt_update = _optimizer(optimizer, momentum)
 
     def train_step(state: TrainState, batch: dict, key, lr=lr):
         if wcfg is not None and wcfg.mode == "cl" \
-                and not wcfg.perfect_channel:
+                and not wcfg.perfect_channel and cfg.family == "tiny":
             batch, _ = centralized.upload_batch(key.draws(), batch,
                                                 cfg.vocab_size, wcfg)
         g_acc = m_acc = None
@@ -131,7 +167,7 @@ def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "sgd",
                                + tuple(v.shape[1:]))[i]
                   for k, v in batch.items()}
             metrics, g = value_and_grad(state.trainable, mb, cfg, wcfg,
-                                        key.fold_in(i))
+                                        key.fold_in(i), window)
             if g_acc is None:
                 g_acc = tree_map(lambda b: torch.zeros_like(b) + b.float(),
                                  g)
@@ -140,10 +176,23 @@ def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "sgd",
             else:
                 g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
                 m_acc = {k: m_acc[k] + v for k, v in metrics.items()}
+            del g
         grads = tree_map(lambda g: g / n_micro, g_acc)
+        del g_acc
         metrics = {k: v / n_micro for k, v in m_acc.items()}
         trainable, opt_state = opt_update(grads, state.opt_state,
                                           state.trainable, lr)
         return TrainState(trainable, opt_state, state.step + 1), metrics
 
     return train_step
+
+
+def make_prefill_step(cfg, shape_cfg, wcfg=None):
+    """Inference prefill: full forward, returns last-token logits."""
+    window = window_for(cfg, shape_cfg)
+
+    def prefill(trainable, batch, key):
+        logits, _ = _forward(trainable, batch, cfg, wcfg, key, window)
+        return logits[:, -1]
+
+    return prefill

@@ -1,9 +1,10 @@
 """`Experiment` — the ONE driver loop for every scheme, plus
 `build_scheme` to map a WirelessConfig (or a list of clients) onto its
-scheme — the port of `repro/schemes/run.py` for the paper's tiny model.
-The loop keeps the JAX package's streams: data rng `seed+1`, per-step
-keys `Key(seed+2).fold_in(step)` for CL/SL, per-cycle keys
-`Key(seed+3).fold_in(cycle)` for FL, CL upload key `Key(seed+7)`.
+scheme — the port of `repro/schemes/run.py` for the paper's tiny model
+and the scaled schemes. The loop keeps the JAX package's streams: data
+rng `seed+1`, per-step keys `Key(seed+2).fold_in(step)` for CL/SL,
+per-cycle keys `Key(seed+3).fold_in(cycle)` for FL, CL upload key
+`Key(seed+7)` (the scaled CL/SL steps fold off `Key(seed)`).
 
     scheme = build_scheme(WirelessConfig(mode="fl", quant_bits=8))
     res = Experiment(scheme, cycles=7).run()     # -> RunResult
@@ -16,8 +17,11 @@ keys `Key(seed+2).fold_in(step)` for CL/SL, per-cycle keys
     Experiment(scheme, cycles=7, checkpoint_dir="ck", checkpoint_every=1)
     Experiment(scheme, cycles=7, resume_from="ck").run()
 
-The scaled schemes (a non-tiny `cfg`) are still to port (ROADMAP.md,
-P15) and raise.
+    # the dense family at scale (schemes/scaled.py): synthetic LM corpus
+    # and a constant 3e-4 lr unless data / lr_schedule are given
+    scheme = build_scheme(WirelessConfig(mode="fl"),
+                          cfg=get_arch("qwen1.5-0.5b"))
+    Experiment(scheme, cycles=2, n_train=512, n_test=128).run()
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from repro_torch.schemes.split import SplitScheme
 
 
 def build_scheme(wcfg=None, capture: bool = False, clients=None,
-                 cfg=None, **kwargs):
+                 cfg=None, shape=None, **kwargs):
     """(WirelessConfig, arch) -> Scheme. None wcfg means the no-radio CL
     baseline. `capture=True` records each scheme's privacy observations
     into `RunResult.captures`. A `clients` list of ClientSpecs selects a
@@ -49,7 +53,9 @@ def build_scheme(wcfg=None, capture: bool = False, clients=None,
     SL's `protocol`, `capture_every` and `perfect_eval`; the fleets'
     `policy`, `deadline_s`, `deadline_jitter_sigma`, `quorum`,
     `fault_plan`, and the fleet engine's `train`, `train_cap`,
-    `spill_top_k`)."""
+    `spill_top_k`). A non-tiny `cfg` selects the scaled schemes
+    (schemes/scaled.py) at `shape` (default batch 8, seq 128), with
+    their `steps_per_cycle` and `optimizer`."""
     if clients is not None:
         from repro_torch.schemes.fleet import ClientBatch, FleetScheme
         engine = kwargs.pop("engine", "auto")
@@ -62,11 +68,17 @@ def build_scheme(wcfg=None, capture: bool = False, clients=None,
             raise ValueError(f"unknown fleet engine {engine!r} "
                              "(auto|loop|fleet)")
         return PopulationScheme(wcfg, clients, capture=capture, **kwargs)
-    if cfg is not None and cfg.family != "tiny":
-        raise NotImplementedError(
-            f"build_scheme: the scaled schemes (family {cfg.family!r}) are "
-            f"not ported yet (see ROADMAP.md, P15)")
     mode = wcfg.mode if wcfg is not None else "cl"
+    if cfg is not None and cfg.family != "tiny":
+        from repro_torch.schemes.scaled import (ScaledCentralizedScheme,
+                                                ScaledFederatedScheme,
+                                                ScaledSplitScheme)
+        cls = {"cl": ScaledCentralizedScheme,
+               "fl": ScaledFederatedScheme,
+               "sl": ScaledSplitScheme}.get(mode)
+        if cls is None:
+            raise ValueError(f"unknown scheme mode {mode!r}")
+        return cls(cfg, shape=shape, wcfg=wcfg, capture=capture, **kwargs)
     if mode == "cl":
         return CentralizedScheme(wcfg, capture=capture, **kwargs)
     if mode == "fl":
@@ -87,7 +99,9 @@ class Experiment:
     explicit `data` ((xtr, ytr), (xte, yte)) wins, else the sentiment
     corpus at `n_train` / `n_test`. `on_init(state)` may return a
     replacement SchemeState (the tests hand in the JAX package's
-    initial weights this way).
+    initial weights this way). A scheme with `default_data` /
+    `default_lr_schedule` (the scaled schemes) supplies the corpus and
+    the schedule when none is given.
 
     Crash-consistent resume: `checkpoint_every` > 0 snapshots the run
     every k cycles into `checkpoint_dir` (train state, data-rng state,
@@ -118,6 +132,9 @@ class Experiment:
     def _data(self):
         if self.data is not None:
             return self.data
+        if hasattr(self.scheme, "default_data"):
+            return self.scheme.default_data(self.n_train, self.n_test,
+                                            self.seed)
         return corpus(self.n_train, self.n_test, self.seed)
 
     def _check_checkpointable(self):
@@ -171,7 +188,9 @@ class Experiment:
             # init-time upload, so it is not billed twice
             state, start_cycle, accs, losses, total_bits = \
                 self._restore(state, rng)
-        sched = self.lr_schedule or lr_at
+        sched = (self.lr_schedule
+                 or getattr(self.scheme, "default_lr_schedule", None)
+                 or lr_at)
         for cyc in range(start_cycle, self.cycles):
             lr = sched(state.epoch) * self.lr_scale
             batch = self.scheme.cycle_batches(state, rng, cyc)

@@ -50,6 +50,11 @@ class JaxDraws:
         w = jax.random.bits(self._key(name), tuple(shape), jnp.uint32)
         return torch.from_numpy(np.asarray(w).astype(np.int64))
 
+    def words_u32(self, name, shape, device):
+        w = jax.random.bits(self._key(name), tuple(shape), jnp.uint32)
+        return torch.from_numpy(
+            np.asarray(w).view(np.int32).copy()).to(device)
+
     def normal(self, name, shape):
         """jax.random.normal of the key itself (core/dp.py draws one
         leaf's noise per child key of `JaxKey.split`)."""
@@ -122,6 +127,11 @@ class JaxLinkDraws:
         w = jax.random.bits(self._key(name), tuple(shape), jnp.uint32)
         return torch.from_numpy(np.asarray(w).astype(np.int64))
 
+    def words_u32(self, name, shape, device):
+        w = jax.random.bits(self._key(name), tuple(shape), jnp.uint32)
+        return torch.from_numpy(
+            np.asarray(w).view(np.int32).copy()).to(device)
+
 
 class JaxServeDraws:
     """The JAX engine's serving draws (module docstring of
@@ -156,13 +166,17 @@ def _torch_tree(tree):
 
 
 def port_train_state(js):
-    """A JAX TrainState of one user as the port's."""
-    from repro_torch.optim import SGDState
+    """A JAX TrainState of one user as the port's (SGD-momentum or
+    AdamW optimizer state)."""
+    from repro_torch.optim import AdamWState, SGDState
     from repro_torch.runtime.train_step import TrainState
-    return TrainState(_torch_tree(js.trainable),
-                      SGDState(_torch_tree(js.opt_state.velocity),
-                               int(np.asarray(js.opt_state.step).reshape(
-                                   -1)[0])),
+    ost = js.opt_state
+    step = int(np.asarray(ost.step).reshape(-1)[0])
+    if hasattr(ost, "mu"):
+        opt = AdamWState(_torch_tree(ost.mu), _torch_tree(ost.nu), step)
+    else:
+        opt = SGDState(_torch_tree(ost.velocity), step)
+    return TrainState(_torch_tree(js.trainable), opt,
                       int(np.asarray(js.step).reshape(-1)[0]))
 
 

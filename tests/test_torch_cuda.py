@@ -879,3 +879,135 @@ def test_token_uplink_erasures_on_card_equal_cpu(cuda_device):
     assert torch.equal(card.payload.cpu(), cpu.payload)
     assert (card.bits, card.n_tx, card.erased_bits, card.outage_s) == \
         (cpu.bits, cpu.n_tx, cpu.erased_bits, cpu.outage_s)
+
+
+# ----------------------------------------- the scaled schemes (dense, P15)
+def _wire_mean_case(rows, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    buf = (rng.standard_normal((n * rows, 256))
+           * rng.uniform(0.01, 3.0, (n * rows, 1))).astype(np.float32)
+    rand = rng.integers(0, 2 ** 32, (n * rows, 256), dtype=np.int64)
+    from repro_torch.core import quantization as Q
+    scale = Q.scale_from_amax(torch.from_numpy(
+        np.abs(buf).max(axis=1, keepdims=True)), 8)
+    p = torch.from_numpy(rng.uniform(0, 0.1, (n * rows, 1))
+                         .astype(np.float32))
+    w = torch.full((n * rows, 1), 1.0 / n)
+    return [t.to(dev).contiguous() for t in
+            (torch.from_numpy(buf), torch.from_numpy(rand), scale, p, w)]
+
+
+@pytest.mark.parametrize("rows", [98_304, 1_001])
+def test_packed_wire_mean_at_the_qwen_sync_leaf(rows, cuda_device):
+    """K2 at one stacked [24, 1024, 1024] leaf of qwen1.5-0.5b's FL sync
+    (3 x 98,304 rows) and at a ragged 3 x 1,001, bit for bit with its
+    plain version."""
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.kernels.quant_channel import ref as qref
+    buf, rand, scale, p, w = _wire_mean_case(rows, 3, rows, cuda_device)
+    words = qc.words_u32(rand)
+    got = qc.packed_wire_mean_2d(buf, words, scale, p, w, 8, 3)
+    want = qref.packed_wire_mean_ref(buf, words, scale, p, w, 8, 3)
+    assert got.shape == (rows, 256) and torch.equal(got, want)
+
+
+def _scaled(mode, dev, **kw):
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, WirelessConfig, get_arch
+    from repro_torch.schemes import build_scheme
+    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").reduced(),
+                              remat=False)
+    shape = ShapeConfig("t", 16, 4, "train", microbatch=4)
+    w = None if mode == "cl" else WirelessConfig(mode=mode, **kw)
+    return build_scheme(w, cfg=cfg, shape=shape, device=dev,
+                        steps_per_cycle=1), cfg, shape, w
+
+
+def test_scaled_cl_step_on_card_equals_cpu(cuda_device):
+    """One AdamW step of the reduced qwen1.5-0.5b (scaled CL) on the card
+    and on the CPU from the same weights: the same corpus bill, the
+    step's gradients within 2e-5 (abs + rel), and every weight after the
+    step within 2e-5 but a few: AdamW divides each gradient by its own
+    magnitude, so where one is within float error of zero the two
+    devices' updates (at most lr = 3e-4 each) may differ in sign — at
+    most 8 such weights, each within 2 lr."""
+    from repro_torch.nn import tree_leaves
+    from repro_torch.runtime.train_step import value_and_grad
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scheme, cfg, _, _ = _scaled("cl", dev)
+        (xtr, ytr), _ = scheme.default_data(32, 8, 0)
+        state, dlv = scheme.init(0, xtr, ytr)
+        x = torch.from_numpy(state.data[0][:4]).to(dev)
+        _, g = value_and_grad(state.train.trainable,
+                              {"tokens": x, "labels": x}, cfg, None, None)
+        batch = scheme.cycle_batches(state, np.random.default_rng(1), 0)
+        state, _ = scheme.round(state, batch, scheme.round_key(0, 0), 3e-4)
+        out[str(dev)] = (dlv.bits, tree_leaves(state.train.trainable),
+                         tree_leaves(g))
+    (bc, wc, gc), (bh, wh, gh) = out["cuda"], out["cpu"]
+    assert bc == bh == 32 * 16 * 10
+    for a, b in zip(gc, gh):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-5, atol=2e-5)
+    far = 0
+    for a, b in zip(wc, wh):
+        d = (a.cpu() - b).abs()
+        far += int((d > 2e-5 + 2e-5 * b.abs()).sum())
+        assert float(d.max()) <= 2 * 3e-4
+    assert far <= 8
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_scaled_fl_cycle_on_card_equals_cpu(use_kernel, cuda_device):
+    """One scaled FL cycle (reduced qwen1.5-0.5b, 3 users, J 2) on the
+    card: the same bill as on the CPU and one K1 (or K2) launch; then the
+    card's user-stacked weights sent through the cycle's sync on the
+    card (K1 or K2) and on the CPU (plain versions): bit for bit."""
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.core.draws import Key
+    from repro_torch.nn import tree_leaves, tree_map
+    from repro_torch.runtime import fl_runtime as FL
+    from repro_torch.schemes import Experiment
+    bills = {}
+    for dev in (cuda_device, "cpu"):
+        qc.packed_wire_2d.launches = qc.packed_wire_mean_2d.launches = 0
+        scheme, cfg, shape, w = _scaled("fl", dev, quant_bits=8,
+                                        local_steps=2,
+                                        use_kernel=use_kernel)
+        exp = Experiment(scheme, cycles=1, seed=0, n_train=48, n_test=8)
+        exp.run()
+        bills[str(dev)] = [(r.bits, r.n_tx) for r in exp.reports]
+        launches = (qc.packed_wire_2d.launches,
+                    qc.packed_wire_mean_2d.launches)
+        if dev != "cpu":
+            assert launches == ((0, 1) if use_kernel else (1, 0))
+            weights = exp.final_state.train.trainable["model"]
+    assert bills["cuda"] == bills["cpu"]
+    sync = FL.make_fl_sync(w, 3)
+    key = Key(3, 7)
+    on_card = sync(key, weights, weights)
+    on_cpu = sync(key, tree_map(lambda a: a.cpu(), weights),
+                  tree_map(lambda a: a.cpu(), weights))
+    for a, b in zip(tree_leaves(on_card), tree_leaves(on_cpu)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sl_crossing_bf16_on_card_equals_cpu(cuda_device):
+    """The SL crossing of a bf16 [4, 16, 64] activation (K1 on the card)
+    and its gradient leg equal the CPU's bit for bit."""
+    from repro_torch.core import channel as CH
+    from repro_torch.core.draws import Key
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 16, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((4, 16, 64)).astype(
+        np.float32) * 0.05).to(torch.bfloat16)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        xt = x.to(dev).requires_grad_()
+        y = CH.channel_crossing(xt, Key(5), 8, 5.0, True, 0.5, False, 3,
+                                0.25)
+        y.backward(g.to(dev))
+        out[str(dev)] = (y.detach().cpu(), xt.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)

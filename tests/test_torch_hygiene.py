@@ -1,5 +1,5 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import
-neither JAX nor the JAX package, importing the port builds nothing, and
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and the port's
+examples (`examples/torch_*.py`) import neither JAX nor the JAX package, importing the port builds nothing, and
 an entry point asked for the default device runs on the card or raises
 — it never falls back to the CPU."""
 import ast
@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path):
