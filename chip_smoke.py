@@ -16,7 +16,8 @@ Run from the root of a checkout, on a machine with a CUDA card. It
 2. holds each serving attention kernel against its plain PyTorch version
    on the card: at the main path's shapes (bf16, 16 KV heads, G 1,
    head dim 64, page 16, ragged lengths, chunks of 4..32), in f32 at the
-   same shapes, with GQA (G 4) and with a sliding window. Tolerance
+   same shapes, with GQA (G 4), with a sliding window and at phase 12's
+   head shapes (hd 128 at G 5, 12 and 16; hd 64 at G 16). Tolerance
    2e-4 in f32 (the JAX suite's attention tolerance), 2e-2 in bf16 (the
    plain version rounds its logits and output to bf16, each ~2^-8
    relative). Every variant is run twice and must give the same bits,
@@ -38,9 +39,10 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    greedy tokens in every request and the same first-chunk logits, bit
    for bit; and that each request's first-chunk logits are finite and
    lie within LOGIT_TOL of the teacher-forced `forward` (plain
-   attention, no kernels). It traces 8 requests of each run for the
-   device's idle share and the attention kernels' share of the busy time
-   (a kernel name that matches no traced kernel fails the run);
+   attention, no kernels). It traces 4 requests of each run (at most 8
+   new tokens each) for the device's idle share and the attention
+   kernels' share of the busy time (a kernel name that matches no
+   traced kernel fails the run);
 4. holds each packed-wire kernel against its plain PyTorch version on the
    card, bit for bit (`torch.equal`): K1 `packed_wire_2d` in its three
    code widths (uint32, int8, int4) at the FL upload's [1080, 256] (3
@@ -166,10 +168,38 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    at the SL leg against their plain versions, timed beside their
    bounds; and K1 and K2 at the whole sync, [5,437,368, 256], timed and
    held against their plain versions bit for bit, 65,536 rows a slab;
-12. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5, 7, 8, 9, 10 and 11 together; K1-K4
-   also per timed shape, under "by_shape"), the card's name and power
-   limit, and as the last line {"ok": true, "device": ...}.
+12. serves the moe family and the wide-head dense configs at full width
+   (random weights from --seed), paged then dense, 8 slots, greedy,
+   chunk 32, page 16, a fading 10 dB radio, `make_trace(seed, n,
+   prompt_lens=(32, 128), new_tokens=(8, 32))`: qwen3-moe-235b-a22b (hd
+   64, 128 experts top-8) at 4 of 94 layers, 16 requests;
+   llama4-scout-17b-a16e (hd 128, G 5, 16 experts top-1 + shared) at 2
+   of 48, chatglm3-6b (hd 128, G 16) at its full 28 and
+   command-r-plus-104b (hd 128, G 12, parallel block) at 2 of 64, 8
+   requests each. It checks each run's two kernels once per layer per
+   decode step and prefill chunk, paged = dense bills, tokens and
+   first-chunk logits bit for bit, and the first-chunk logits finite and
+   within 8 bf16 ulps at the largest |logit| of a plain reference: the
+   teacher-forced `forward` for the dense configs; for MoE, whose
+   capacity makes a result depend on the tokens that share a call, the
+   fused `prefill_step` with the plain attention on the same chunk and
+   cache (routing swaps accepted within ROUTER_TIE router logits). It
+   prints tok/s, TTFT, the MoE's mean dropped fraction at prefill and
+   decode (decode must drop none), max_memory_allocated, and a traced
+   serve's idle share and busy time split into expert products, casts
+   and attention. Then qwen3-moe-235b-a22b and llama4-scout-17b-a16e at
+   `reduced()` through the scaled CL, SL and FL (K1) schemes, one cycle
+   each on the card and the CPU: bills equal, losses within 2e-3,
+   accuracy within 0.01, every CL / SL step's load-balance loss finite
+   and > 0, K1 by shape, no K3-K10 launch. Phase 2 also holds K7-K10 at
+   these configs' heads (KV heads, G, hd: 4, 16, 64; 8, 5, 128; 2, 16,
+   128; 8, 12, 128) against their plain versions, paged = dense, and
+   times them (`by_shape`, with the launches of each config's serving);
+13. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5, 7, 8, 9, 10, 11 and 12 together, K7-K10
+   over phases 3 and 12; K1-K4 and K7-K10 also per timed shape, under
+   "by_shape"), the card's name and power limit, and as the last line
+   {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
 a machine without CUDA, or from a directory without src/repro_torch.
@@ -179,6 +209,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -413,13 +444,29 @@ def _sdpa(case):
         q, k, v, attn_mask=m)), (q, case.k, case.v, mask)
 
 
-def check_kernels(S: int, seed: int) -> tuple:
-    """Every kernel against its plain version at the main path's shapes
-    and the GQA / window variants. Returns (rows for the JSON line,
+# the attention shapes (KV heads, group G, head dim) of phase 12's served
+# configs: qwen3-moe-235b-a22b, llama4-scout-17b-a16e, chatglm3-6b and
+# command-r-plus-104b. G 5 and 12 leave partial head-group blocks (decode)
+# and partial 16-row groups (prefill: C * G rows)
+WIDE_HEADS = ((4, 16, 64), (8, 5, 128), (2, 16, 128), (8, 12, 128))
+
+
+def _shape_key(kern, case) -> list:
+    """A kernel's by_shape key: [B, Hkv, G, hd], prefill [B, C, Hkv, G,
+    hd]."""
+    return [case.B] + ([case.C] if kern["prefill"] else []) + [
+        case.Hkv, case.G, case.hd]
+
+
+def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
+    """Every kernel against its plain version at the main path's shapes,
+    the GQA / window variants and phase 12's head shapes (WIDE_HEADS, at
+    phase 12's cache length S_wide). Returns (rows for the JSON line,
     failures, the dense decode kernel's split sweep)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
+    wide_rng = np.random.default_rng(seed + 12)
     bf16, f32 = torch.bfloat16, torch.float32
     main = dict(B=8, Hkv=16, G=1, S=S, hd=64, page=16, window=0)
     from repro_torch.kernels.decode_attention import ops as dec
@@ -436,9 +483,17 @@ def check_kernels(S: int, seed: int) -> tuple:
             ("window-48", dict(main, window=48, C=chunks[-1], dtype=bf16)),
             ("gqa-window-f32", dict(main, Hkv=4, G=4, window=48,
                                     C=chunks[-1], dtype=f32))]
-        err_main, timed = 0.0, None
+        # phase 12's heads draw from a stream of their own, so that the
+        # checks above see the data they always saw
+        for hkv, g, hd in WIDE_HEADS:
+            wide = dict(main, S=S_wide, Hkv=hkv, G=g, hd=hd, C=chunks[-1],
+                        rng=wide_rng)
+            variants += [(f"wide-hd{hd}-g{g}", dict(wide, dtype=bf16)),
+                         (f"wide-hd{hd}-g{g}-f32", dict(wide, dtype=f32))]
+        err_main, timed, by_shape = 0.0, None, []
         for label, kw in variants:
-            case = Case(rng, **kw)
+            kw = dict(kw)
+            case = Case(kw.pop("rng", rng), **kw)
             args = _args(kern, case)
             got = kern["fn"](*args, window=case.window)
             again = kern["fn"](*args, window=case.window)
@@ -462,7 +517,8 @@ def check_kernels(S: int, seed: int) -> tuple:
                   f"{'ok' if ok else 'FAILED'}", flush=True)
             if not ok:
                 failures.append(tag)
-            if label == "main":
+            if label == "main" or (label.startswith("wide")
+                                   and case.dtype == bf16):
                 err_main = max(err_main, err)
                 ms = time_case(kern, case)
                 twin_note = ""
@@ -477,12 +533,19 @@ def check_kernels(S: int, seed: int) -> tuple:
                       f"{ms['plain_ms']:.4f} ms, library "
                       f"{ms['library_ms']} ms, bound {ms['bound_ms']:.4f}"
                       f" ms ({ms['bound_by']}){twin_note}", flush=True)
-                timed = ms          # the largest chunk (32) is kept
+                if label != "main":
+                    by_shape.append(dict(shape=_shape_key(kern, case),
+                                         launches=None, **ms))
+                    continue
+                timed, case_main = ms, case   # the largest chunk (32)
                 if kern["name"] == "decode_attention":
                     sweep = split_sweep(case)
+        by_shape.insert(0, dict(shape=_shape_key(kern, case_main),
+                                launches=None, **timed))
         out.append(dict(name=kern["name"], route="cuda",
                         source=kern["source"], replaces=kern["replaces"],
-                        launches=None, max_abs_err=err_main, **timed))
+                        launches=None, max_abs_err=err_main, **timed,
+                        by_shape=by_shape))
     return out, failures, sweep
 
 
@@ -987,18 +1050,117 @@ def check_tiny_kernels(seed: int) -> tuple:
 
 
 # -------------------------------------------------------- the main path
+SERVE_PATH = {"paged": ("paged_decode_attention", "paged_prefill_attention"),
+              "dense": ("decode_attention", "prefill_attention")}
+# the traced serves (phases 3 and 12) serve the trace's first 4
+# requests, each cut to at most 8 new tokens: the profiler's own
+# processing of a trace grows with its device events, which grow with
+# the decode steps, and at 8 whole requests (177,590 device events on an
+# H100) it took most of phase 3's 279 s
+PROFILED, PROFILED_TOKENS = 4, 8
+
+
+def traced_sample(trace):
+    """The requests a traced serve replays (PROFILED, PROFILED_TOKENS)."""
+    import dataclasses
+    from repro_torch.serve import RequestTrace
+    return RequestTrace(trace.seed, tuple(
+        dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens,
+                                                  PROFILED_TOKENS))
+        for r in trace.requests[:PROFILED]))
+
+
+def _attention_counters() -> dict:
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.prefill_attention import ops as pre
+    return {"decode_attention": dec.gqa_decode,
+            "paged_decode_attention": dec.gqa_decode_paged,
+            "prefill_attention": pre.gqa_prefill,
+            "paged_prefill_attention": pre.gqa_prefill_paged}
+
+
+def serve_once(cfg, params, trace, kv: str, keep_chunks: bool = False):
+    """Serve `trace` with `ServeEngine` on 8 slots, greedy, chunk 32,
+    page 16, over a fading 10 dB radio, with K7-K10's launch counters
+    set to 0 just before `serve` and read just after. Returns (engine,
+    report, first chunks [(chunk tokens, logits)], step calls, launches,
+    kept chunks, warmup s). With `keep_chunks`, every prefill call that
+    holds a first chunk is kept for a later reference run: the cache as
+    it was before the call, the call's inputs, the expert choices of its
+    MoE layers (`RouteTape`) and its first-chunk rows."""
+    from repro_torch.schemes.radio import Radio
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, n_slots=8, greedy=True, kv=kv,
+                      radio=Radio(snr_db=10.0, fading=True), device="cuda")
+    warm = eng.warmup_compile(trace.max_seq_len())
+    built = eng.build(max(8, trace.max_seq_len()))
+    calls = {"decode": 0, "prefill": 0}
+    firsts, kept = [], []
+    orig = dict(built)
+    tape = RouteTape() if keep_chunks and cfg.is_moe else None
+
+    def decode(*a, _f=orig["decode"]):
+        calls["decode"] += 1
+        return _f(*a)
+
+    def prefill(cache, toks, st, nv, tbl, _f=orig["prefill"]):
+        calls["prefill"] += 1
+        rows = ((st == 0) & (nv > 0)).nonzero()[:, 0].tolist()
+        snap = None
+        if keep_chunks and rows:
+            snap = {k: v.clone() for k, v in cache.items()}
+        with (tape.record() if tape is not None and snap is not None
+              else contextlib.nullcontext([])) as routes:
+            lg, cache = _f(cache, toks, st, nv, tbl)
+        if snap is not None:
+            kept.append((snap, toks.clone(), st.clone(), nv.clone(),
+                         tbl.clone(), list(routes), rows))
+        for b in rows:
+            firsts.append((toks[b, :int(nv[b])].clone(), lg[b].clone()))
+        return lg, cache
+
+    built.update(decode=decode, prefill=prefill)
+    counters = _attention_counters()
+    for f in counters.values():
+        f.launches = 0
+    rep = eng.serve(trace)
+    n = {k: f.launches for k, f in counters.items()}
+    built.update(orig)
+    return eng, rep, firsts, calls, n, kept, warm
+
+
+def launch_failures(cfg, kv: str, calls: dict, n: dict) -> list:
+    """The layout's two kernels once per layer for every decode step and
+    prefill chunk, the other two never."""
+    kd, kp = SERVE_PATH[kv]
+    want = {kd: cfg.n_layers * calls["decode"],
+            kp: cfg.n_layers * calls["prefill"]}
+    return [f"{cfg.name} kv={kv}: {k} launched {v} times, expected "
+            f"{want.get(k, 0)}" for k, v in n.items()
+            if v != want.get(k, 0) or (k in want and v == 0)]
+
+
+def print_serve(tag: str, warm: float, calls: dict, d: dict, n: dict):
+    print(f"serve {tag}: warmup {warm:.2f} s; {d['cycles']} cycles "
+          f"({calls['decode']} decode steps, {calls['prefill']} "
+          f"prefill chunks), {d['generated_tokens']} tokens in "
+          f"{d['wall_s']:.3f} s = {d['tokens_per_s']:.1f} tok/s; ttft "
+          f"p50/p99 {d['p50_ttft_s']:.4f}/{d['p99_ttft_s']:.4f} s, "
+          f"{d['p50_ttft_cycles']:.0f}/{d['p99_ttft_cycles']:.0f} "
+          f"cycles; latency p50/p99 {d['p50_latency_cycles']:.0f}/"
+          f"{d['p99_latency_cycles']:.0f} cycles; statuses "
+          f"{d['statuses']}; launches {n}", flush=True)
+
+
 def serve_phase(seed: int) -> tuple:
     """Serve qwen1.5-0.5b at full width, paged then dense. Returns
     ({kernel name: launches}, summary dict, failures)."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.prefill_attention import ops as pre
     from repro_torch.models import api as M
     from repro_torch.models import transformer as T
     from repro_torch.nn import count_params, init_params
-    from repro_torch.schemes.radio import Radio
-    from repro_torch.serve import RequestTrace, ServeEngine, make_trace
+    from repro_torch.serve import make_trace
 
     cfg = get_arch("qwen1.5-0.5b")
     t0 = time.perf_counter()
@@ -1010,83 +1172,23 @@ def serve_phase(seed: int) -> tuple:
           f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{count_params(params)} params, {cfg.dtype}; init "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    counters = {"decode_attention": dec.gqa_decode,
-                "paged_decode_attention": dec.gqa_decode_paged,
-                "prefill_attention": pre.gqa_prefill,
-                "paged_prefill_attention": pre.gqa_prefill_paged}
-    path = {"paged": ("paged_decode_attention", "paged_prefill_attention"),
-            "dense": ("decode_attention", "prefill_attention")}
     failures, launches, runs, prof = [], {}, {}, {}
-    S = max(8, trace.max_seq_len())
     for kv in ("paged", "dense"):
-        eng = ServeEngine(cfg, params, n_slots=8, greedy=True, kv=kv,
-                          radio=Radio(snr_db=10.0, fading=True),
-                          device="cuda")
-        warm = eng.warmup_compile(trace.max_seq_len())
-        built = eng.build(S)
-        calls = {"decode": 0, "prefill": 0}
-        firsts = []          # (chunk tokens, logits) of each first chunk
-        orig = dict(built)
-
-        def decode(*a, _f=orig["decode"]):
-            calls["decode"] += 1
-            return _f(*a)
-
-        def prefill(cache, toks, st, nv, tbl, _f=orig["prefill"]):
-            calls["prefill"] += 1
-            lg, cache = _f(cache, toks, st, nv, tbl)
-            for b in ((st == 0) & (nv > 0)).nonzero()[:, 0].tolist():
-                firsts.append((toks[b, :int(nv[b])].clone(), lg[b].clone()))
-            return lg, cache
-
-        built.update(decode=decode, prefill=prefill)
-        for f in counters.values():
-            f.launches = 0
-        rep = eng.serve(trace)
-        built.update(orig)
-        n = {k: f.launches for k, f in counters.items()}
+        eng, rep, firsts, calls, n, _, warm = serve_once(cfg, params, trace,
+                                                         kv)
         d = rep.to_dict()
-        print(f"serve kv={kv}: warmup {warm:.2f} s; {d['cycles']} cycles "
-              f"({calls['decode']} decode steps, {calls['prefill']} "
-              f"prefill chunks), {d['generated_tokens']} tokens in "
-              f"{d['wall_s']:.3f} s = {d['tokens_per_s']:.1f} tok/s; ttft "
-              f"p50/p99 {d['p50_ttft_s']:.4f}/{d['p99_ttft_s']:.4f} s, "
-              f"{d['p50_ttft_cycles']:.0f}/{d['p99_ttft_cycles']:.0f} "
-              f"cycles; latency p50/p99 {d['p50_latency_cycles']:.0f}/"
-              f"{d['p99_latency_cycles']:.0f} cycles; statuses "
-              f"{d['statuses']}; launches {n}", flush=True)
-        kd, kp = path[kv]
-        want = {kd: cfg.n_layers * calls["decode"],
-                kp: cfg.n_layers * calls["prefill"]}
-        for k, v in n.items():
-            if v != want.get(k, 0) or (k in want and v == 0):
-                failures.append(f"kv={kv}: {k} launched {v} times, "
-                                f"expected {want.get(k, 0)}")
-            if k in want:
-                launches[k] = v
+        print_serve(f"kv={kv}", warm, calls, d, n)
+        failures += launch_failures(cfg, kv, calls, n)
+        launches.update({k: n[k] for k in SERVE_PATH[kv]})
         runs[kv] = (rep, firsts, d)
-        prof[kv] = profile_phase(eng, RequestTrace(trace.seed,
-                                                   trace.requests[:8]), kv)
+        prof[kv] = profile_phase(eng, traced_sample(trace), kv)
         if prof[kv].get("unmatched_kernel_patterns"):
             failures.append(f"kv={kv}: no traced kernel matches "
                             f"{prof[kv]['unmatched_kernel_patterns']}")
 
-    # the bills are the same, request by request, in both layouts
-    def bills(rep):
-        return [(r.rid, r.status, r.bits, r.erased_bits, r.energy_j,
-                 r.n_tx, r.outage_s, r.uplink_bits, r.downlink_bits)
-                for r in rep.results]
     (rp, fp, dp), (rd, fd, dd) = runs["paged"], runs["dense"]
-    if bills(rp) != bills(rd):
-        failures.append("paged and dense bills differ")
-    same_tokens = sum(a.tokens == b.tokens
-                      for a, b in zip(rp.results, rd.results))
-    if same_tokens != len(rp.results) or len(rp.results) != len(rd.results):
-        failures.append(f"paged and dense greedy tokens differ in "
-                        f"{len(rp.results) - same_tokens} requests")
-    print(f"bills equal: {bills(rp) == bills(rd)} ({dp['bits']:.0f} bits, "
-          f"{dp['energy_j']:.6e} J); requests with equal tokens paged vs "
-          f"dense: {same_tokens}/{len(rp.results)}", flush=True)
+    same_tokens, f = layouts_agree(rp, rd)
+    failures += f
 
     # first-chunk logits: finite, paged == dense, and near forward()
     if len(fp) != len(fd) or not fp:
@@ -1126,8 +1228,8 @@ def serve_phase(seed: int) -> tuple:
         failures.append("paged and dense greedy tokens part where forward() "
                         "does not put the two choices within 2 LOGIT_TOL")
     summary = {kv: runs[kv][2] for kv in runs}
-    summary.update(profile_paged_8_requests=prof["paged"],
-                   profile_dense_8_requests=prof["dense"],
+    summary.update(profile_paged=prof["paged"],
+                   profile_dense=prof["dense"],
                    first_chunk_max_abs_paged_dense=worst_pd,
                    first_chunk_max_abs_vs_forward=worst_ref,
                    first_chunk_max_abs_dense_vs_forward=worst_dref,
@@ -1136,6 +1238,28 @@ def serve_phase(seed: int) -> tuple:
                    first_chunk_max_rel_l2_vs_forward=rel,
                    equal_token_requests=same_tokens)
     return launches, summary, failures
+
+
+def layouts_agree(rp, rd) -> tuple:
+    """The paged and the dense run bill every request alike and generate
+    the same greedy tokens. Returns (requests with equal tokens,
+    failures)."""
+    def bills(rep):
+        return [(r.rid, r.status, r.bits, r.erased_bits, r.energy_j,
+                 r.n_tx, r.outage_s, r.uplink_bits, r.downlink_bits)
+                for r in rep.results]
+    failures = []
+    if bills(rp) != bills(rd):
+        failures.append("paged and dense bills differ")
+    same_tokens = sum(a.tokens == b.tokens
+                      for a, b in zip(rp.results, rd.results))
+    if same_tokens != len(rp.results) or len(rp.results) != len(rd.results):
+        failures.append(f"paged and dense greedy tokens differ in "
+                        f"{len(rp.results) - same_tokens} requests")
+    print(f"bills equal: {bills(rp) == bills(rd)} ({rp.bits:.0f} bits, "
+          f"{rp.energy_j:.6e} J); requests with equal tokens paged vs "
+          f"dense: {same_tokens}/{len(rp.results)}", flush=True)
+    return same_tokens, failures
 
 
 def divergences(eng, params, cfg, trace, rp, rd) -> list:
@@ -1946,7 +2070,8 @@ def profile_phase(eng, trace, kv: str, kernels=None) -> dict:
 
 def _idle_summary(prof, wall_us: float, label: str) -> dict:
     """Device busy time (union of kernel spans), idle share of the traced
-    wall time, device time by kernel and host self time by op."""
+    wall time, device time by kernel and by op (self), and host self
+    time by op."""
     import torch
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1966,13 +2091,16 @@ def _idle_summary(prof, wall_us: float, label: str) -> dict:
         n, t = by_kernel.get(e.name, (0, 0.0))
         by_kernel[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top_dev = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    top_host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total
-                      )[:12]
+    averages = prof.key_averages()
+    top_host = sorted(averages, key=lambda a: -a.self_cpu_time_total)[:12]
     out = {"traced_wall_s": wall_us / 1e6,
            "device_busy_s": busy / 1e6,
            "device_idle_share": 1.0 - busy / wall_us,
            "device_kernels": len(kern),
            "device_us_by_kernel": by_kernel,
+           "device_us_by_op": {a.key: a.self_device_time_total
+                               for a in averages
+                               if a.self_device_time_total > 0},
            "top_device_us": {k: {"calls": n, "us": t}
                              for k, (n, t) in top_dev},
            "top_host_self_us": {a.key: {"calls": a.count,
@@ -3484,6 +3612,388 @@ def scaled_phase(seed: int, card_name: str, shapes: dict) -> tuple:
     return launches, summary, timed, failures
 
 
+# ------------------------- the MoE family and the wide dense configs (P15)
+# phase 12. (a)-(c) serve, paged then dense, at full width with random
+# weights from --seed: qwen3-moe-235b-a22b (d_model 4096, 64 / 4 heads, hd
+# 64, 128 experts top-8, expert d_ff 1536, vocab 151,936) at 4 of its 94
+# layers and llama4-scout-17b-a16e (d_model 5120, 40 / 8 heads, hd 128,
+# 16 experts top-1 + a shared expert, expert d_ff 8192, vocab 202,048)
+# at 2 of 48; chatglm3-6b (28 layers, hd 128, 32 / 2 heads, half-dim
+# RoPE, QKV bias) at full depth and command-r-plus-104b (d_model 12,288,
+# 96 / 8 heads, hd 128, layernorm, parallel block) at 2 of 64. Depth is
+# cut with dataclasses.replace here, not by a flag. Each run: K8 + K10
+# (paged) or K7 + K9 (dense) once per layer per decode step and prefill
+# chunk; paged = dense in bills, tokens and first-chunk logits, bit for
+# bit; first-chunk logits finite and within 8 bf16 ulps at the run's
+# largest |logit| of a plain reference. For the dense family that is the
+# teacher-forced `forward`. For MoE it is the port's fused `prefill_step`
+# with the plain attention on the same [B, C] chunk and cache: capacity
+# makes the output depend on which tokens share a call, so `forward`
+# (other groupings) is no reference. The reference computes its own
+# float32 routing; where its top-k set differs from the kernel run's it
+# takes the kernel run's experts, and such a swap is accepted only where
+# the two lie within ROUTER_TIE router logits (a near-tie that a bf16 ulp
+# of the router's input can flip). (d) qwen3-moe-235b-a22b and
+# llama4-scout-17b-a16e at `reduced()` through the scaled CL, SL and FL
+# (K1 sync) schemes, one cycle each on the card and on the CPU: bills
+# equal, losses within LOSS_TOL, accuracy within ACC_TOL, the load-balance
+# loss of every CL / SL step finite and > 0, K1 at the SL legs and the FL
+# sync by shape, no K3-K10 launch.
+MOE_TRACE = dict(prompt_lens=(32, 128), new_tokens=(8, 32))
+# (arch, layers served (0: all), requests, first-chunk reference)
+SERVED = (("qwen3-moe-235b-a22b", 4, 16, "prefill"),
+          ("llama4-scout-17b-a16e", 2, 8, "prefill"),
+          ("chatglm3-6b", 0, 8, "forward"),
+          ("command-r-plus-104b", 2, 8, "forward"))
+ROUTER_TIE = 2 ** -5
+MOE_TRAINED = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+
+
+def ulp_tol(x) -> float:
+    """8 bf16 ulps at the largest |x| (bf16 keeps 8 significant bits)."""
+    return 8 * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+
+
+class RouteTape:
+    """Swaps `repro_torch.models.moe.route` while recording the expert
+    ids of every MoE call in order, or while replaying a recording: a
+    replaying call computes its own float32 routing and, where its top-k
+    set differs from the recorded one, takes the recorded experts with
+    gates from its own probabilities; `margins` logs, per such token,
+    how many router logits the recorded set's weakest expert lies below
+    the replaying call's own k-th choice."""
+
+    def __init__(self):
+        self.margins = []
+
+    @contextlib.contextmanager
+    def _swapped(self, fn):
+        from repro_torch.models import moe
+        kept = moe.route
+        moe.route = fn(kept)
+        try:
+            yield
+        finally:
+            moe.route = kept
+
+    @contextlib.contextmanager
+    def record(self):
+        log = []
+
+        def wrap(orig):
+            def route(p, xf, cfg):
+                out = orig(p, xf, cfg)
+                log.append(out[2])
+                return out
+            return route
+        with self._swapped(wrap):
+            yield log
+
+    @contextlib.contextmanager
+    def replay(self, routes):
+        import torch
+        from repro_torch.models.layers import linear
+        it = iter(routes)
+
+        def wrap(orig):
+            def route(p, xf, cfg):
+                probs, gate, idx = orig(p, xf, cfg)
+                want = next(it)
+                diff = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+                if not bool(diff.any()):
+                    return probs, gate, idx
+                z = linear(p["router"], xf.float())[diff]
+                own = z.gather(1, idx[diff]).min(-1).values
+                self.margins += (own - z.gather(1, want[diff]).min(-1)
+                                 .values).tolist()
+                gate = probs.gather(1, want)
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                          min=1e-9)
+                return probs, gate, want
+            return route
+        with self._swapped(wrap):
+            yield
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """While open, the model's attention calls run the kernels' plain
+    versions on the card (the reference runs; no counter moves)."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.prefill_attention import ops as pre
+    from repro_torch.kernels.prefill_attention import ref as pref
+    plain = {(dec, "gqa_decode"): dref.decode_attention_ref,
+             (dec, "gqa_decode_paged"): dref.paged_decode_attention_ref,
+             (pre, "gqa_prefill"): pref.prefill_attention_ref,
+             (pre, "gqa_prefill_paged"): pref.paged_prefill_attention_ref}
+    kept = {k: getattr(*k) for k in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, lambda *a, _f=fn, **kw: _f(*a, **kw).float())
+    try:
+        yield
+    finally:
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def drop_log(log: list):
+    """While open, every MoE layer call of the transformer appends
+    ("prefill" or "decode", its dropped fraction tensor) to `log`."""
+    from repro_torch.models import transformer as T
+    kept = T.apply_moe
+
+    def spy(p, h, cfg):
+        y, aux = kept(p, h, cfg)
+        log.append(("decode" if h.shape[1] == 1 else "prefill",
+                    aux["dropped_frac"].detach()))
+        return y, aux
+    T.apply_moe = spy
+    try:
+        yield log
+    finally:
+        T.apply_moe = kept
+
+
+def busy_split(prof: dict, kv: str) -> dict:
+    """The traced device busy time split by what ran: the expert products
+    (aten::bmm), casts and copies (aten::copy_: the per-call f32 -> bf16
+    weight casts and the KV writes), and the layout's attention kernels."""
+    busy = prof.get("device_busy_s")
+    ops = prof.get("device_us_by_op", {})
+    if not busy:
+        return {"note": "not measured"}
+    out = {"expert_products_s": ops.get("aten::bmm", 0.0) / 1e6,
+           "casts_and_copies_s": ops.get("aten::copy_", 0.0) / 1e6,
+           "attention_s": busy * sum(prof.get(f"{k}_share_of_busy", 0.0)
+                                     for k in SERVE_PATH[kv])}
+    out.update({k.replace("_s", "_share"): v / busy for k, v in
+                list(out.items())})
+    return out
+
+
+def serve_model(name: str, depth: int, n_req: int, ref: str,
+                seed: int) -> tuple:
+    """Phase 12 (a)-(c) for one config. Returns ({kernel: launches},
+    {kernel shape: launches}, summary, failures)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api as M
+    from repro_torch.models import transformer as T
+    from repro_torch.nn import count_params, init_params
+    from repro_torch.serve import make_trace
+    cfg = get_arch(name)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.perf_counter()
+    params = init_params(M.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(seed), "cuda")
+    trace = make_trace(seed, n_req, **MOE_TRACE)
+    init_s = time.perf_counter() - t0
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}"
+          f", {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, experts {cfg.n_experts} top-{cfg.top_k}"
+          f"{' + shared' if cfg.shared_expert else ''}, vocab "
+          f"{cfg.vocab_size}, {count_params(params)} params, {cfg.dtype}; "
+          f"init {init_s:.2f} s", flush=True)
+    failures, runs, launches, drops = [], {}, {}, {}
+    secs = {"init": init_s}
+    for kv in ("paged", "dense"):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        with drop_log([]) as dl:
+            eng, rep, firsts, calls, n, kept, warm = serve_once(
+                cfg, params, trace, kv, keep_chunks=ref == "prefill"
+                and kv == "paged")
+        d = rep.to_dict()
+        d["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() \
+            / 2 ** 30
+        print_serve(f"{cfg.name} kv={kv}", warm, calls, d, n)
+        print(f"  max_memory_allocated "
+              f"{d['max_memory_allocated_gib']:.2f} GiB", flush=True)
+        failures += launch_failures(cfg, kv, calls, n)
+        launches.update({k: n[k] for k in SERVE_PATH[kv]})
+        if cfg.is_moe:     # the serve's own calls: warmup's come first
+            served = dl[-cfg.n_layers * (calls["decode"]
+                                         + calls["prefill"]):]
+            drops[kv] = {k: float(torch.stack(
+                [t for kk, t in served if kk == k]).mean())
+                for k in ("prefill", "decode")}
+            print(f"  mean dropped fraction: prefill chunks "
+                  f"{drops[kv]['prefill']:.4f}, decode steps "
+                  f"{drops[kv]['decode']:.4f}", flush=True)
+            if drops[kv]["decode"] != 0.0:
+                failures.append(f"{cfg.name}: a decode step dropped")
+        runs[kv] = (eng, rep, firsts, d, kept)
+        secs[kv] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = profile_phase(runs["paged"][0], traced_sample(trace), "paged")
+    secs["profile"] = time.perf_counter() - t0
+    split = busy_split(prof, "paged")
+    print(f"  traced busy split (paged, {PROFILED} requests of at most "
+          f"{PROFILED_TOKENS} new tokens): {split}", flush=True)
+    if prof.get("unmatched_kernel_patterns"):
+        failures.append(f"{cfg.name}: no traced kernel matches "
+                        f"{prof['unmatched_kernel_patterns']}")
+    (_, rp, fp, dp, kept), (_, rd, fd, dd, _) = runs["paged"], runs["dense"]
+    same_tokens, f = layouts_agree(rp, rd)
+    failures += [f"{cfg.name}: {x}" for x in f]
+    # first-chunk logits: finite, paged == dense, near the reference
+    refs, tape, pf = [], RouteTape(), None
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        if ref == "prefill":
+            pf = runs["paged"][0].build(max(8, trace.max_seq_len()))[
+                "prefill"]
+            for snap, toks, st, nv, tbl, routes, rows in kept:
+                with tape.replay(routes), plain_attention():
+                    lg, _ = pf(snap, toks, st, nv, tbl)
+                refs += [lg[b] for b in rows]
+        else:
+            refs = [T.forward(params, {"tokens": tp[None]}, cfg)[0][0, -1]
+                    .float() for tp, _ in fp]
+    secs["reference"] = time.perf_counter() - t0
+    print(f"  seconds: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}",
+          flush=True)
+    if len(fp) != len(fd) or len(refs) != len(fp) or not fp:
+        failures.append(f"{cfg.name} first chunks: {len(fp)} paged, "
+                        f"{len(fd)} dense, {len(refs)} references")
+    equal, worst, tol = True, 0.0, 0.0
+    for (tp, lp), (td, ld), rf in zip(fp, fd, refs):
+        equal = equal and torch.equal(tp, td) and torch.equal(lp, ld)
+        if not (torch.isfinite(lp).all() and lp.shape == rf.shape):
+            failures.append(f"{cfg.name}: first-chunk logits not finite")
+        tol = max(tol, ulp_tol(rf))
+        worst = max(worst, float((lp - rf).abs().max()))
+    margin = max(tape.margins, default=0.0)
+    print(f"  first-chunk logits over {len(fp)} requests: paged == dense "
+          f"bit for bit {equal}; max |paged - {ref} reference| "
+          f"{worst:.4e} (tol {tol:g}, 8 bf16 ulps at the largest |logit|)"
+          + (f"; routing swaps in the reference {len(tape.margins)}, "
+             f"largest margin {margin:.4e} router logits (tie bound "
+             f"{ROUTER_TIE:g})" if ref == "prefill" else ""), flush=True)
+    if not equal:
+        failures.append(f"{cfg.name}: paged and dense first chunks differ")
+    if worst > tol:
+        failures.append(f"{cfg.name}: first-chunk logits differ from the "
+                        f"{ref} reference by {worst} > {tol}")
+    if margin > ROUTER_TIE:
+        failures.append(f"{cfg.name}: the reference picks other experts "
+                        f"by up to {margin} router logits")
+    summary = dict(paged=dp, dense=dd, layers=cfg.n_layers,
+                   equal_token_requests=same_tokens, first_chunks=len(fp),
+                   first_chunk_max_abs_vs_reference=worst,
+                   logit_tol=tol, reference=ref,
+                   routing_swaps=len(tape.margins), routing_margin=margin,
+                   dropped_frac=drops, profile_paged=prof,
+                   busy_split=split, seconds=secs)
+    shape = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd)
+    # an engine and its step closures refer to each other: only the
+    # collector frees them, and with them the weights
+    del runs, params, eng, kept, refs, pf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {shape: dict(launches)}, summary, failures
+
+
+def moe_training(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 12 (d). Returns ({kernel: launches}, summary, failures)."""
+    import math as _m
+    from repro_torch.configs import get_arch
+    from repro_torch.schemes import Experiment, build_scheme
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    summary, failures = {}, []
+    with launch_shapes({}) as phase_shapes:
+        for name in MOE_TRAINED:
+            cfg = get_arch(name).reduced()
+            for mode in ("cl", "sl", "fl_k1"):
+                wcfg, opts, _ = _scaled_runs()[mode]
+                out = {}
+                for dev in ("cuda", "cpu"):
+                    scheme = build_scheme(wcfg, cfg=cfg, device=dev, **opts)
+                    aux = []
+                    if hasattr(scheme, "_step"):
+                        step = scheme._step
+
+                        def logged(*a, _s=step, _l=aux, **kw):
+                            st, m = _s(*a, **kw)
+                            if not m["aux_loss"].is_meta:
+                                _l.append(float(m["aux_loss"]))
+                            return st, m
+                        scheme._step = logged
+                    n0 = {k: f.launches for k, f in counters.items()}
+                    exp = Experiment(scheme, cycles=1, seed=seed,
+                                     n_train=128, n_test=32)
+                    out[dev] = (exp, exp.run(), aux, {
+                        k: f.launches - n0[k] for k, f in counters.items()})
+                (ec, rc, ac, nc), (eh, rh, ah, _) = out["cuda"], out["cpu"]
+                bills = [(r.bits, r.n_tx, r.erased_bits) for r in
+                         ec.reports] == [(r.bits, r.n_tx, r.erased_bits)
+                                         for r in eh.reports]
+                dloss = max(abs(a - b) for a, b in zip(rc.loss, rh.loss))
+                dacc = max(abs(a - b) for a, b in
+                           zip(rc.accuracy, rh.accuracy))
+                lb_ok = mode == "fl_k1" or (ac and ah and all(
+                    _m.isfinite(x) and x > 0 for x in ac + ah))
+                other = {k: v for k, v in nc.items()
+                         if k not in _wire_counters() and v}
+                k1 = nc["packed_wire_2d"] + nc["packed_wire_mean_2d"]
+                rec = dict(bills=[r.bits for r in ec.reports],
+                           bills_equal=bills, loss=rc.loss,
+                           loss_gap=dloss, accuracy_gap=dacc,
+                           lb_loss=ac, launches=nc)
+                summary[f"{name} {mode}"] = rec
+                print(f"reduced {name} {mode}: card vs CPU bills equal "
+                      f"{bills} ({rec['bills']}), loss {rc.loss} gap "
+                      f"{dloss:.3e}, accuracy gap {dacc:.4f}, lb_loss "
+                      f"{[round(x, 4) for x in ac]}, launches "
+                      f"{ {k: v for k, v in nc.items() if v} } "
+                      f"({card_name})", flush=True)
+                if not bills or dloss > LOSS_TOL or dacc > ACC_TOL \
+                        or not lb_ok or other or (mode != "cl" and k1 == 0):
+                    failures.append(f"reduced {name} {mode}: {rec}")
+    launches = {k: f.launches for k, f in counters.items()}
+    failures += merge_shapes(shapes, phase_shapes, launches, "moe training")
+    summary["k1_by_shape"] = {str(list(k)): v for k, v in
+                              phase_shapes.get("packed_wire_2d", {}).items()}
+    print(f"moe training K1 by shape {summary['k1_by_shape']}", flush=True)
+    return launches, summary, failures
+
+
+def wide_phase(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 12. Returns ({kernel: launches}, {kernel: {(Hkv, G, hd):
+    launches}}, summary, failures)."""
+    launches, by_shape, summary, failures, secs = {}, {}, {}, [], {}
+    for name, depth, n_req, ref in SERVED:
+        t0 = time.perf_counter()
+        n, per_shape, summary[name], f = serve_model(name, depth, n_req,
+                                                     ref, seed)
+        secs[name] = time.perf_counter() - t0
+        failures += f
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        for shp, counts in per_shape.items():
+            for k, v in counts.items():
+                by_shape.setdefault(k, {})[shp] = \
+                    by_shape.get(k, {}).get(shp, 0) + v
+    t0 = time.perf_counter()
+    train_launches, summary["training"], f = moe_training(seed, card_name,
+                                                          shapes)
+    secs["training"] = time.perf_counter() - t0
+    failures += f
+    for k, v in train_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    summary["seconds"] = secs
+    print(f"phase 12 parts: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}",
+          flush=True)
+    return launches, by_shape, summary, failures
+
+
 # ------------------------------------------------------------------ main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3532,9 +4042,12 @@ def main() -> None:
     S = max(8, make_trace(args.seed, 24, prompt_lens=(32, 256),
                           new_tokens=(16, 64)).max_seq_len())
     S = 16 * math.ceil(S / 16)
-    print(f"kernel checks at the main path's shapes (S {S})", flush=True)
+    S_wide = 16 * math.ceil(max(8, make_trace(
+        args.seed, 16, **MOE_TRACE).max_seq_len()) / 16)
+    print(f"kernel checks at the main path's shapes (S {S}; phase 12's "
+          f"heads at S {S_wide})", flush=True)
     t_check = time.perf_counter()
-    rows, failures, sweep = check_kernels(S, args.seed)
+    rows, failures, sweep = check_kernels(S, args.seed, S_wide)
     print(f"attention kernel checks: {time.perf_counter() - t_check:.1f} s",
           flush=True)
     floor = launch_floor_ms()
@@ -3552,8 +4065,6 @@ def main() -> None:
     print(f"serving phase: {time.perf_counter() - t_serve:.1f} s",
           flush=True)
     failures += serve_failures
-    for r in rows:
-        r["launches"] = launches.get(r["name"], 0)
     t_train = time.perf_counter()
     shapes = {}
     train_launches, train_summary, train_failures, card_runs = \
@@ -3598,7 +4109,23 @@ def main() -> None:
           f"{time.perf_counter() - t_qwen:.1f} s; launches "
           f"{qwen_launches}", flush=True)
     failures += qwen_failures
-    # the training paths' launches: phases 5, 7, 8, 9, 10 and 11 together
+    t_wide = time.perf_counter()
+    wide_launches, wide_by_shape, wide_summary, wide_failures = wide_phase(
+        args.seed, card, shapes)
+    print(f"moe and wide-head phase: {time.perf_counter() - t_wide:.1f} s; "
+          f"launches {wide_launches}", flush=True)
+    failures += wide_failures
+    # the serving path's launches: phases 3 and 12, by head shape
+    qwen_heads = (16, 1, 64)
+    for r in rows:
+        r["launches"] = launches.get(r["name"], 0) \
+            + wide_launches.get(r["name"], 0)
+        for s in r["by_shape"]:
+            heads = tuple(s["shape"][-3:])
+            s["launches"] = (launches.get(r["name"], 0)
+                             if heads == qwen_heads else 0) \
+                + wide_by_shape.get(r["name"], {}).get(heads, 0)
+    # the training paths' launches: phases 5, 7, 8, 9, 10, 11 and 12
     for r in wire_rows + tiny_rows:
         extra = qwen_timed.get(r["name"])
         if extra:
@@ -3610,14 +4137,14 @@ def main() -> None:
         r.pop("shape", None)
         r["launches"] = sum(p.get(r["name"], 0) for p in (
             train_launches, priv_launches, tiny_launches, opt_launches,
-            fleet_launches, qwen_launches))
+            fleet_launches, qwen_launches, wide_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
     shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
               for k, c in shapes.items()}
-    print(f"launches by shape over phases 5, 7, 8, 9, 10 and 11: {shapes}",
-          flush=True)
+    print(f"launches by shape over phases 5, 7, 8, 9, 10, 11 and 12: "
+          f"{shapes}", flush=True)
     rows += wire_rows + tiny_rows
     if args.out:
         out = Path(args.out)
@@ -3634,6 +4161,7 @@ def main() -> None:
                                    "options": opt_summary,
                                    "fleets": fleet_summary,
                                    "qwen_training": qwen_summary,
+                                   "moe_and_wide_heads": wide_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

@@ -1,0 +1,18 @@
+"""stablelm-12b [dense] — 40L d_model=5120 32H (GQA kv=8) d_ff=13824
+vocab=100352.  [hf:stabilityai/stablelm-2-1_6b family / StableLM 2 12B card]"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="stablelm-12b",
+    family="dense",
+    citation="hf:stabilityai/stablelm-2-1_6b (StableLM 2 family, 12B card)",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab_size=100352,
+    qkv_bias=False,
+    norm="layernorm",
+    rope_theta=10000.0,
+))

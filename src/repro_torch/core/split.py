@@ -3,7 +3,7 @@ the model is cut at `wcfg.split_layer` (the tiny model after conv+pool);
 the user-side activation is semantically compressed (x4), crosses the
 wireless channel (forward AND backward — the gradient is tau-clipped and
 re-quantized on the way down, Alg. 2 lines 11-17), and the server side
-finishes the pass. The cut is a layer for the dense family; the
+finishes the pass. The cut is a layer for the dense and MoE families; the
 super-block cuts of xLSTM / hybrid stacks and the encoder/decoder cut
 are still to port (ROADMAP.md, P15)."""
 from __future__ import annotations
@@ -37,17 +37,19 @@ def _link(codec, x, wcfg, key):
 
 def _split_transformer(params, codec, batch, cfg, wcfg, key, window):
     """Layers [0, cut) on the user, the link, layers [cut, L) on the
-    server, with cut = min(split_layer, n_layers - 1)."""
+    server, with cut = min(split_layer, n_layers - 1); a MoE stack's
+    load-balance loss adds up across the cut."""
     x = transformer.embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     layers = transformer.layer_list(params["layers"])
     cut = min(wcfg.split_layer, cfg.n_layers - 1)
-    x = transformer.apply_blocks(layers[:cut], x, cfg, positions, window)
+    x, aux = transformer.apply_blocks(layers[:cut], x, cfg, positions,
+                                      window)
     x = _link(codec, x, wcfg, key)
-    x = transformer.apply_blocks(layers[cut:], x, cfg, positions, window)
+    x, aux = transformer.apply_blocks(layers[cut:], x, cfg, positions,
+                                      window, aux)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x), {"aux_loss": aux / cfg.n_layers}
 
 
@@ -77,11 +79,12 @@ def crossing_elems(cfg, shape_cfg, wcfg) -> int:
 
 
 def split_forward(params, codec, batch, cfg, wcfg, key, window: int = 0):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _split_transformer(params, codec, batch, cfg, wcfg, key,
                                   window)
     if cfg.family == "tiny":
         return _split_tiny(params, codec, batch, cfg, wcfg, key)
     raise NotImplementedError(
         f"split learning for family {cfg.family!r} is not ported yet; the "
-        f"port splits the dense and tiny families (see ROADMAP.md, P15)")
+        f"port splits the dense, moe and tiny families (see ROADMAP.md, "
+        f"P15)")

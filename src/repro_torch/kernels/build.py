@@ -118,14 +118,23 @@ def sm_count(index: int) -> int:
 
 # ------------------------------------------------- wrapper-side checks
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
-HEAD_DIMS = (64,)
+# the head dims the attention kernels (K7-K10) are instantiated for; any
+# other raises at the wrapper (hd 160, stablelm-12b, is ROADMAP.md queue
+# 2: "K7-K10 at hd 160")
+HEAD_DIMS = (64, 128)
 
 
 def attention_args(what: str, q, k, v, hd: int) -> int:
     """Validate the float operands of an attention launch (all on one
     CUDA device, one dtype, contiguous, 16-byte aligned for the kernels'
-    vector loads, a supported head dim). Returns the kernel's dtype
-    code."""
+    vector loads, a supported head dim; the head dim first, so that the
+    message naming the missing instance shows on any device). Returns
+    the kernel's dtype code."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(
+            f"{what}: head dim {hd} not in {HEAD_DIMS}: the attention "
+            f"kernels are built for these only (ROADMAP.md, queue 2: "
+            f"\"K7-K10 at hd 160\" for stablelm-12b)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{what}: {name} must be on {q.device}")
@@ -140,8 +149,6 @@ def attention_args(what: str, q, k, v, hd: int) -> int:
     code = _DTYPE_CODES.get(str(q.dtype))
     if code is None:
         raise ValueError(f"{what}: dtype {q.dtype} not in float32/bfloat16")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
     return code
 
 

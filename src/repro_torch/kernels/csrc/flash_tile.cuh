@@ -167,9 +167,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Launches the f32 body (head dim 64, the only one the port's configs
-// use); `smem_pages` entries of dynamic shared memory for the mapper.
-template <typename Cols>
+// Launches the f32 body at head dim HD (64 or 128: at 128 its static
+// shared memory is 43,328 bytes and a thread keeps 16 accumulators);
+// `smem_pages` entries of dynamic shared memory for the mapper.
+template <int HD, typename Cols>
 int launch_prefill(const float* q, const float* k, const float* v,
                    float* out, const int* start, const Cols cols,
                    int smem_pages, int B, int Hkv, int G, int C, int window,
@@ -177,12 +178,12 @@ int launch_prefill(const float* q, const float* k, const float* v,
   const int smem = smem_pages * (int)sizeof(long long);
   if (smem > 0) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        prefill_f32_kernel<64, Cols>,
+        prefill_f32_kernel<HD, Cols>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return (int)attr;
   }
   const dim3 grid(B, Hkv, (C * G + ROWS - 1) / ROWS);
-  prefill_f32_kernel<64, Cols><<<grid, THREADS, smem, st>>>(
+  prefill_f32_kernel<HD, Cols><<<grid, THREADS, smem, st>>>(
       q, k, v, out, start, cols, Hkv, G, C, window, scale);
   return (int)cudaGetLastError();
 }

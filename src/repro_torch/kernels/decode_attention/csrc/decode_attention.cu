@@ -23,10 +23,12 @@
 //     blocks of GB head-group rows cover G.
 //   - no CTA-wide barrier in the column loop. The GB query rows live in
 //     registers. Each warp walks its own columns with 16-byte loads: LPC
-//     lanes (8 in bf16, 16 in f32) hold one column's head dim, so a warp
-//     load covers CPW = 32 / LPC neighbouring columns (512 contiguous
-//     bytes), and U loads of K and of V per lane are issued before any of
-//     them is used. q.k is reduced by shuffles inside each LPC-lane group;
+//     = HD / VEC lanes hold one column's head dim (at HD 64: 8 in bf16,
+//     16 in f32; at HD 128: 16 and 32), so a warp load covers CPW = 32 /
+//     LPC neighbouring columns (512 contiguous bytes), and U loads of K
+//     and of V per lane are issued before any of them is used. The head
+//     dim is a template parameter, built for 64 and 128; a lane's
+//     registers do not grow with it, its column group does. q.k is reduced by shuffles inside each LPC-lane group;
 //     each group keeps its own online softmax (m, l) and f32 acc.
 //   - the groups merge by shuffles, the warps once through shared memory,
 //     both in a fixed order. With n_split = 1 the CTA writes the output;
@@ -90,7 +92,10 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int LPC = HD / VEC;         // lanes per column
   constexpr int CPW = 32 / LPC;         // columns per warp load
-  constexpr int U = GB == 1 ? 4 : 2;    // loads in flight per lane, K and V
+  // loads in flight per lane, K and V: 4 for one head-group row at head
+  // dim 64 (the MHA serving shape); at 128 four spill in bf16 (ptxas: 8
+  // bytes at 72 registers), and two keep a warp's 2 KB of K and V in flight
+  constexpr int U = GB == 1 && HD == 64 ? 4 : 2;
   constexpr int STEP = WARPS * CPW * U; // columns per CTA iteration
   static_assert(HD % VEC == 0 && 32 % LPC == 0, "head dim vs warp");
 
@@ -294,13 +299,13 @@ int launch_split(const void* q, const void* k, const void* v, float* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename Cols>
+template <typename T, int HD, typename Cols>
 int dispatch_gb(int gb, const void* q, const void* k, const void* v,
                 float* out, float* ws, const int* lengths, const Cols cols,
                 int smem_pages, int B, int Hkv, int G, int n_split,
                 int window, float scale, cudaStream_t st) {
 #define GQA_SPLIT(GBV)                                                      \
-  launch_split<T, 64, GBV, Cols>(q, k, v, out, ws, lengths, cols,          \
+  launch_split<T, HD, GBV, Cols>(q, k, v, out, ws, lengths, cols,          \
                                  smem_pages, B, Hkv, G, n_split, window,    \
                                  scale, st)
   if (gb == 1) return GQA_SPLIT(1);
@@ -310,21 +315,40 @@ int dispatch_gb(int gb, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// the head dims the kernels are built for (build.HEAD_DIMS): at 64 a bf16
+// column takes 8 lanes and an f32 one 16, at 128 16 and 32; a CTA's
+// shared merge buffer sm_acc is WARPS * GB * HD floats, 8 KiB at 128
+template <typename T, typename Cols>
+int dispatch_hd(int hd, int gb, const void* q, const void* k, const void* v,
+                float* out, float* ws, const int* lengths, const Cols cols,
+                int smem_pages, int B, int Hkv, int G, int n_split,
+                int window, float scale, cudaStream_t st) {
+  if (hd == 64)
+    return dispatch_gb<T, 64>(gb, q, k, v, out, ws, lengths, cols,
+                              smem_pages, B, Hkv, G, n_split, window, scale,
+                              st);
+  if (hd == 128)
+    return dispatch_gb<T, 128>(gb, q, k, v, out, ws, lengths, cols,
+                               smem_pages, B, Hkv, G, n_split, window, scale,
+                               st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename Cols>
 int dispatch(int dtype, int gb, const void* q, const void* k, const void* v,
              float* out, float* ws, const int* lengths, const Cols cols,
              int smem_pages, int B, int Hkv, int G, int hd, int n_split,
              int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 64 || n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_gb<float>(gb, q, k, v, out, ws, lengths, cols,
+    return dispatch_hd<float>(hd, gb, q, k, v, out, ws, lengths, cols,
                               smem_pages, B, Hkv, G, n_split, window, scale,
                               st);
   if (dtype == 1)
-    return dispatch_gb<__nv_bfloat16>(gb, q, k, v, out, ws, lengths, cols,
-                                      smem_pages, B, Hkv, G, n_split, window,
-                                      scale, st);
+    return dispatch_hd<__nv_bfloat16>(hd, gb, q, k, v, out, ws, lengths,
+                                      cols, smem_pages, B, Hkv, G, n_split,
+                                      window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

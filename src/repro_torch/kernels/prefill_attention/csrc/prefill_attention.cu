@@ -24,8 +24,11 @@
 // Design. One CTA of 4 warps per (b, h, block of 16 * WR rows); paged, it
 // first stages the row base of each page of its span in shared memory
 // (one table read per page, one barrier). WR warps each own 16 rows, and
-// the KS = 4 / WR warps of one row group take every KS-th 64-column tile
-// of the group's span, so the CTA keeps its 4 warps busy even at 16 rows. A warp's Q fragments stay in registers for the
+// the KS = 4 / WR warps of one row group take every KS-th tile of the
+// group's span (64 columns at head dim 64, 32 at 128: a tile is 8 KiB
+// either way), so the CTA keeps its 4 warps busy even at 16 rows. The
+// head dim is a template parameter, built for 64 and 128; at 128 a warp
+// holds twice the Q fragments and O accumulators (32 and 64 registers). A warp's Q fragments stay in registers for the
 // whole loop. Each warp stages its own K/V tiles in bf16 in shared memory
 // with cp.async (16 bytes a lane), double-buffered, rows XOR-swizzled in
 // 16-byte chunks so that ldmatrix (and ldmatrix.trans for V) is free of
@@ -54,11 +57,22 @@ namespace gqa {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int TILE = 64;                          // KV columns per tile
-constexpr int HD = 64;                            // head dim
-constexpr int TILE_ELEMS = TILE * HD;             // one K or V tile
-constexpr int WARP_SMEM = 2 * 2 * TILE_ELEMS * 2; // 2 stages of K and V
+constexpr int TILE_BYTES = 8192;                  // one K or V tile
+constexpr int WARP_SMEM = 2 * 2 * TILE_BYTES;     // 2 stages of K and V
 constexpr int SMEM = WARPS * WARP_SMEM;           // 128 KB
+
+// The tile geometry of head dim HD (built for 64 and 128): a tile is
+// TILE_BYTES of bf16 whatever the head dim, so the CTA's shared memory
+// stays at 128 KB (four warps' double-buffered K and V). At HD 64 a tile
+// is 64 columns, at HD 128 32: 64 x 128 would need 256 KB, above the
+// 227 KB a CTA may have. A row is CH 16-byte chunks (8 or 16).
+template <int HD>
+struct Tile {
+  static_assert(HD % 32 == 0 && HD <= 128, "head dim");
+  static constexpr int COLS = TILE_BYTES / (2 * HD);  // KV columns a tile
+  static constexpr int ELEMS = COLS * HD;
+  static constexpr int CH = HD / 8;
+};
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -107,12 +121,16 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&p);
 }
 
-// element offset of (row, 16-byte chunk ch) in a swizzled 64-wide tile
+// element offset of (row, 16-byte chunk ch) in a swizzled HD-wide tile:
+// the XOR touches the low 3 bits of ch only, so it stays inside the row's
+// CH chunks, and the 8 rows an ldmatrix reads hit 8 different 16-byte
+// bank groups (a row is 128 or 256 bytes, a whole number of bank cycles)
+template <int HD>
 __device__ __forceinline__ int swz(int row, int ch) {
   return row * HD + ((ch ^ (row & 7)) << 3);
 }
 
-template <int WR, typename Cols>
+template <int HD, int WR, typename Cols>
 __global__ void __launch_bounds__(THREADS, 1)
     prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -121,6 +139,12 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const Cols cols, int Hkv, int G, int C, int window,
                        float scale) {
   constexpr int KS = WARPS / WR;
+  constexpr int TILE = Tile<HD>::COLS, TILE_ELEMS = Tile<HD>::ELEMS;
+  constexpr int CH = Tile<HD>::CH;
+  constexpr int NB = TILE / 8;      // 8-column blocks of S = Q.K^T a tile
+  constexpr int KD = TILE / 16;     // 16-column depth steps of P.V a tile
+  constexpr int QK = HD / 16;       // 16-dim depth steps of Q.K^T
+  constexpr int OB = HD / 8;        // 8-dim blocks of O
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
@@ -134,7 +158,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int S = cols.n_cols();
 
   // Q fragments of rows r0 + gid and r0 + gid + 8, straight from global
-  unsigned qf[4][4];
+  unsigned qf[QK][4];
   long long qrow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -142,7 +166,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     qrow[i] = r < R ? ((long long)b * C + r / G) * H + h * G + r % G : -1;
   }
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < QK; ++kk) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {  // a0..a3: (row i, col half)
       const int i = j & 1, half = j >> 1;
@@ -180,19 +204,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     __nv_bfloat16* ks_ = wbuf + stage * 2 * TILE_ELEMS;
     __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
 #pragma unroll
-    for (int it = 0; it < TILE * HD / 8 / 32; ++it) {
-      const int i = it * 32 + lane, row = i >> 3, ch = i & 7;
+    for (int it = 0; it < TILE * CH / 32; ++it) {
+      const int i = it * 32 + lane, row = i / CH, ch = i % CH;
       const int c = t * TILE + row;
       const bool in = c >= lo && c < hi;
       const long long off = in ? rows(c) * HD + ch * 8 : 0;
-      cp_async16(smem_u32(ks_ + swz(row, ch)), k + off, in ? 16 : 0);
-      cp_async16(smem_u32(vs_ + swz(row, ch)), v + off, in ? 16 : 0);
+      cp_async16(smem_u32(ks_ + swz<HD>(row, ch)), k + off, in ? 16 : 0);
+      cp_async16(smem_u32(vs_ + swz<HD>(row, ch)), v + off, in ? 16 : 0);
     }
   };
 
-  float o[8][4];
+  float o[OB][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < OB; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {flash::NEG_INF, flash::NEG_INF}, l[2] = {0.f, 0.f};
@@ -208,17 +232,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     const __nv_bfloat16* ks_ = wbuf + (i & 1) * 2 * TILE_ELEMS;
     const __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
 
-    // S = Q . K^T: 8 column blocks of 8, 4 depth steps of 16
-    float s[8][4];
+    // S = Q . K^T: NB column blocks of 8, QK depth steps of 16
+    float s[NB][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NB; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {
+      for (int kp = 0; kp < QK / 2; ++kp) {
         unsigned bk[4];
         const int row = 8 * n + (lane & 7), ch = 4 * kp + (lane >> 3);
-        ldsm_x4(smem_u32(ks_ + swz(row, ch)), bk);
+        ldsm_x4(smem_u32(ks_ + swz<HD>(row, ch)), bk);
         mma16816(s[n], qf[2 * kp], bk[0], bk[1]);
         mma16816(s[n], qf[2 * kp + 1], bk[2], bk[3]);
       }
@@ -227,7 +251,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // scale, mask, online softmax for rows gid (e 0, 1) and gid + 8 (e 2, 3)
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NB; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i2 = e >> 1, c = t * TILE + 8 * n + 2 * tig + (e & 1);
@@ -246,9 +270,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       corr[i2] = expf(m[i2] - mx[i2]);
       m[i2] = mx[i2];
     }
-    unsigned pa[4][4];   // P as the A operand of 4 depth steps of 16
+    unsigned pa[KD][4];  // P as the A operand of KD depth steps of 16
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NB; ++n) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -266,22 +290,22 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[i2] = l[i2] * corr[i2] + rs[i2];
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < OB; ++n) {
       o[n][0] *= corr[0];
       o[n][1] *= corr[0];
       o[n][2] *= corr[1];
       o[n][3] *= corr[1];
     }
 
-    // O += P . V: 4 depth steps of 16 columns, 8 blocks of 8 dims
+    // O += P . V: KD depth steps of 16 columns, OB blocks of 8 dims
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
+      for (int dp = 0; dp < OB / 2; ++dp) {
         unsigned bv[4];
         const int row = 16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7);
         const int ch = 2 * dp + (lane >> 4);
-        ldsm_x4_t(smem_u32(vs_ + swz(row, ch)), bv);
+        ldsm_x4_t(smem_u32(vs_ + swz<HD>(row, ch)), bv);
         mma16816(o[2 * dp], pa[kk], bv[0], bv[1]);
         mma16816(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
       }
@@ -297,7 +321,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
     float* mine = red + warp * PART;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < OB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         mine[(gid + 8 * (e >> 1)) * HD + 8 * n + 2 * tig + (e & 1)] = o[n][e];
@@ -325,7 +349,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       l[i2] = ll;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < OB; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int d = 8 * n + 2 * tig + e;
@@ -343,24 +367,24 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float inv = 1.f / fmaxf(l[i2], 1e-30f);
     float* dst = out + qrow[i2] * HD;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < OB; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n + 2 * tig) =
           make_float2(o[n][2 * i2] * inv, o[n][2 * i2 + 1] * inv);
   }
 }
 
-template <int WR, typename Cols>
+template <int HD, int WR, typename Cols>
 int launch_mma(const void* q, const void* k, const void* v, float* out,
                const int* start, const Cols cols, int smem_pages, int B,
                int Hkv, int G, int C, int window, float scale,
                cudaStream_t st) {
   const int smem = SMEM + smem_pages * (int)sizeof(long long);
   const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_mma_kernel<WR, Cols>,
+      prefill_mma_kernel<HD, WR, Cols>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(B, Hkv, (C * G + 16 * WR - 1) / (16 * WR));
-  prefill_mma_kernel<WR, Cols><<<grid, THREADS, smem, st>>>(
+  prefill_mma_kernel<HD, WR, Cols><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), out, start, cols, Hkv, G, C,
@@ -370,28 +394,43 @@ int launch_mma(const void* q, const void* k, const void* v, float* out,
 
 // bf16: the tensor-core kernel, with WR = the row warps a CTA needs (1, 2
 // or 4 groups of 16 of the C*G rows); f32: the CUDA-core body.
-template <typename Cols>
-int dispatch(const void* q, const void* k, const void* v, float* out,
-             const int* start, const Cols cols, int smem_pages, int B,
-             int Hkv, int G, int C, int hd, int window, float scale,
-             int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 64) return (int)cudaErrorInvalidValue;
+template <int HD, typename Cols>
+int dispatch_hd(const void* q, const void* k, const void* v, float* out,
+                const int* start, const Cols cols, int smem_pages, int B,
+                int Hkv, int G, int C, int window, float scale, int dtype,
+                cudaStream_t st) {
   if (dtype == 1) {
     const int groups = (C * G + 15) / 16;
 #define GQA_MMA(WRV)                                                        \
-  launch_mma<WRV>(q, k, v, out, start, cols, smem_pages, B, Hkv, G, C,      \
-                  window, scale, st)
+  launch_mma<HD, WRV>(q, k, v, out, start, cols, smem_pages, B, Hkv, G, C,  \
+                      window, scale, st)
     if (groups <= 1) return GQA_MMA(1);
     if (groups == 2) return GQA_MMA(2);
     return GQA_MMA(4);
 #undef GQA_MMA
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return flash::launch_prefill(static_cast<const float*>(q),
-                               static_cast<const float*>(k),
-                               static_cast<const float*>(v), out, start, cols,
-                               smem_pages, B, Hkv, G, C, window, scale, st);
+  return flash::launch_prefill<HD>(static_cast<const float*>(q),
+                                   static_cast<const float*>(k),
+                                   static_cast<const float*>(v), out, start,
+                                   cols, smem_pages, B, Hkv, G, C, window,
+                                   scale, st);
+}
+
+// the head dims the kernels are built for (build.HEAD_DIMS)
+template <typename Cols>
+int dispatch(const void* q, const void* k, const void* v, float* out,
+             const int* start, const Cols cols, int smem_pages, int B,
+             int Hkv, int G, int C, int hd, int window, float scale,
+             int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return dispatch_hd<64>(q, k, v, out, start, cols, smem_pages, B, Hkv, G,
+                           C, window, scale, dtype, st);
+  if (hd == 128)
+    return dispatch_hd<128>(q, k, v, out, start, cols, smem_pages, B, Hkv,
+                            G, C, window, scale, dtype, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace gqa

@@ -7,6 +7,10 @@ the engine path of `repro/launch/serve.py`.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch paper-tinylstm --prompt-len 30 --new-tokens 1 --greedy
 
+    # the MoE family (--reduced: 2 layers, d_model 256, 4 experts top-2)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-235b-a22b --reduced --device cpu --greedy
+
 Runs on the GPU by default (`--device cpu` for the plain versions, at
 `--reduced` size for the transformer). Weights are random, drawn from
 `--seed`. The paper's tiny classifier answers each prompt with its

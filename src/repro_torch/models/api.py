@@ -1,6 +1,7 @@
 """Unified model API: dispatch by family, input specs per shape, losses —
-the port of `repro/models/api.py`. The `dense` family and the paper's
-`tiny` classifier (a streaming decoder with no fused prefill, so serving
+the port of `repro/models/api.py`. The `dense` and `moe` families (one
+transformer, `moe` with expert blocks) and the paper's `tiny`
+classifier (a streaming decoder with no fused prefill, so serving
 prefills it by the exact scan) are ported; the others raise and are
 listed in ROADMAP.md (P15). The logical sharding axes (`param_axes`,
 `input_axes`) belong to the mesh machinery, still to port (P16)."""
@@ -27,11 +28,13 @@ class ModelApi:
     train_specs: Optional[Callable] = None
 
 
+_TRANSFORMER = ModelApi(transformer.model_specs, transformer.forward,
+                        transformer.init_cache_shapes,
+                        transformer.init_cache, transformer.decode_step,
+                        transformer.prefill_step, transformer.train_specs)
 _FAMILIES = {
-    "dense": ModelApi(transformer.model_specs, transformer.forward,
-                      transformer.init_cache_shapes, transformer.init_cache,
-                      transformer.decode_step, transformer.prefill_step,
-                      transformer.train_specs),
+    "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
     "tiny": ModelApi(lstm_tiny.model_specs, lstm_tiny.forward,
                      lstm_tiny.cache_shapes, lstm_tiny.init_cache,
                      lstm_tiny.decode_step, None, lstm_tiny.model_specs),

@@ -1,6 +1,9 @@
-"""Decoder-only transformer LM, dense family — the port of
+"""Decoder-only transformer LM, dense and MoE families — the port of
 `repro/models/transformer.py` (teacher-forced forward, per-slot decode,
-fused chunk prefill; dense and paged KV caches).
+fused chunk prefill; dense and paged KV caches). A MoE block holds
+`moe` (models/moe.py) where a dense block holds `mlp`; its load-balance
+loss is summed over the layers of `forward` and divided by n_layers,
+and decode and prefill drop it, as the JAX package does.
 
 Two parameter layouts. Serving (`model_specs`, `init_params`) holds the
 layers as a list of per-layer subtrees. Training (`train_specs`,
@@ -20,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.nn import (Spec, resolve_device, tree_leaves, tree_map,
                             tree_unflatten)
 
@@ -33,9 +37,9 @@ def block_specs(cfg) -> dict:
     if not cfg.parallel_block:
         s["ln_mlp"] = L.norm_specs(cfg.d_model, cfg.norm)
     if cfg.is_moe:
-        raise NotImplementedError("MoE blocks are not ported yet "
-                                  "(ROADMAP.md, P15)")
-    s["mlp"] = L.mlp_specs(cfg)
+        s["moe"] = moe_specs(cfg)
+    else:
+        s["mlp"] = L.mlp_specs(cfg)
     return s
 
 
@@ -80,17 +84,33 @@ def layer_list(layers) -> list:
 
 
 # ------------------------------------------------------------- blocks
-def _mlp_residual(lp, x, h, attn, cfg):
+def _ffn(lp, h, cfg) -> tuple:
+    """The block's feed-forward on h: (out, load-balance loss or None)."""
+    if cfg.is_moe:
+        m, a = apply_moe(lp["moe"], h, cfg)
+        return m, a["lb_loss"]
+    return L.apply_mlp(lp["mlp"], h), None
+
+
+def _ffn_residual(lp, x, h, attn, cfg) -> tuple:
+    """x + attn + ffn (parallel block: ffn of h; serial: of the re-normed
+    x + attn). Returns (x, load-balance loss or None)."""
     if cfg.parallel_block:
-        return x + attn + L.apply_mlp(lp["mlp"], h)
+        m, lb = _ffn(lp, h, cfg)
+        return x + attn + m, lb
     x = x + attn
-    return x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln_mlp"], x, cfg.norm))
+    m, lb = _ffn(lp, L.apply_norm(lp["ln_mlp"], x, cfg.norm), cfg)
+    return x + m, lb
 
 
 def apply_block(lp, x, cfg, positions=None, causal=True, window: int = 0):
+    """Returns (x, aux_loss): the block's load-balance loss (MoE), else
+    0, in float32."""
     h = L.apply_norm(lp["ln_attn"], x, cfg.norm)
     attn = L.attention_train(lp["attn"], h, cfg, positions, causal, window)
-    return _mlp_residual(lp, x, h, attn, cfg)
+    x, lb = _ffn_residual(lp, x, h, attn, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux if lb is None else aux + lb
 
 
 def apply_block_decode(lp, x, cfg, ck, cv, index, window=0, pages=None,
@@ -98,7 +118,7 @@ def apply_block_decode(lp, x, cfg, ck, cv, index, window=0, pages=None,
     h = L.apply_norm(lp["ln_attn"], x, cfg.norm)
     attn, ck, cv = L.attention_decode_slots(lp["attn"], h, cfg, ck, cv,
                                             index, window, pages, kept)
-    return _mlp_residual(lp, x, h, attn, cfg), ck, cv
+    return _ffn_residual(lp, x, h, attn, cfg)[0], ck, cv
 
 
 def apply_block_prefill(lp, x, cfg, ck, cv, start, n_valid, window=0,
@@ -107,7 +127,7 @@ def apply_block_prefill(lp, x, cfg, ck, cv, start, n_valid, window=0,
     attn, ck, cv = L.attention_prefill_slots(lp["attn"], h, cfg, ck, cv,
                                              start, n_valid, window, pages,
                                              kept)
-    return _mlp_residual(lp, x, h, attn, cfg), ck, cv
+    return _ffn_residual(lp, x, h, attn, cfg)[0], ck, cv
 
 
 # ------------------------------------------------------------- forward
@@ -118,17 +138,22 @@ def embed_inputs(params, batch: dict, cfg) -> torch.Tensor:
     return L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
 
 
-def apply_blocks(layers: list, x, cfg, positions, window: int = 0):
+def apply_blocks(layers: list, x, cfg, positions, window: int = 0,
+                 aux=None) -> tuple:
     """x through the given per-layer subtrees in order, each block
-    recomputed in the backward pass when `cfg.remat` is set. Dense
-    blocks carry no auxiliary loss."""
+    recomputed in the backward pass when `cfg.remat` is set. Returns
+    (x, aux): `aux` (0 by default) plus each block's load-balance loss,
+    added layer by layer as the JAX package's scan carries it."""
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(apply_block, lp, x, cfg, positions, True, window,
-                           use_reentrant=False)
+            x, a = checkpoint(apply_block, lp, x, cfg, positions, True,
+                              window, use_reentrant=False)
         else:
-            x = apply_block(lp, x, cfg, positions, True, window)
-    return x
+            x, a = apply_block(lp, x, cfg, positions, True, window)
+        aux = aux + a
+    return x, aux
 
 
 def forward(params, batch: dict, cfg, window: int = 0) -> tuple:
@@ -137,10 +162,9 @@ def forward(params, batch: dict, cfg, window: int = 0) -> tuple:
     x = embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x = apply_blocks(layer_list(params["layers"]), x, cfg, positions,
-                     window)
+    x, aux = apply_blocks(layer_list(params["layers"]), x, cfg, positions,
+                          window)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x), {"aux_loss": aux / cfg.n_layers}
 
 

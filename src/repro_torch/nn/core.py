@@ -125,8 +125,10 @@ def init_params(specs: dict, generator: torch.Generator,
 def params_from_jax(np_tree: dict, cfg=None, device="cuda"):
     """The JAX package's params, given as numpy arrays. Transformer
     params (stacked ``[L, ...]`` layer leaves, ``embed.table``,
-    ``ln_f``) become the port's serving `ParamDict` with the stacked
-    layers as a list of per-layer subtrees; the tiny family's, and with
+    ``ln_f``; a MoE block's ``moe.router.w``, ``moe.wi`` / ``wg`` /
+    ``wo`` ``[L, E, ...]`` and ``moe.shared`` alike) become the port's
+    serving `ParamDict` with the stacked layers as a list of per-layer
+    subtrees; the tiny family's, and with
     `cfg` None any plain tree (the privacy adversary's MLP, an
     `SLSession`'s model and codec, a transformer's training tree with
     its layers kept stacked), become a trainable tree (``init_tree``'s

@@ -1,8 +1,9 @@
 """Step builders: training (with gradient accumulation over microbatches)
 and prefill — the port of `repro/runtime/train_step.py` for the paper's
-tiny model and the dense family. The wireless mode is woven in here: SL
-routes the forward through the split + channel link (core/split.py); CL
-with a noisy link corrupts the tiny model's raw uplink tokens. FL wraps
+tiny model and the dense and MoE families. The wireless mode is woven in
+here: SL routes the forward through the split + channel link
+(core/split.py); CL with a noisy link corrupts the tiny model's raw
+uplink tokens. FL wraps
 these in runtime/fl_runtime.py.
 
 Gradients come from autograd: a step differentiates detached copies of
@@ -27,7 +28,7 @@ from repro_torch.nn import init_tree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw, sgd_momentum
 
 MOE_AUX_COEF = 0.01
-TRAINED_FAMILIES = ("tiny", "dense")
+TRAINED_FAMILIES = ("tiny", "dense", "moe")
 
 
 class TrainState(NamedTuple):

@@ -1,6 +1,6 @@
 """Scaled-architecture schemes — the port of `repro/schemes/scaled.py`:
-the dense family's CL / FL / SL behind the same `Scheme` protocol and
-`Experiment` driver as the paper's tiny model.
+the dense and MoE families' CL / FL / SL behind the same `Scheme`
+protocol and `Experiment` driver as the paper's tiny model.
 
 * `ScaledCentralizedScheme` — the synthetic corpus crosses the radio
   once at `init` (`Radio.send_tokens`: bit errors corrupt token ids; a
@@ -83,11 +83,11 @@ class _ScaledScheme:
         if cfg.family == "tiny":
             raise ValueError("the paper model runs the tiny schemes; "
                              "build_scheme routes it there")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"training family {cfg.family!r} is not ported yet; the "
-                f"scaled schemes train the dense family (see ROADMAP.md, "
-                f"P15)")
+                f"scaled schemes train the dense and moe families (see "
+                f"ROADMAP.md, P15)")
         self.cfg = cfg
         self.shape = shape or DEFAULT_SHAPE
         self.wcfg = wcfg

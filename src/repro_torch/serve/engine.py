@@ -12,6 +12,10 @@ token per cycle through the decode step. `kv="paged"` keeps the KV in one
 shared page pool (serve/paging.PagePool), `kv="dense"` in a per-slot
 [B, Hkv, S, hd] cache. On CUDA every decode step runs the decode kernel
 (paged or dense) once per layer and every chunk the prefill kernel.
+The MoE family serves like the dense one; its expert capacity is per
+call, so a fused chunk's drops depend on every row the chunk holds
+(idle rows and padded tails route too, as in the JAX engine), while a
+decode step of at most 8 slots cannot drop (capacity >= 8).
 The paper's tiny classifier serves too: its O(1) recurrent cache has
 nothing to page (`kv="paged"` degrades to dense), its chunks are
 prefilled by the exact scan of its decode step, and its "generated
@@ -53,9 +57,9 @@ from repro_torch.serve.paging import (PagePool, bucket_for, pages_needed,
 from repro_torch.serve.trace import RequestTrace
 
 #: families whose decode path accepts a per-slot [B] index vector (ported)
-SLOT_FAMILIES = ("dense", "tiny")
+SLOT_FAMILIES = ("dense", "moe", "tiny")
 #: families whose KV cache can live in the shared page pool (ported)
-PAGED_FAMILIES = ("dense",)
+PAGED_FAMILIES = ("dense", "moe")
 #: the serving RNG stream offset (docs/ACCOUNTING.md §RNG)
 SERVE_STREAM = 13
 #: legs of a request's crossings, as the JAX package folds them

@@ -157,12 +157,12 @@ def test_dense_kernels_are_bitwise_deterministic(kind, dtype, cuda_device):
 PAGED_S = 96                     # 12 pages of 8, 6 of 16, 3 of 32
 
 
-def _paged_dense_case(c, page, g, window, dtype, dev, seed=3):
+def _paged_dense_case(c, page, g, window, dtype, dev, seed=3, hd=64):
     """(paged call, dense call, paged plain call, rows, pool, tables) on
     one seeded dense cache and its shuffled pool; table entries past each
     row's pages point at the spare garbage page."""
     b, hkv = 6, 2
-    q, k, v = attn_fixture(seed, b, hkv, g, PAGED_S, 64, c=c)
+    q, k, v = attn_fixture(seed, b, hkv, g, PAGED_S, hd, c=c)
     last = PAGED_S if c is None else PAGED_S - c
     rows = np.array([0, 1, 15, 16, 17, last], np.int32)
     kp, vp, tables, spare = paged_from_dense(k, v, page, seed + 1)
@@ -204,6 +204,39 @@ def test_paged_kernel_equals_dense_twin_bitwise(c, page, g, window, dtype,
     assert fn.launches == before + 2
     assert torch.equal(got, twin)
     assert torch.equal(got, again)
+    live = rows > 0 if c is None else torch.ones_like(rows, dtype=bool)
+    assert torch.all(got[~live] == 0)
+    torch.testing.assert_close(got[live], plain()[live], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+# K7-K10 at the head dims and GQA groups of the served configs: hd 128 at
+# G 5 (llama4-scout-17b-a16e), 12 (command-r-plus-104b) and 16
+# (chatglm3-6b), hd 64 at G 16 (qwen3-moe-235b-a22b). A G that is not a
+# power of two leaves a partial head-group block in decode (G 5: blocks
+# of 4 and 1 rows) and a partial 16-row group in prefill (C*G = 17 * 5)
+WIDE_HEADS = [(128, 5), (128, 12), (128, 16), (64, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("c", [None, 1, 17, 32])
+@pytest.mark.parametrize("hd,g", WIDE_HEADS)
+def test_wide_heads_match_plain_and_paged_equals_dense(hd, g, c, window,
+                                                       dtype, cuda_device):
+    """Each kernel at these shapes against its plain version, the paged
+    kernel equal to its dense twin bit for bit, the same bits twice."""
+    paged, dense, plain, rows, _, _ = _paged_dense_case(
+        c, 16, g, window, dtype, cuda_device, seed=9, hd=hd)
+    fn, twin_fn = ((dec.gqa_decode_paged, dec.gqa_decode) if c is None
+                   else (pre.gqa_prefill_paged, pre.gqa_prefill))
+    before, twin_before = fn.launches, twin_fn.launches
+    got, again, twin, twin_again = paged(), paged(), dense(), dense()
+    torch.cuda.synchronize()
+    assert (fn.launches, twin_fn.launches) == (before + 2, twin_before + 2)
+    assert got.shape[-1] == hd
+    assert torch.equal(got, again) and torch.equal(twin, twin_again)
+    assert torch.equal(got, twin)
     live = rows > 0 if c is None else torch.ones_like(rows, dtype=bool)
     assert torch.all(got[~live] == 0)
     torch.testing.assert_close(got[live], plain()[live], rtol=TOL[dtype],
@@ -1011,3 +1044,42 @@ def test_sl_crossing_bf16_on_card_equals_cpu(cuda_device):
         out[str(dev)] = (y.detach().cpu(), xt.grad.cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e"])
+def test_apply_moe_on_card_equals_cpu(name, cuda_device):
+    """The reduced MoE layer (4 experts, top-2 / top-1 + shared expert)
+    in f32 at capacity factors 1.25 and 0.25 (drops): the card routes
+    every (token, choice) to the CPU's expert, or the two lie within
+    1e-6 in probability; output and aux within 2e-4."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as MOE
+    from repro_torch.nn import init_tree, tree_map
+    for factor in (1.25, 0.25):
+        cfg = dataclasses.replace(get_arch(name).reduced(),
+                                  capacity_factor=factor)
+        p = init_tree(MOE.moe_specs(cfg), torch.Generator().manual_seed(0),
+                      "cpu")
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (2, 48, cfg.d_model)).astype(np.float32))
+        pc = p
+        pg = tree_map(lambda a: a.to(cuda_device), p)
+        probs, _, idx = MOE.route(pc, x.reshape(-1, cfg.d_model), cfg)
+        _, _, gidx = MOE.route(pg, x.reshape(-1, cfg.d_model).to(
+            cuda_device), cfg)
+        bad = (gidx.cpu() != idx).nonzero()
+        gaps = [float(probs[t, idx[t, c]] - probs[t, gidx[t, c].cpu()])
+                for t, c in bad.tolist()]
+        assert all(abs(g) < 1e-6 for g in gaps), gaps
+        y, aux = MOE.apply_moe(pc, x, cfg)
+        yg, auxg = MOE.apply_moe(pg, x.to(cuda_device), cfg)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(yg.cpu(), y, rtol=2e-4, atol=2e-4)
+        for k in ("lb_loss", "dropped_frac"):
+            torch.testing.assert_close(auxg[k].cpu(), aux[k], rtol=2e-4,
+                                       atol=2e-4)
+        if factor < 1:
+            assert float(auxg["dropped_frac"]) > 0
+
