@@ -17,10 +17,13 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    on the card: at the main path's shapes (bf16, 16 KV heads, G 1,
    head dim 64, page 16, ragged lengths, chunks of 4..32), in f32 at the
    same shapes, with GQA (G 4), with a sliding window and at phase 12's
-   head shapes (hd 128 at G 5, 12 and 16; hd 64 at G 16). Tolerance
-   2e-4 in f32 (the JAX suite's attention tolerance), 2e-2 in bf16 (the
-   plain version rounds its logits and output to bf16, each ~2^-8
-   relative). Every variant is run twice and must give the same bits,
+   head shapes (hd 128 at G 5, 8, 12 and 16; hd 64 at G 16; hd 160 at
+   G 4; the last two also with a window). Tolerance
+   2e-4 in f32 (the JAX suite's attention tolerance), 2e-2 in bf16
+   against the plain version in f32 arithmetic on the same bf16 inputs
+   (in bf16 the plain version rounds its logits and output to bf16 and
+   is itself up to ~0.016 from that at outputs near 4; its gap is
+   printed beside). Every variant is run twice and must give the same bits,
    and each paged kernel must give its dense twin's bits on the same
    data (K8 = K7, K10 = K9: one body each, templated on the addressing).
    It prints the decode kernels' split count, times each kernel, the
@@ -39,7 +42,7 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    greedy tokens in every request and the same first-chunk logits, bit
    for bit; and that each request's first-chunk logits are finite and
    lie within LOGIT_TOL of the teacher-forced `forward` (plain
-   attention, no kernels). It traces 4 requests of each run (at most 8
+   attention, no kernels). It traces 2 requests of each run (at most 8
    new tokens each) for the device's idle share and the attention
    kernels' share of the busy time (a kernel name that matches no
    traced kernel fails the run);
@@ -174,9 +177,11 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    prompt_lens=(32, 128), new_tokens=(8, 32))`: qwen3-moe-235b-a22b (hd
    64, 128 experts top-8) at 4 of 94 layers, 16 requests;
    llama4-scout-17b-a16e (hd 128, G 5, 16 experts top-1 + shared) at 2
-   of 48, chatglm3-6b (hd 128, G 16) at its full 28 and
-   command-r-plus-104b (hd 128, G 12, parallel block) at 2 of 64, 8
-   requests each. It checks each run's two kernels once per layer per
+   of 48, chatglm3-6b (hd 128, G 16) at its full 28,
+   command-r-plus-104b (hd 128, G 12, parallel block) at 2 of 64,
+   stablelm-12b (hd 160, G 4, layernorm) at its full 40 and
+   internvl2-76b (hd 128, G 8; served on tokens, as the JAX engine
+   serves it) at 4 of 80, 8 requests each. It checks each run's two kernels once per layer per
    decode step and prefill chunk, paged = dense bills, tokens and
    first-chunk logits bit for bit, and the first-chunk logits finite and
    within 8 bf16 ulps at the largest |logit| of a plain reference: the
@@ -195,10 +200,34 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    these configs' heads (KV heads, G, hd: 4, 16, 64; 8, 5, 128; 2, 16,
    128; 8, 12, 128) against their plain versions, paged = dense, and
    times them (`by_shape`, with the launches of each config's serving);
-13. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5, 7, 8, 9, 10, 11 and 12 together, K7-K10
-   over phases 3 and 12; K1-K4 and K7-K10 also per timed shape, under
-   "by_shape"), the card's name and power limit, and as the last line
+13. drives the ssm family at full width and depth (xlstm-350m: 24
+   layers, 4 super-blocks of 5 mLSTM + 1 sLSTM, d_model 1024, 4 heads at
+   hd 256, vocab 50,304; random weights from --seed), counters set to 0
+   before and read after: `launch.serve --arch xlstm-350m` (the billed
+   static loop, 4 users x 32 prompt + 16 new tokens, 10 dB fading,
+   greedy): the prompt's decode logits within 8 bf16 ulps at the largest
+   |logit| of the teacher-forced `forward` (its bf16 products reducing
+   in f32; the gap to it with cuBLAS's default bf16 split-K reductions is
+   printed beside), the bill exactly the two crossings' token bits and
+   energy, no kernel launched; then the scaled
+   CL and SL (AdamW, 2 steps, split at super-block 2) through
+   `build_scheme` + `Experiment` and FL (3 users x 1 local step, the K1
+   sync) through `launch.train --arch xlstm-350m --mode fl`, one cycle
+   each on the training CLI's corpus (512 training rows, batch 8, seq
+   128; 32 held-out rows, 4 eval slices):
+   bills exact (CL's corpus 1,048,576 bits once; SL 4,194,304 a step;
+   FL 8 bits a parameter a user, n_tx 3 x 17 leaves), every loss finite,
+   CL's and SL's second step's loss below the first's, K1 twice an SL
+   step and once an SL eval slice and once an FL cycle, no K3-K10
+   launch; it prints seconds per round and eval, the sync's host
+   flip-word seconds, max_memory_allocated and a traced eval slice's
+   idle share. Then internvl2-76b and xlstm-350m at `reduced()` through
+   the scaled CL, SL (2 steps) and FL (K1; 2 local steps) schemes, card
+   against CPU as phase 12's MoE runs;
+14. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5 and 7-13 together, K7-K10 over phases 3
+   and 12; K1-K4 and K7-K10 also per timed shape, under "by_shape"), the
+   card's name and power limit, and as the last line
    {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
@@ -228,6 +257,7 @@ F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores
 # pipe's rate bounds it; the schedulers' issue rate does
 ISSUE_LANES_PER_S = 132 * 4 * 32 * 1.98e9
 L2_BYTES = 50 * 2 ** 20
+# against the plain version in f32 on the same inputs (`_f32`)
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # first-chunk logits against the teacher-forced forward: 8 bf16 ulps at
 # the logits' scale (|logit| < 4, one ulp 2^-6). Paged against dense is
@@ -410,6 +440,18 @@ def kernel_table():
     ]
 
 
+def _f32(args) -> tuple:
+    """`args` with every floating tensor in float32: the plain version on
+    the same values in f32 arithmetic, the bf16 kernels' yardstick (in
+    bf16 the plain version rounds its logits and its output to bf16,
+    ~2^-9 relative each, up to 0.016 at outputs near 4, measured on the
+    CPU at hd 160: the yardstick's own error; against f32 arithmetic a
+    bf16 kernel's only rounding is P to bf16 before P.V, ~0.004 there)."""
+    import torch
+    return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
 def _args(kern, case):
     if kern["paged"]:
         return (case.q, case.kp, case.vp, case.tables, case.rows)
@@ -445,10 +487,16 @@ def _sdpa(case):
 
 
 # the attention shapes (KV heads, group G, head dim) of phase 12's served
-# configs: qwen3-moe-235b-a22b, llama4-scout-17b-a16e, chatglm3-6b and
-# command-r-plus-104b. G 5 and 12 leave partial head-group blocks (decode)
-# and partial 16-row groups (prefill: C * G rows)
-WIDE_HEADS = ((4, 16, 64), (8, 5, 128), (2, 16, 128), (8, 12, 128))
+# configs: qwen3-moe-235b-a22b, llama4-scout-17b-a16e, chatglm3-6b,
+# command-r-plus-104b, stablelm-12b (hd 160: the decode body's 20-lane
+# columns, the bf16 prefill's padded 21-chunk rows, the f32 body's
+# 16-column tiles) and internvl2-76b. G 5 and 12 leave partial head-group
+# blocks (decode) and partial 16-row groups (prefill: C * G rows)
+WIDE_HEADS = ((4, 16, 64), (8, 5, 128), (2, 16, 128), (8, 12, 128),
+              (8, 4, 160), (8, 8, 128))
+# the heads added with stablelm-12b and internvl2-76b, checked also with a
+# sliding window (bf16 and f32)
+WINDOWED_HEADS = ((8, 4, 160), (8, 8, 128))
 
 
 def _shape_key(kern, case) -> list:
@@ -461,8 +509,9 @@ def _shape_key(kern, case) -> list:
 def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
     """Every kernel against its plain version at the main path's shapes,
     the GQA / window variants and phase 12's head shapes (WIDE_HEADS, at
-    phase 12's cache length S_wide). Returns (rows for the JSON line,
-    failures, the dense decode kernel's split sweep)."""
+    phase 12's cache length S_wide; WINDOWED_HEADS also with a window).
+    Returns (rows for the JSON line, failures, the dense decode kernel's
+    split sweep)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -490,6 +539,11 @@ def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
                         rng=wide_rng)
             variants += [(f"wide-hd{hd}-g{g}", dict(wide, dtype=bf16)),
                          (f"wide-hd{hd}-g{g}-f32", dict(wide, dtype=f32))]
+            if (hkv, g, hd) in WINDOWED_HEADS:
+                win = dict(wide, window=48)
+                variants += [
+                    (f"window-hd{hd}-g{g}", dict(win, dtype=bf16)),
+                    (f"window-hd{hd}-g{g}-f32", dict(win, dtype=f32))]
         err_main, timed, by_shape = 0.0, None, []
         for label, kw in variants:
             kw = dict(kw)
@@ -497,8 +551,10 @@ def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
             args = _args(kern, case)
             got = kern["fn"](*args, window=case.window)
             again = kern["fn"](*args, window=case.window)
-            want = kern["plain"](*args, window=case.window).float()
+            want = kern["plain"](*_f32(args), window=case.window).float()
             err = float((got - want).abs().max())
+            err_bf16 = float((got - kern["plain"](
+                *args, window=case.window).float()).abs().max())
             tol = TOL[str(case.dtype).split(".")[1]]
             same = bool(torch.equal(got, again))
             ok = bool(torch.isfinite(got).all()) and err <= tol and same
@@ -512,6 +568,9 @@ def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
                     *_args(twin, case), window=case.window)))
                 ok = ok and same_twin
                 extra += f", equal to {twin['name']} bit for bit {same_twin}"
+            if case.dtype == bf16:
+                extra += (f", vs the plain version in bf16 "
+                          f"{err_bf16:.3e}")
             print(f"  check {tag}: max_abs_err {err:.3e} (tol {tol:g}), "
                   f"same bits twice {same}{extra} "
                   f"{'ok' if ok else 'FAILED'}", flush=True)
@@ -1052,12 +1111,13 @@ def check_tiny_kernels(seed: int) -> tuple:
 # -------------------------------------------------------- the main path
 SERVE_PATH = {"paged": ("paged_decode_attention", "paged_prefill_attention"),
               "dense": ("decode_attention", "prefill_attention")}
-# the traced serves (phases 3 and 12) serve the trace's first 4
+# the traced serves (phases 3 and 12) serve the trace's first 2
 # requests, each cut to at most 8 new tokens: the profiler's own
 # processing of a trace grows with its device events, which grow with
-# the decode steps, and at 8 whole requests (177,590 device events on an
-# H100) it took most of phase 3's 279 s
-PROFILED, PROFILED_TOKENS = 4, 8
+# the decode steps and the layers (on an H100: 8 whole requests of
+# qwen1.5-0.5b, 177,590 device events, most of phase 3's 279 s; 4
+# requests of stablelm-12b's 40 layers, 62,103 events, 40 s of phase 12)
+PROFILED, PROFILED_TOKENS = 2, 8
 
 
 def traced_sample(trace):
@@ -1997,8 +2057,10 @@ def step_gap(seed: int) -> float:
 
 
 def profile_train(seed: int) -> dict:
-    """One FL cycle (the paper's full size) under torch.profiler: the
-    share of the traced wall time in which no kernel ran on the card."""
+    """One FL cycle (the paper's full size) under torch.profiler, device
+    activity only (its ~180,000 kernels; host op events would multiply
+    the trace's processing time): the share of the traced wall time in
+    which no kernel ran on the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import WirelessConfig
@@ -2007,8 +2069,7 @@ def profile_train(seed: int) -> dict:
                           device="cuda")
     exp = Experiment(scheme, cycles=1, seed=seed)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         exp.run()
         torch.cuda.synchronize()
@@ -3644,7 +3705,9 @@ MOE_TRACE = dict(prompt_lens=(32, 128), new_tokens=(8, 32))
 SERVED = (("qwen3-moe-235b-a22b", 4, 16, "prefill"),
           ("llama4-scout-17b-a16e", 2, 8, "prefill"),
           ("chatglm3-6b", 0, 8, "forward"),
-          ("command-r-plus-104b", 2, 8, "forward"))
+          ("command-r-plus-104b", 2, 8, "forward"),
+          ("stablelm-12b", 0, 8, "forward"),
+          ("internvl2-76b", 4, 8, "forward"))
 ROUTER_TIE = 2 ** -5
 MOE_TRAINED = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
 
@@ -3898,8 +3961,15 @@ def serve_model(name: str, depth: int, n_req: int, ref: str,
     return launches, {shape: dict(launches)}, summary, failures
 
 
-def moe_training(seed: int, card_name: str, shapes: dict) -> tuple:
-    """Phase 12 (d). Returns ({kernel: launches}, summary, failures)."""
+def reduced_training(seed: int, card_name: str, shapes: dict,
+                     names=MOE_TRAINED, what: str = "moe training",
+                     steps: int = 0) -> tuple:
+    """Phase 12 (d) and 13 (d): `names` at `reduced()` through the scaled
+    CL, SL and FL (K1) schemes, one cycle each on the card and the CPU
+    (`steps` > 0: that many CL / SL steps a cycle and FL local steps
+    instead of phase 11's).
+    Returns ({kernel: launches}, summary, failures)."""
+    import dataclasses
     import math as _m
     from repro_torch.configs import get_arch
     from repro_torch.schemes import Experiment, build_scheme
@@ -3908,10 +3978,14 @@ def moe_training(seed: int, card_name: str, shapes: dict) -> tuple:
         f.launches = 0
     summary, failures = {}, []
     with launch_shapes({}) as phase_shapes:
-        for name in MOE_TRAINED:
+        for name in names:
             cfg = get_arch(name).reduced()
             for mode in ("cl", "sl", "fl_k1"):
                 wcfg, opts, _ = _scaled_runs()[mode]
+                if steps and opts:
+                    opts = dict(opts, steps_per_cycle=steps)
+                elif steps:
+                    wcfg = dataclasses.replace(wcfg, local_steps=steps)
                 out = {}
                 for dev in ("cuda", "cpu"):
                     scheme = build_scheme(wcfg, cfg=cfg, device=dev, **opts)
@@ -3937,8 +4011,9 @@ def moe_training(seed: int, card_name: str, shapes: dict) -> tuple:
                 dloss = max(abs(a - b) for a, b in zip(rc.loss, rh.loss))
                 dacc = max(abs(a - b) for a, b in
                            zip(rc.accuracy, rh.accuracy))
-                lb_ok = mode == "fl_k1" or (ac and ah and all(
-                    _m.isfinite(x) and x > 0 for x in ac + ah))
+                lb_ok = mode == "fl_k1" or not cfg.is_moe or (
+                    ac and ah and all(_m.isfinite(x) and x > 0
+                                      for x in ac + ah))
                 other = {k: v for k, v in nc.items()
                          if k not in _wire_counters() and v}
                 k1 = nc["packed_wire_2d"] + nc["packed_wire_mean_2d"]
@@ -3957,10 +4032,10 @@ def moe_training(seed: int, card_name: str, shapes: dict) -> tuple:
                         or not lb_ok or other or (mode != "cl" and k1 == 0):
                     failures.append(f"reduced {name} {mode}: {rec}")
     launches = {k: f.launches for k, f in counters.items()}
-    failures += merge_shapes(shapes, phase_shapes, launches, "moe training")
+    failures += merge_shapes(shapes, phase_shapes, launches, what)
     summary["k1_by_shape"] = {str(list(k)): v for k, v in
                               phase_shapes.get("packed_wire_2d", {}).items()}
-    print(f"moe training K1 by shape {summary['k1_by_shape']}", flush=True)
+    print(f"{what} K1 by shape {summary['k1_by_shape']}", flush=True)
     return launches, summary, failures
 
 
@@ -3981,8 +4056,8 @@ def wide_phase(seed: int, card_name: str, shapes: dict) -> tuple:
                 by_shape.setdefault(k, {})[shp] = \
                     by_shape.get(k, {}).get(shp, 0) + v
     t0 = time.perf_counter()
-    train_launches, summary["training"], f = moe_training(seed, card_name,
-                                                          shapes)
+    train_launches, summary["training"], f = reduced_training(
+        seed, card_name, shapes)
     secs["training"] = time.perf_counter() - t0
     failures += f
     for k, v in train_launches.items():
@@ -3992,6 +4067,285 @@ def wide_phase(seed: int, card_name: str, shapes: dict) -> tuple:
           f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}",
           flush=True)
     return launches, by_shape, summary, failures
+
+
+# ----------------------------------------- phase 13: the ssm family
+XLSTM = "xlstm-350m"
+# the static serving loop's batch: 4 users, 32 prompt and 16 new tokens
+XLSTM_SERVE = dict(batch=4, prompt_len=32, new_tokens=16)
+# the cuts of the full-width runs, all of steps: 2 steps a CL / SL cycle
+# (the loss must fall from the first to the second), 1 local step a user
+# in FL, and 4 eval slices (32 held-out rows); the corpus, batch and
+# sequence are the training CLI's (512 training rows, batch 8, seq 128)
+XLSTM_STEPS, XLSTM_FL_STEPS, XLSTM_N_TEST = 2, 1, 32
+XLSTM_SL_STEP_BITS = 4_194_304     # 2 legs x 8 x 128 x 1024 / 4 x Q8
+XLSTM_CL_BITS = 512 * 128 * 16     # 16-bit token ids (vocab 50,304)
+# the FL run goes through the training CLI, as a user types it
+XLSTM_FL_CLI = ["--mode", "fl", "--steps", str(XLSTM_FL_STEPS),
+                "--local-steps", str(XLSTM_FL_STEPS), "--n-test",
+                str(XLSTM_N_TEST)]
+REDUCED_TRAINED = ("internvl2-76b", "xlstm-350m")
+
+
+def xlstm_serve(seed: int, card_name: str) -> tuple:
+    """Phase 13 (c), serving: `launch.serve --arch xlstm-350m` at full
+    width (the static loop), every kernel counter set to 0 before and
+    read after. Returns (summary, failures)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.centralized import token_bits
+    from repro_torch.launch import serve
+    from repro_torch.models import api as M
+    from repro_torch.models import xlstm as X
+    from repro_torch.nn import init_tree
+    argv = ["--arch", XLSTM, "--seed", str(seed), "--snr-db", "10",
+            "--greedy"] + [x for k, v in XLSTM_SERVE.items()
+                           for x in (f"--{k.replace('_', '-')}", str(v))]
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    wall = time.perf_counter() - t0
+    n = {k: f.launches for k, f in counters.items() if f.launches}
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the reference: the same weights (the loop's seeded card generator)
+    # through the teacher-forced forward, on the prompt the server got,
+    # its bf16 products reducing in f32 as the JAX package's dots do:
+    # cuBLAS's default lets a split-K bf16 GEMM of the forward's 128 rows
+    # reduce in bf16, which moves its logits (the gap is printed)
+    cfg = get_arch(XLSTM)
+    params = init_tree(M.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(seed), "cuda")
+    prompt = torch.from_numpy(out["prompt"]).cuda()
+    mm = torch.backends.cuda.matmul
+    with torch.inference_mode():
+        loose = X.forward(params, {"tokens": prompt}, cfg)[0].float()
+        kept = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            ref, _ = X.forward(params, {"tokens": prompt}, cfg)
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = kept
+    ref, got = ref.float(), out["prompt_logits"]
+    tol, worst = ulp_tol(ref), float((got - ref).abs().max())
+    worst_loose = float((got - loose).abs().max())
+    B, P, N = (XLSTM_SERVE[k] for k in ("batch", "prompt_len",
+                                         "new_tokens"))
+    up, down = (float(token_bits(cfg.vocab_size) * B * t) for t in (P, N))
+    want_bits = up + down
+    radio = serve.make_radio(serve.parse_args(argv))
+    summary = dict(prompt_s=out["t_prefill_s"], decode_s=out["t_decode_s"],
+                   tokens_per_s=B * N / out["t_decode_s"], wall_s=wall,
+                   bits=out["bits"], erased_bits=out["erased_bits"],
+                   energy_j=out["energy_j"], max_memory_gib=mem,
+                   prompt_logits_max_abs_vs_forward=worst, logit_tol=tol,
+                   vs_forward_with_bf16_reductions=worst_loose, launches=n)
+    print(f"serve {XLSTM} (static loop, {B} x {P} prompt + {N} new "
+          f"tokens): prompt {out['t_prefill_s']:.3f} s, decode "
+          f"{out['t_decode_s']:.3f} s = {summary['tokens_per_s']:.1f} "
+          f"tok/s; bits {out['bits']:.0f} (want {want_bits:.0f}), erased "
+          f"{out['erased_bits']:.0f}, energy {out['energy_j']:.6e} J; "
+          f"prompt logits vs forward max |diff| {worst:.4e} (tol {tol:g}, "
+          f"8 bf16 ulps at the largest |logit|; {worst_loose:.4e} against "
+          f"the forward with cuBLAS's bf16 split-K reductions); "
+          f"max_memory_allocated "
+          f"{mem:.2f} GiB; launches {n} ({card_name})", flush=True)
+    failures = []
+    if not (torch.isfinite(got).all() and got.shape == ref.shape) \
+            or worst > tol:
+        failures.append(f"{XLSTM} serving: prompt logits {worst} > {tol}")
+    if out["bits"] != want_bits or out["erased_bits"] != 0.0 \
+            or out["generated"].shape != (B, N) \
+            or out["energy_j"] != radio.energy_j(up) + radio.energy_j(down):
+        failures.append(f"{XLSTM} serving: the bill does not add up "
+                        f"{summary}")
+    if n:
+        failures.append(f"{XLSTM} serving launched kernels: {n}")
+    del params, ref, got, out, loose
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
+def _xlstm_run(mode: str, seed: int, card_name: str) -> dict:
+    """One full-width xlstm-350m cycle on the card: CL / SL through
+    `build_scheme` + `Experiment` (AdamW, XLSTM_STEPS steps), FL through
+    the training CLI (3 users x XLSTM_FL_STEPS local steps, Q8, K1
+    sync). Returns its record."""
+    import torch
+    from repro_torch.configs import WirelessConfig, get_arch
+    from repro_torch.schemes import Experiment, build_scheme
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kinds, losses, clock = [], [], {}
+    t0 = time.perf_counter()
+    if mode == "fl":
+        from repro_torch.launch import train
+        kept = train.build_scheme
+
+        def counted_scheme(*a, **kw):
+            sch = kept(*a, **kw)
+            _counted(sch, kinds)
+            return sch
+        train.build_scheme = counted_scheme
+        try:
+            with _sync_clock(clock):
+                out = train.main(["--arch", XLSTM, "--seed", str(seed)]
+                                 + XLSTM_FL_CLI)
+        finally:
+            train.build_scheme = kept
+        exp, res = out["experiment"], out["result"]
+        del out
+    else:
+        wcfg = (WirelessConfig(mode="cl", snr_db=20.0) if mode == "cl" else
+                WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
+                               split_layer=2, compress_factor=4))
+        scheme = build_scheme(wcfg, cfg=get_arch(XLSTM), device="cuda",
+                              optimizer="adamw", steps_per_cycle=XLSTM_STEPS)
+        _counted(scheme, kinds, losses)
+        exp = Experiment(scheme, cycles=1, seed=seed,
+                         n_train=SCALED_N_TRAIN, n_test=XLSTM_N_TEST)
+        with _sync_clock(clock):
+            res = exp.run()
+    wall = time.perf_counter() - t0
+    main, step_losses = list(kinds), list(losses)
+    prof = _profile_eval(exp, seed) if mode == "cl" else None
+    rec = dict(bits=[r.bits for r in exp.reports],
+               n_tx=[r.n_tx for r in exp.reports], loss=res.loss,
+               accuracy=res.accuracy, step_losses=step_losses,
+               init_bits=(exp.init_delivery.bits if exp.init_delivery
+                          else None),
+               round_s=[s for k, _, s in main if k == "round"],
+               eval_s=[s for k, _, s in main if k == "eval"],
+               rounds=[c for k, c, _ in main if k == "round"],
+               evals=[c for k, c, _ in main if k == "eval"],
+               wall_s=wall, max_memory_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, peak_rss_gib=_peak_rss_gib(), **clock)
+    if prof is not None:
+        rec["profile"] = prof
+    del exp
+    torch.cuda.empty_cache()
+    print(f"{XLSTM} {mode}: 1 cycle, {wall:.1f} s (round "
+          f"{[round(x, 3) for x in rec['round_s']]} s, eval "
+          f"{[round(x, 3) for x in rec['eval_s']]} s); sync "
+          f"{rec.get('sync_s', 0.0):.2f} s of which flip-word draws "
+          f"{rec.get('words_host_s', 0.0):.2f} s on the host; "
+          f"max_memory_allocated {rec['max_memory_gib']:.2f} GiB; peak RSS "
+          f"{rec['peak_rss_gib']:.2f} GiB; bits {rec['bits']}; n_tx "
+          f"{rec['n_tx']}; init {rec['init_bits']}; loss {res.loss} (steps "
+          f"{[round(x, 4) for x in step_losses]}); accuracy "
+          f"{res.accuracy} ({card_name})", flush=True)
+    return rec
+
+
+def _profile_eval(exp, seed: int) -> dict:
+    """One eval slice (8 held-out rows: the forward of the trained model)
+    under torch.profiler, device activity only: the device's idle share.
+    A training step launches ~4x its kernels, and the profiler's own
+    processing grows with them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _, (xte, yte) = exp.scheme.default_data(8, 8, seed + 11)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exp.scheme.evaluate(exp.final_state, xte, yte)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _idle_summary(prof, wall_us, f"{XLSTM}, one eval slice")
+
+
+def _xlstm_checks(runs: dict) -> list:
+    """The phase-13 gates on the full-width xlstm-350m runs."""
+    import math
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api as M
+    from repro_torch.nn import count_params
+    n_params = count_params(M.train_param_specs(get_arch(XLSTM)))
+    failures = []
+    k1, k2 = "packed_wire_2d", "packed_wire_mean_2d"
+
+    def want(name, ok, what):
+        if not ok:
+            failures.append(f"{XLSTM} {name}: {what}")
+    for name, r in runs.items():
+        want(name, all(math.isfinite(x) for x in r["loss"] + r["step_losses"]),
+             f"a loss is not finite {r['loss']}")
+        for c in r["rounds"] + r["evals"]:
+            want(name, not any(c[k] for k in ("conv_pool",
+                                              "lstm_final_state",
+                                              "quant_channel_2d",
+                                              "packed_wire_2d_philox")
+                                + ATTN_ROWS), f"K3-K10 launched: {c}")
+    cl, sl, fl = runs["cl"], runs["sl"], runs["fl"]
+    want("cl", cl["init_bits"] == XLSTM_CL_BITS, f"init bits "
+         f"{cl['init_bits']}")
+    want("cl", all(c[k1] == c[k2] == 0 for c in cl["rounds"] + cl["evals"]),
+         "CL launched the wire")
+    want("sl", sl["bits"] == [XLSTM_STEPS * XLSTM_SL_STEP_BITS]
+         and sl["n_tx"] == [2.0 * XLSTM_STEPS], f"bill {sl['bits']}, "
+         f"n_tx {sl['n_tx']}")
+    want("sl", all(c[k1] == 2 * XLSTM_STEPS and c[k2] == 0
+                   for c in sl["rounds"]), "K1 not twice a step")
+    want("sl", all(c[k1] == XLSTM_N_TEST // 8 for c in sl["evals"]),
+         "K1 not once an eval slice")
+    for name in ("cl", "sl"):
+        r = runs[name]
+        want(name, len(r["step_losses"]) == XLSTM_STEPS
+             and r["step_losses"][-1] < r["step_losses"][0],
+             f"loss did not fall {r['step_losses']}")
+    per_user = [b / 3 for b in fl["bits"]]
+    want("fl", per_user == [8.0 * n_params], f"bits per user "
+         f"{per_user}, {n_params} parameters")
+    want("fl", fl["n_tx"] == [3.0 * 17], f"n_tx {fl['n_tx']} (3 users x "
+         f"17 leaves)")
+    want("fl", all(c[k1] == 1 and c[k2] == 0 for c in fl["rounds"]),
+         f"K1 not once a cycle: {fl['rounds']}")
+    want("fl", all(c[k1] == c[k2] == 0 for c in fl["evals"]),
+         "an FL eval launched the wire")
+    return failures
+
+
+def ssm_phase(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 13: xlstm-350m served and trained at full width, then
+    internvl2-76b and xlstm-350m at `reduced()` card vs CPU. Returns
+    ({kernel: launches}, summary, failures)."""
+    secs, summary = {}, {}
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    with launch_shapes({}) as phase_shapes:
+        t0 = time.perf_counter()
+        summary["serve"], failures = xlstm_serve(seed, card_name)
+        secs["serve"] = time.perf_counter() - t0
+        runs = {}
+        for mode in ("cl", "sl", "fl"):
+            t0 = time.perf_counter()
+            runs[mode] = _xlstm_run(mode, seed, card_name)
+            secs[mode] = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    failures += _xlstm_checks(runs)
+    failures += merge_shapes(shapes, phase_shapes, launches,
+                             f"{XLSTM} full width")
+    summary["training"] = runs
+    summary["k1_by_shape"] = {str(list(k)): v for k, v in
+                              phase_shapes.get("packed_wire_2d", {}).items()}
+    print(f"{XLSTM} full width: launches {launches}; K1 by shape "
+          f"{summary['k1_by_shape']}", flush=True)
+    t0 = time.perf_counter()
+    red_launches, summary["reduced"], f = reduced_training(
+        seed, card_name, shapes, REDUCED_TRAINED, "vlm and ssm training",
+        XLSTM_STEPS)
+    secs["reduced"] = time.perf_counter() - t0
+    failures += f
+    for k, v in red_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    summary["seconds"] = secs
+    print(f"phase 13 parts: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}",
+          flush=True)
+    return launches, summary, failures
 
 
 # ------------------------------------------------------------------ main
@@ -4115,6 +4469,12 @@ def main() -> None:
     print(f"moe and wide-head phase: {time.perf_counter() - t_wide:.1f} s; "
           f"launches {wide_launches}", flush=True)
     failures += wide_failures
+    t_ssm = time.perf_counter()
+    ssm_launches, ssm_summary, ssm_failures = ssm_phase(args.seed, card,
+                                                        shapes)
+    print(f"ssm and reduced vlm phase: {time.perf_counter() - t_ssm:.1f} s;"
+          f" launches {ssm_launches}", flush=True)
+    failures += ssm_failures
     # the serving path's launches: phases 3 and 12, by head shape
     qwen_heads = (16, 1, 64)
     for r in rows:
@@ -4125,7 +4485,7 @@ def main() -> None:
             s["launches"] = (launches.get(r["name"], 0)
                              if heads == qwen_heads else 0) \
                 + wide_by_shape.get(r["name"], {}).get(heads, 0)
-    # the training paths' launches: phases 5, 7, 8, 9, 10, 11 and 12
+    # the training paths' launches: phases 5 and 7-13
     for r in wire_rows + tiny_rows:
         extra = qwen_timed.get(r["name"])
         if extra:
@@ -4137,14 +4497,14 @@ def main() -> None:
         r.pop("shape", None)
         r["launches"] = sum(p.get(r["name"], 0) for p in (
             train_launches, priv_launches, tiny_launches, opt_launches,
-            fleet_launches, qwen_launches, wide_launches))
+            fleet_launches, qwen_launches, wide_launches, ssm_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
     shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
               for k, c in shapes.items()}
-    print(f"launches by shape over phases 5, 7, 8, 9, 10, 11 and 12: "
-          f"{shapes}", flush=True)
+    print(f"launches by shape over phases 5 and 7-13: {shapes}",
+          flush=True)
     rows += wire_rows + tiny_rows
     if args.out:
         out = Path(args.out)
@@ -4162,6 +4522,7 @@ def main() -> None:
                                    "fleets": fleet_summary,
                                    "qwen_training": qwen_summary,
                                    "moe_and_wide_heads": wide_summary,
+                                   "ssm_and_reduced_vlm": ssm_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

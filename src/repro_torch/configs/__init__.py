@@ -4,8 +4,10 @@ from repro_torch.configs.base import (ArchConfig, ShapeConfig, WirelessConfig,
                                       get_arch, list_archs)
 from repro_torch.configs import chatglm3_6b  # noqa: F401
 from repro_torch.configs import command_r_plus_104b  # noqa: F401
+from repro_torch.configs import internvl2_76b  # noqa: F401
 from repro_torch.configs import llama4_scout_17b_a16e  # noqa: F401
 from repro_torch.configs import paper_tinylstm  # noqa: F401
 from repro_torch.configs import qwen1_5_0_5b  # noqa: F401
 from repro_torch.configs import qwen3_moe_235b_a22b  # noqa: F401
 from repro_torch.configs import stablelm_12b  # noqa: F401
+from repro_torch.configs import xlstm_350m  # noqa: F401

@@ -3,9 +3,10 @@ the model is cut at `wcfg.split_layer` (the tiny model after conv+pool);
 the user-side activation is semantically compressed (x4), crosses the
 wireless channel (forward AND backward — the gradient is tau-clipped and
 re-quantized on the way down, Alg. 2 lines 11-17), and the server side
-finishes the pass. The cut is a layer for the dense and MoE families; the
-super-block cuts of xLSTM / hybrid stacks and the encoder/decoder cut
-are still to port (ROADMAP.md, P15)."""
+finishes the pass. The cut is a layer for the dense, MoE and VLM
+families and a super-block for xLSTM stacks; the hybrid family's
+super-block cut and the encoder/decoder cut are still to port
+(ROADMAP.md, P15)."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +14,7 @@ import torch
 from repro_torch.core import semantic
 from repro_torch.core.channel import channel_crossing
 from repro_torch.models import layers as L
-from repro_torch.models import lstm_tiny, transformer
+from repro_torch.models import lstm_tiny, transformer, xlstm
 from repro_torch.nn import init_tree
 
 
@@ -53,6 +54,21 @@ def _split_transformer(params, codec, batch, cfg, wcfg, key, window):
     return L.unembed(params["embed"], x), {"aux_loss": aux / cfg.n_layers}
 
 
+def _split_outer_scan(params, codec, batch, cfg, wcfg, key):
+    """xLSTM: super-blocks [0, cut) on the user, the link, [cut, n_super)
+    on the server, cut = max(1, min(split_layer, n_super - 1)) counted
+    in super-blocks (the stacked outer dim), not layers."""
+    n_outer = xlstm.super_block_layout(cfg)[0]
+    cut = max(1, min(wcfg.split_layer, n_outer - 1))
+    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
+    x = xlstm.run_superblocks(params, x, cfg, 0, cut)
+    x = _link(codec, x, wcfg, key)
+    x = xlstm.run_superblocks(params, x, cfg, cut, n_outer)
+    x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    return L.unembed(params["embed"], x), {
+        "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+
 def _split_tiny(params, codec, batch, cfg, wcfg, key):
     smashed = lstm_tiny.user_forward(params, batch["tokens"])
     smashed = _link(codec, smashed, wcfg, key)
@@ -79,12 +95,14 @@ def crossing_elems(cfg, shape_cfg, wcfg) -> int:
 
 
 def split_forward(params, codec, batch, cfg, wcfg, key, window: int = 0):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _split_transformer(params, codec, batch, cfg, wcfg, key,
                                   window)
+    if cfg.family == "ssm":
+        return _split_outer_scan(params, codec, batch, cfg, wcfg, key)
     if cfg.family == "tiny":
         return _split_tiny(params, codec, batch, cfg, wcfg, key)
     raise NotImplementedError(
         f"split learning for family {cfg.family!r} is not ported yet; the "
-        f"port splits the dense, moe and tiny families (see ROADMAP.md, "
-        f"P15)")
+        f"port splits the dense, moe, vlm, ssm and tiny families (see "
+        f"ROADMAP.md, P15)")

@@ -30,9 +30,11 @@ def _zipf(vocab: int) -> np.ndarray:
 def synthetic_lm_batches(cfg, batch_size: int, seq_len: int,
                          seed: int = 0) -> Iterator[dict]:
     """Endless synthetic next-token batches of Zipf tokens (labels =
-    tokens). The multimodal families' frontend inputs are still to port
+    tokens); a vision config's stub `patch_embeds` [batch, P, d_model]
+    f32 (0.1 x standard normals) come from the same stream, after each
+    batch's tokens. The audio family's frames are still to port
     (ROADMAP.md, P15) and raise."""
-    if cfg.frontend == "vision" or cfg.family == "audio":
+    if cfg.family == "audio":
         raise NotImplementedError(
             f"frontend inputs of family {cfg.family!r} are not ported yet "
             f"(see ROADMAP.md, P15)")
@@ -42,7 +44,12 @@ def synthetic_lm_batches(cfg, batch_size: int, seq_len: int,
     while True:
         toks = 1 + rng.choice(vocab - 1, size=(batch_size, seq_len),
                               p=p).astype(np.int32)
-        yield {"tokens": toks, "labels": toks}
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.frontend == "vision":
+            batch["patch_embeds"] = rng.standard_normal(
+                (batch_size, cfg.n_frontend_tokens, cfg.d_model)
+            ).astype(np.float32) * 0.1
+        yield batch
 
 
 def synthetic_corpus(cfg, n: int, seq_len: int, seed: int = 0):

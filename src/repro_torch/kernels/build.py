@@ -118,10 +118,9 @@ def sm_count(index: int) -> int:
 
 # ------------------------------------------------- wrapper-side checks
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
-# the head dims the attention kernels (K7-K10) are instantiated for; any
-# other raises at the wrapper (hd 160, stablelm-12b, is ROADMAP.md queue
-# 2: "K7-K10 at hd 160")
-HEAD_DIMS = (64, 128)
+# the head dims the attention kernels (K7-K10) are instantiated for (160
+# is stablelm-12b's); any other raises at the wrapper
+HEAD_DIMS = (64, 128, 160)
 
 
 def attention_args(what: str, q, k, v, hd: int) -> int:
@@ -133,8 +132,8 @@ def attention_args(what: str, q, k, v, hd: int) -> int:
     if hd not in HEAD_DIMS:
         raise ValueError(
             f"{what}: head dim {hd} not in {HEAD_DIMS}: the attention "
-            f"kernels are built for these only (ROADMAP.md, queue 2: "
-            f"\"K7-K10 at hd 160\" for stablelm-12b)")
+            f"kernels have no instance for it (a `dispatch_hd` case in "
+            f"decode_attention.cu and prefill_attention.cu is missing)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{what}: {name} must be on {q.device}")

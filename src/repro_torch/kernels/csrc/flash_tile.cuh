@@ -25,7 +25,12 @@
 // causal column, so only the valid prefix is read. A row with no valid
 // column gets 0. What bounds it is bytes, as for the bf16 kernels; this
 // body reads its span once per CTA into shared memory and does the
-// arithmetic on CUDA cores, and is not tuned further.
+// arithmetic on CUDA cores, and is not tuned further. A thread owns the
+// accumulators tid, tid + THREADS, ... of the block's ROWS x HD outputs.
+// At head dims 64 and 128 a tile is 32 columns, one a lane in the
+// softmax; at 160 it is 16 (the 32-column tile's K, V and Q would take
+// 53 KB of static shared memory, above the 48 KB a static array may
+// have), lanes 16-31 of the softmax idle.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,7 +41,6 @@ namespace flash {
 
 constexpr int THREADS = 128;   // one CTA: 4 warps
 constexpr int ROWS = 16;       // query rows per CTA
-constexpr int TILE = 32;       // KV columns per loop step (one per lane)
 constexpr float NEG_INF = -1e30f;
 
 // One CTA: query rows [blockIdx.z*ROWS, +ROWS) of (b, h) = (blockIdx.x,
@@ -48,9 +52,9 @@ __global__ void __launch_bounds__(THREADS)
                        const float* __restrict__ v, float* __restrict__ out,
                        const int* __restrict__ start, const Cols cols,
                        int Hkv, int G, int C, int window, float scale) {
-  static_assert(THREADS % HD == 0 || HD % THREADS == 0, "HD vs THREADS");
+  constexpr int TILE = HD > 128 ? 16 : 32;   // KV columns a loop step
+  static_assert(ROWS * HD % THREADS == 0, "HD vs THREADS");
   constexpr int PER = ROWS * HD / THREADS;  // accumulators per thread
-  constexpr int RSTEP = THREADS / HD;       // row stride between them
   __shared__ float qs[ROWS][HD];
   __shared__ float ks[TILE][HD + 1];        // +1: conflict-free q.k
   __shared__ float vs[TILE][HD];
@@ -85,7 +89,6 @@ __global__ void __launch_bounds__(THREADS)
   lo = (lo / TILE) * TILE;
   const auto rows = cols.rows(b, h, Hkv, lo, hi, page_base);
 
-  const int d_own = tid % HD, r_own = tid / HD;
   float acc[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) acc[i] = 0.f;
@@ -121,19 +124,19 @@ __global__ void __launch_bounds__(THREADS)
 
     // online softmax, one warp per row
     for (int r = warp; r < ROWS; r += THREADS / 32) {
-      const float s = ps[r][lane];
+      const float s = lane < TILE ? ps[r][lane] : NEG_INF;
       float mx = s;
 #pragma unroll
       for (int o = 16; o; o >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, mx);
-      const float p = expf(s - m_new);
+      const float p = lane < TILE ? expf(s - m_new) : 0.f;
       float sum = p;
 #pragma unroll
       for (int o = 16; o; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      ps[r][lane] = p;
+      if (lane < TILE) ps[r][lane] = p;
       __syncwarp();
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
@@ -144,13 +147,13 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    // acc = acc * corr + p . V; a thread owns column d_own of PER rows
+    // acc = acc * corr + p . V; accumulator i is output tid + i * THREADS
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int r = r_own + i * RSTEP;
+      const int r = (tid + i * THREADS) / HD, d = (tid + i * THREADS) % HD;
       float a = acc[i] * corr_s[r];
 #pragma unroll 8
-      for (int j = 0; j < TILE; ++j) a += ps[r][j] * vs[j][d_own];
+      for (int j = 0; j < TILE; ++j) a += ps[r][j] * vs[j][d];
       acc[i] = a;
     }
     __syncthreads();
@@ -158,17 +161,19 @@ __global__ void __launch_bounds__(THREADS)
 
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    const int r = r_own + i * RSTEP, rr = r0 + r;
+    const int r = (tid + i * THREADS) / HD, d = (tid + i * THREADS) % HD;
+    const int rr = r0 + r;
     if (rr < R) {
       const int c = rr / G, g = rr % G;
-      out[(((long long)b * C + c) * H + h * G + g) * HD + d_own] =
+      out[(((long long)b * C + c) * H + h * G + g) * HD + d] =
           acc[i] / fmaxf(l_s[r], 1e-30f);
     }
   }
 }
 
-// Launches the f32 body at head dim HD (64 or 128: at 128 its static
-// shared memory is 43,328 bytes and a thread keeps 16 accumulators);
+// Launches the f32 body at head dim HD (64, 128 or 160: at 128 its static
+// shared memory is 43,328 bytes and a thread keeps 16 accumulators, at
+// 160 (16-column tiles) 32,000 bytes and 20 accumulators);
 // `smem_pages` entries of dynamic shared memory for the mapper.
 template <int HD, typename Cols>
 int launch_prefill(const float* q, const float* k, const float* v,

@@ -22,14 +22,23 @@
 //     the batch and head shapes alone, so nothing is read back to the host. n_gblk
 //     blocks of GB head-group rows cover G.
 //   - no CTA-wide barrier in the column loop. The GB query rows live in
-//     registers. Each warp walks its own columns with 16-byte loads: LPC
-//     = HD / VEC lanes hold one column's head dim (at HD 64: 8 in bf16,
-//     16 in f32; at HD 128: 16 and 32), so a warp load covers CPW = 32 /
-//     LPC neighbouring columns (512 contiguous bytes), and U loads of K
-//     and of V per lane are issued before any of them is used. The head
-//     dim is a template parameter, built for 64 and 128; a lane's
-//     registers do not grow with it, its column group does. q.k is reduced by shuffles inside each LPC-lane group;
-//     each group keeps its own online softmax (m, l) and f32 acc.
+//     registers. Each warp walks its own columns with 16-byte loads: a
+//     column's head dim is HD / VEC 16-byte chunks (VEC = 8 bf16 or 4
+//     f32), held by LPC lanes with NCH chunks each, so a warp load covers
+//     CPW = 32 / LPC neighbouring columns, and U loads of K and of V per
+//     lane are issued before any of them is used. At HD 64 and 128 a lane
+//     holds one chunk (LPC 8 / 16 in bf16, 16 / 32 in f32: 512 contiguous
+//     bytes a warp load). At HD 160 a column is 20 bf16 or 40 f32 chunks,
+//     which no power of two of lanes divides: one column per warp load,
+//     LPC 20 lanes holding one bf16 chunk or two f32 chunks (chunk j of a
+//     lane at j * LPC + its lane, so each load instruction of the warp
+//     reads one contiguous span), and lanes 20-31 idle. That wastes 12
+//     lanes of issue, not bytes: each K/V byte is still read once. The
+//     head dim is a template parameter, built for 64, 128 and 160; a
+//     lane's registers do not grow with it, its column group does. q.k is
+//     reduced by shuffles inside each LPC-lane group (over the whole warp
+//     when CPW is 1, the idle lanes adding zeros); each group keeps its own
+//     online softmax (m, l) and f32 acc.
 //   - the groups merge by shuffles, the warps once through shared memory,
 //     both in a fixed order. With n_split = 1 the CTA writes the output;
 //     otherwise it writes an unnormalised partial (acc, m, l) to a
@@ -64,20 +73,21 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// 16 bytes of T as floats (8 bf16 or 4 f32)
-__device__ __forceinline__ void unpack16(const uint4& r, float (&x)[8]) {
+// 16 bytes of T as floats (8 bf16 or 4 f32) into x[at ..]
+template <typename T, int N>
+__device__ __forceinline__ void unpack16(const uint4& r, float (&x)[N],
+                                         int at) {
   const unsigned w[4] = {r.x, r.y, r.z, r.w};
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    for (int i = 0; i < 4; ++i) {
+      x[at + 2 * i] = __uint_as_float(w[i] << 16);
+      x[at + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[at + i] = __uint_as_float(w[i]);
   }
-}
-__device__ __forceinline__ void unpack16(const uint4& r, float (&x)[4]) {
-  x[0] = __uint_as_float(r.x);
-  x[1] = __uint_as_float(r.y);
-  x[2] = __uint_as_float(r.z);
-  x[3] = __uint_as_float(r.w);
 }
 
 // One CTA: head-group rows [g0, g0 + GB) of (slot b, KV head h), columns
@@ -90,14 +100,21 @@ __global__ void __launch_bounds__(THREADS)
                         const Cols cols, int Hkv, int G, int n_split,
                         int window, float scale) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int LPC = HD / VEC;         // lanes per column
+  constexpr int CHUNKS = HD / VEC;      // 16-byte chunks of a column
+  constexpr int NCH = (CHUNKS + 31) / 32;   // chunks per lane
+  constexpr int LPC = CHUNKS / NCH;     // lanes per column
   constexpr int CPW = 32 / LPC;         // columns per warp load
+  // lanes a q.k sum spans: the column's group, the whole warp when one
+  // column fills it (at HD 160, 20 lanes and 12 idle ones)
+  constexpr int LPW = CPW == 1 ? 32 : LPC;
+  constexpr int E = NCH * VEC;          // elements a lane holds
   // loads in flight per lane, K and V: 4 for one head-group row at head
   // dim 64 (the MHA serving shape); at 128 four spill in bf16 (ptxas: 8
   // bytes at 72 registers), and two keep a warp's 2 KB of K and V in flight
   constexpr int U = GB == 1 && HD == 64 ? 4 : 2;
   constexpr int STEP = WARPS * CPW * U; // columns per CTA iteration
-  static_assert(HD % VEC == 0 && 32 % LPC == 0, "head dim vs warp");
+  static_assert(HD % VEC == 0 && CHUNKS % NCH == 0, "head dim vs chunks");
+  static_assert(CPW == 1 || 32 % LPC == 0, "head dim vs warp");
 
   __shared__ float sm_acc[WARPS][GB][HD];
   __shared__ float sm_m[WARPS][GB], sm_l[WARPS][GB];
@@ -107,7 +124,9 @@ __global__ void __launch_bounds__(THREADS)
   const int b = blockIdx.x, h = blockIdx.y / n_gblk;
   const int g0 = (blockIdx.y % n_gblk) * GB, split = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // lanes past the last column group (at HD 160, 20-31) load nothing
   const int slot = lane / LPC, d0 = (lane % LPC) * VEC;
+  const bool live = slot < CPW;
   const int H = Hkv * G;
 
   // valid span of the row, then this split's share of it
@@ -119,62 +138,74 @@ __global__ void __launch_bounds__(THREADS)
   const int c_lo = lo + split * chunk;
   const int c_hi = min(c_lo + chunk, hi);
 
-  float qv[GB][VEC];
+  float qv[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
-    if (g0 + g < G) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-          q + ((long long)b * H + h * G + g0 + g) * HD + d0));
-      unpack16(raw, qv[g]);
-    } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[g][e] = 0.f;
+    for (int j = 0; j < NCH; ++j) {
+      if (live && g0 + g < G) {
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+            q + ((long long)b * H + h * G + g0 + g) * HD + d0
+            + j * LPC * VEC));
+        unpack16<T>(raw, qv[g], j * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qv[g][j * VEC + e] = 0.f;
+      }
     }
   }
 
-  float m[GB], l[GB], acc[GB][VEC];
+  float m[GB], l[GB], acc[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
   const auto rows = cols.rows(b, h, Hkv, c_lo, c_hi, page_base);
   for (int base = c_lo; base < c_hi; base += STEP) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][NCH], vr[U][NCH];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int c = base + (u * WARPS + warp) * CPW + slot;
-      ok[u] = c < c_hi;
-      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
-      if (ok[u]) {
-        const long long off = rows(c) * HD + d0;
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(k + off));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(v + off));
+      ok[u] = live && c < c_hi;
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        kr[u][j] = vr[u][j] = make_uint4(0, 0, 0, 0);
+        if (ok[u]) {
+          const long long off = rows(c) * HD + d0 + j * LPC * VEC;
+          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k + off));
+          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v + off));
+        }
       }
     }
     float s[U][GB];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kx[VEC];
-      unpack16(kr[u], kx);
+      float kx[E];
+#pragma unroll
+      for (int j = 0; j < NCH; ++j)
+        unpack16<T>(kr[u][j], kx, j * VEC);
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         float part = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) part += qv[g][e] * kx[e];
+        for (int e = 0; e < E; ++e) part += qv[g][e] * kx[e];
 #pragma unroll
-        for (int o = 1; o < LPC; o <<= 1)
+        for (int o = 1; o < LPW; o <<= 1)
           part += __shfl_xor_sync(0xffffffffu, part, o);
         s[u][g] = part * scale;
       }
     }
-    float vx[U][VEC];
+    float vx[U][E];
 #pragma unroll
-    for (int u = 0; u < U; ++u) unpack16(vr[u], vx[u]);
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < NCH; ++j)
+        unpack16<T>(vr[u][j], vx[u], j * VEC);
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       float m_new = m[g];
@@ -190,7 +221,7 @@ __global__ void __launch_bounds__(THREADS)
       }
       l[g] = l[g] * corr + psum;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < E; ++e) {
         float a = acc[g][e] * corr;
 #pragma unroll
         for (int u = 0; u < U; ++u) a += round_as<T>(p[u]) * vx[u][e];
@@ -200,9 +231,10 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // merge the CPW lane groups of the warp (butterfly over the slot bits)
+  // merge the CPW lane groups of the warp (butterfly over the slot bits;
+  // none when one group spans the warp)
 #pragma unroll
-  for (int o = LPC; o < 32; o <<= 1) {
+  for (int o = LPW; o < 32; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
@@ -211,7 +243,7 @@ __global__ void __launch_bounds__(THREADS)
       const float ca = expf(m[g] - mx), cb = expf(mo - mx);
       l[g] = l[g] * ca + lo_ * cb;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < E; ++e) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
         acc[g][e] = acc[g][e] * ca + ao * cb;
       }
@@ -222,7 +254,10 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+      for (int j = 0; j < NCH; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          sm_acc[warp][g][d0 + j * LPC * VEC + e] = acc[g][j * VEC + e];
       if (lane == 0) {
         sm_m[warp][g] = m[g];
         sm_l[warp][g] = l[g];
@@ -316,8 +351,9 @@ int dispatch_gb(int gb, const void* q, const void* k, const void* v,
 }
 
 // the head dims the kernels are built for (build.HEAD_DIMS): at 64 a bf16
-// column takes 8 lanes and an f32 one 16, at 128 16 and 32; a CTA's
-// shared merge buffer sm_acc is WARPS * GB * HD floats, 8 KiB at 128
+// column takes 8 lanes and an f32 one 16, at 128 16 and 32, at 160 20
+// lanes in both (one and two chunks a lane); a CTA's shared merge buffer
+// sm_acc is WARPS * GB * HD floats, 10 KiB at 160
 template <typename T, typename Cols>
 int dispatch_hd(int hd, int gb, const void* q, const void* k, const void* v,
                 float* out, float* ws, const int* lengths, const Cols cols,
@@ -329,6 +365,10 @@ int dispatch_hd(int hd, int gb, const void* q, const void* k, const void* v,
                               st);
   if (hd == 128)
     return dispatch_gb<T, 128>(gb, q, k, v, out, ws, lengths, cols,
+                               smem_pages, B, Hkv, G, n_split, window, scale,
+                               st);
+  if (hd == 160)
+    return dispatch_gb<T, 160>(gb, q, k, v, out, ws, lengths, cols,
                                smem_pages, B, Hkv, G, n_split, window, scale,
                                st);
   return (int)cudaErrorInvalidValue;

@@ -26,14 +26,19 @@
 // (one table read per page, one barrier). WR warps each own 16 rows, and
 // the KS = 4 / WR warps of one row group take every KS-th tile of the
 // group's span (64 columns at head dim 64, 32 at 128: a tile is 8 KiB
-// either way), so the CTA keeps its 4 warps busy even at 16 rows. The
-// head dim is a template parameter, built for 64 and 128; at 128 a warp
-// holds twice the Q fragments and O accumulators (32 and 64 registers). A warp's Q fragments stay in registers for the
-// whole loop. Each warp stages its own K/V tiles in bf16 in shared memory
-// with cp.async (16 bytes a lane), double-buffered, rows XOR-swizzled in
-// 16-byte chunks so that ldmatrix (and ldmatrix.trans for V) is free of
-// bank conflicts; columns outside the group's span are zero-filled, never
-// read. So the column loop has no CTA-wide barrier. Each tile:
+// either way; 16 at 160), so the CTA keeps its 4 warps busy even at 16
+// rows. The head dim is a template parameter, built for 64, 128 and 160;
+// a warp holds HD / 4 registers of Q fragments and HD / 2 of O
+// accumulators (40 and 80 at 160). A warp's Q fragments stay in registers
+// for the whole loop. Each warp stages its own K/V tiles in bf16 in
+// shared memory with cp.async (16 bytes a lane), double-buffered, laid
+// out so that ldmatrix (and ldmatrix.trans for V) is free of bank
+// conflicts: at HD 64 and 128 the rows are XOR-swizzled in 16-byte
+// chunks; a 160-wide row is 20 chunks, past which the XOR would write, so
+// at 160 each row is padded to 21 chunks instead (336 bytes: 8
+// consecutive rows then start in 8 different 16-byte bank groups).
+// Columns outside the group's span are zero-filled, never read. So the
+// column loop has no CTA-wide barrier. Each tile:
 //   S = Q.K^T by mma; scale; mask from qpos; row max and sum in registers
 //   (quad shuffles); P converted to bf16 (this is the reference's
 //   p.astype(v.dtype)); O += P.V by mma.
@@ -57,21 +62,36 @@ namespace gqa {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int TILE_BYTES = 8192;                  // one K or V tile
-constexpr int WARP_SMEM = 2 * 2 * TILE_BYTES;     // 2 stages of K and V
-constexpr int SMEM = WARPS * WARP_SMEM;           // 128 KB
 
-// The tile geometry of head dim HD (built for 64 and 128): a tile is
-// TILE_BYTES of bf16 whatever the head dim, so the CTA's shared memory
-// stays at 128 KB (four warps' double-buffered K and V). At HD 64 a tile
-// is 64 columns, at HD 128 32: 64 x 128 would need 256 KB, above the
-// 227 KB a CTA may have. A row is CH 16-byte chunks (8 or 16).
+// The tile geometry of head dim HD (built for 64, 128 and 160). At HD 64
+// and 128 a tile is 8 KiB of bf16 whatever the head dim (64 x 64 or 32 x
+// 128: 64 x 128 would need 256 KB, above the 227 KB a CTA may have), rows
+// XOR-swizzled in place. At 160 a tile is 16 columns, each row padded
+// from 20 to 21 16-byte chunks (PITCH 168 elements): a 16-column tile
+// keeps the warp's S and P fragments at 8 and 4 registers beside its 40 Q
+// and 80 O registers. A row is CH 16-byte chunks; WARP_SMEM holds a
+// warp's 2 stages of K and V, SMEM the CTA's four warps (128 KB at 64 and
+// 128, 84 KB at 160).
 template <int HD>
 struct Tile {
-  static_assert(HD % 32 == 0 && HD <= 128, "head dim");
-  static constexpr int COLS = TILE_BYTES / (2 * HD);  // KV columns a tile
-  static constexpr int ELEMS = COLS * HD;
+  static_assert((HD % 32 == 0 && HD <= 128) || HD == 160, "head dim");
+  static constexpr bool PADDED = HD == 160;
+  static constexpr int COLS = PADDED ? 16 : 8192 / (2 * HD);
+  static constexpr int PITCH = PADDED ? HD + 8 : HD;   // elements a row
+  static constexpr int ELEMS = COLS * PITCH;
   static constexpr int CH = HD / 8;
+  static constexpr int WARP_SMEM = 2 * 2 * ELEMS * 2;
+  static constexpr int SMEM = WARPS * WARP_SMEM;
+  // element offset of (row, 16-byte chunk ch): unpadded, the XOR touches
+  // the low 3 bits of ch only, so it stays inside the row's CH chunks
+  // (8 or 16), and the 8 rows an ldmatrix reads hit 8 different 16-byte
+  // bank groups (a row is 128 or 256 bytes, a whole number of bank
+  // cycles); padded, a row of 21 chunks moves each next row by 5 bank
+  // groups mod 8, which also gives 8 rows 8 groups
+  static __device__ __forceinline__ int off(int row, int ch) {
+    if constexpr (PADDED) return row * PITCH + (ch << 3);
+    return row * HD + ((ch ^ (row & 7)) << 3);
+  }
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -121,15 +141,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&p);
 }
 
-// element offset of (row, 16-byte chunk ch) in a swizzled HD-wide tile:
-// the XOR touches the low 3 bits of ch only, so it stays inside the row's
-// CH chunks, and the 8 rows an ldmatrix reads hit 8 different 16-byte
-// bank groups (a row is 128 or 256 bytes, a whole number of bank cycles)
-template <int HD>
-__device__ __forceinline__ int swz(int row, int ch) {
-  return row * HD + ((ch ^ (row & 7)) << 3);
-}
-
 template <int HD, int WR, typename Cols>
 __global__ void __launch_bounds__(THREADS, 1)
     prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -139,8 +150,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const Cols cols, int Hkv, int G, int C, int window,
                        float scale) {
   constexpr int KS = WARPS / WR;
-  constexpr int TILE = Tile<HD>::COLS, TILE_ELEMS = Tile<HD>::ELEMS;
-  constexpr int CH = Tile<HD>::CH;
+  using TL = Tile<HD>;
+  constexpr int TILE = TL::COLS, TILE_ELEMS = TL::ELEMS, CH = TL::CH;
   constexpr int NB = TILE / 8;      // 8-column blocks of S = Q.K^T a tile
   constexpr int KD = TILE / 16;     // 16-column depth steps of P.V a tile
   constexpr int QK = HD / 16;       // 16-dim depth steps of Q.K^T
@@ -189,15 +200,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t_hi = hi > lo ? (hi + TILE - 1) / TILE : t_lo;
   const int n_my = t_hi - t_lo > ks ? (t_hi - t_lo - ks + KS - 1) / KS : 0;
 
-  __nv_bfloat16* wbuf = smem + warp * (WARP_SMEM / 2);
+  __nv_bfloat16* wbuf = smem + warp * (TL::WARP_SMEM / 2);
 
   // the CTA's span (the union of its warps'), staged by the mapper
   const int rc0 = blockIdx.z * 16 * WR;
   const int rc_last = min(rc0 + 16 * WR - 1, R - 1);
   const int cta_hi = min(st + rc_last / G + 1, S);
   const int cta_lo = window > 0 ? max(st + rc0 / G - window + 1, 0) : 0;
-  const auto rows = cols.rows(b, h, Hkv, cta_lo, cta_hi,
-                              reinterpret_cast<long long*>(smem_raw + SMEM));
+  const auto rows = cols.rows(
+      b, h, Hkv, cta_lo, cta_hi,
+      reinterpret_cast<long long*>(smem_raw + TL::SMEM));
 
   // stage tile t of K and V into buffer `stage` (zero outside [lo, hi))
   auto load_tile = [&](int t, int stage) {
@@ -209,8 +221,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int c = t * TILE + row;
       const bool in = c >= lo && c < hi;
       const long long off = in ? rows(c) * HD + ch * 8 : 0;
-      cp_async16(smem_u32(ks_ + swz<HD>(row, ch)), k + off, in ? 16 : 0);
-      cp_async16(smem_u32(vs_ + swz<HD>(row, ch)), v + off, in ? 16 : 0);
+      cp_async16(smem_u32(ks_ + TL::off(row, ch)), k + off, in ? 16 : 0);
+      cp_async16(smem_u32(vs_ + TL::off(row, ch)), v + off, in ? 16 : 0);
     }
   };
 
@@ -242,7 +254,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kp = 0; kp < QK / 2; ++kp) {
         unsigned bk[4];
         const int row = 8 * n + (lane & 7), ch = 4 * kp + (lane >> 3);
-        ldsm_x4(smem_u32(ks_ + swz<HD>(row, ch)), bk);
+        ldsm_x4(smem_u32(ks_ + TL::off(row, ch)), bk);
         mma16816(s[n], qf[2 * kp], bk[0], bk[1]);
         mma16816(s[n], qf[2 * kp + 1], bk[2], bk[3]);
       }
@@ -305,7 +317,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         unsigned bv[4];
         const int row = 16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7);
         const int ch = 2 * dp + (lane >> 4);
-        ldsm_x4_t(smem_u32(vs_ + swz<HD>(row, ch)), bv);
+        ldsm_x4_t(smem_u32(vs_ + TL::off(row, ch)), bv);
         mma16816(o[2 * dp], pa[kk], bv[0], bv[1]);
         mma16816(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
       }
@@ -317,6 +329,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // merge the KS warps of each row group in warp order, then write
   float* red = reinterpret_cast<float*>(smem_raw);   // reuses the stages
   constexpr int PART = 16 * HD + 32;                  // floats per warp
+  static_assert(WARPS * PART * 4 <= TL::SMEM, "merge buffer vs stages");
   if (KS > 1) {
     __syncthreads();
     float* mine = red + warp * PART;
@@ -378,7 +391,7 @@ int launch_mma(const void* q, const void* k, const void* v, float* out,
                const int* start, const Cols cols, int smem_pages, int B,
                int Hkv, int G, int C, int window, float scale,
                cudaStream_t st) {
-  const int smem = SMEM + smem_pages * (int)sizeof(long long);
+  const int smem = Tile<HD>::SMEM + smem_pages * (int)sizeof(long long);
   const cudaError_t attr = cudaFuncSetAttribute(
       prefill_mma_kernel<HD, WR, Cols>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -429,6 +442,9 @@ int dispatch(const void* q, const void* k, const void* v, float* out,
                            C, window, scale, dtype, st);
   if (hd == 128)
     return dispatch_hd<128>(q, k, v, out, start, cols, smem_pages, B, Hkv,
+                            G, C, window, scale, dtype, st);
+  if (hd == 160)
+    return dispatch_hd<160>(q, k, v, out, start, cols, smem_pages, B, Hkv,
                             G, C, window, scale, dtype, st);
   return (int)cudaErrorInvalidValue;
 }

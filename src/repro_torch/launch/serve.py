@@ -11,22 +11,33 @@ the engine path of `repro/launch/serve.py`.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-moe-235b-a22b --reduced --device cpu --greedy
 
+    # xLSTM (no per-slot decode path: the billed static loop)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --batch 4 --prompt-len 32 --new-tokens 16 --snr-db 10 --greedy
+
 Runs on the GPU by default (`--device cpu` for the plain versions, at
 `--reduced` size for the transformer). Weights are random, drawn from
 `--seed`. The paper's tiny classifier answers each prompt with its
 sentiment class (one generated token in {0, 1} per step). Families
-without a per-slot decode path are not ported yet and raise.
+without a per-slot decode path (ssm) run `legacy_main`: one static
+batch, token by token, its prompt batch billed on one uplink and its
+generated tokens on one downlink through the same Radio; a family with
+no decode step at all exits.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.draws import seeded
 from repro_torch.models import api as M
-from repro_torch.nn import init_params, resolve_device
+from repro_torch.nn import init_params, init_tree, resolve_device
+from repro_torch.runtime.train_step import window_for
 from repro_torch.schemes.radio import Radio
 from repro_torch.serve import (RequestTrace, ServeEngine, SLOT_FAMILIES,
                                make_trace, uniform_trace)
@@ -39,7 +50,8 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--engine", default="continuous",
                     choices=["continuous", "static"])
-    ap.add_argument("--batch", type=int, default=4, help="decode slots")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="decode slots (engine) / batch rows (static loop)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--requests", type=int, default=0,
@@ -96,6 +108,134 @@ def gen_matrix(report, n_new: int) -> np.ndarray:
     return gen
 
 
+# ------------------------------------------------ the static loop
+# streams of the static loop, as the JAX package folds PRNGKey(seed):
+# prompt ids, the first token's sampling (then 3 + j for token j), the
+# prompt uplink and the token downlink
+PROMPT, SAMPLE0, UPLINK, DOWNLINK = 1, 2, 4, 5
+
+
+class LegacyDraws:
+    """The static loop's random draws, one seeded torch stream per fold
+    of the seed (the JAX package's `jax.random.fold_in(key, fold)`): a
+    test hands in the JAX package's own numbers instead."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+
+    def prompt(self, shape, vocab: int) -> torch.Tensor:
+        """Prompt ids [B, P] int32 in [1, vocab)."""
+        g = seeded(self.seed, PROMPT).generator
+        return torch.randint(1, vocab, tuple(shape), generator=g,
+                             dtype=torch.int64).to(torch.int32)
+
+    def link(self, fold: int):
+        """Channel `Draws` of one crossing (UPLINK or DOWNLINK)."""
+        return seeded(self.seed, fold)
+
+    def gumbel(self, fold: int, shape) -> torch.Tensor:
+        """Gumbel noise [B, V] f32 for one sampling step."""
+        g = seeded(self.seed, fold).generator
+        u = torch.rand(tuple(shape), generator=g).clamp_min(1e-20)
+        return -torch.log(-torch.log(u))
+
+
+def sample(lg: torch.Tensor, noise, temperature: float,
+           greedy: bool) -> torch.Tensor:
+    """[B] next ids from logits [B, V]: argmax when greedy (or T <= 0),
+    else argmax(lg / T + Gumbel) — jax.random.categorical's rule;
+    `noise` () -> the Gumbel draw, called only when sampling."""
+    if not greedy and temperature > 0:
+        lg = lg / temperature + noise().to(lg.device, lg.dtype)
+    return lg.argmax(dim=-1).to(torch.int32)
+
+
+def legacy_main(args, cfg, device) -> dict:
+    """Single static batch, token by token: the decode path of families
+    without a per-slot index (ssm). Weights drawn from `--seed`."""
+    if M.get_model(cfg).decode_step is None:
+        raise SystemExit(f"{args.arch} has no decode step (encoder-only)")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = init_tree(M.param_specs(cfg), gen, device)
+    return legacy_loop(args, cfg, params, device)
+
+
+def legacy_loop(args, cfg, params, device, draws=None) -> dict:
+    """The static loop on given weights: the prompt batch [batch,
+    prompt_len] crosses ONE uplink (`Radio.send_tokens`) before the
+    server sees it, the model decodes the received prompt one position
+    at a time and then `new_tokens` more, and the generated ids return
+    on ONE downlink. Returns the generated ids [B, N], the received
+    prompt, the logits of every prompt position [B, P, V] (f32), the
+    seconds of the prompt and the generation, and the bill (bits, erased
+    bits, energy)."""
+    model = M.get_model(cfg)
+    if model.decode_step is None:
+        raise SystemExit(f"{args.arch} has no decode step (encoder-only)")
+    draws = draws or LegacyDraws(args.seed)
+    B, P, N = args.batch, args.prompt_len, args.new_tokens
+    shape = ShapeConfig("serve", P + N, B, "decode")
+    window = window_for(cfg, shape)
+    radio = make_radio(args)
+    bits = energy = erased = 0.0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    cache = model.init_cache(cfg, B, P + N, device)
+    prompt = draws.prompt((B, P), cfg.vocab_size)
+    # uplink: the users' prompts cross the radio BEFORE the server sees
+    # them; the server decodes what was received
+    d = radio.send_tokens(draws.link(UPLINK), prompt, cfg.vocab_size)
+    bits += d.bits
+    energy += d.energy_j
+    erased += d.erased_bits
+    prompt = torch.as_tensor(d.payload).to(device)
+    out, prompt_logits = [], []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        for i in range(P):
+            logits, cache = model.decode_step(params, cache,
+                                              prompt[:, i:i + 1], i, cfg,
+                                              window)
+            prompt_logits.append(logits[:, 0].float())
+        sync()
+        t_prefill = time.perf_counter() - t0
+        V = logits.shape[-1]
+        tok = sample(logits[:, 0], lambda: draws.gumbel(SAMPLE0, (B, V)),
+                     args.temperature, args.greedy)[:, None]
+        t0 = time.perf_counter()
+        for j in range(N):
+            out.append(tok)
+            logits, cache = model.decode_step(params, cache, tok, P + j,
+                                              cfg, window)
+            tok = sample(logits[:, 0],
+                         lambda j=j: draws.gumbel(SAMPLE0 + 1 + j, (B, V)),
+                         args.temperature, args.greedy)[:, None]
+        sync()
+        t_decode = time.perf_counter() - t0
+    gen = torch.cat(out, dim=1).cpu()
+    # downlink: the generated ids return to the users over the same radio
+    d = radio.send_tokens(draws.link(DOWNLINK), gen, cfg.vocab_size)
+    bits += d.bits
+    energy += d.energy_j
+    erased += d.erased_bits
+    print(f"static loop on {device}: prefill {P} toks: {t_prefill:.2f}s | "
+          f"decode {N} toks: {t_decode:.2f}s "
+          f"({t_decode / max(N, 1) * 1e3:.1f} ms/tok)")
+    print(f"radio: {bits:.0f} bits ({erased:.0f} erased), "
+          f"{energy * 1e3:.3f} mJ")
+    if gen.shape != (B, N) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("static loop: wrong shape or non-finite logits")
+    return {"generated": gen.numpy().astype(np.int32),
+            "prompt": prompt.cpu().numpy(),
+            "prompt_logits": torch.stack(prompt_logits, 1),
+            "t_prefill_s": t_prefill, "t_decode_s": t_decode,
+            "bits": bits, "erased_bits": erased, "energy_j": energy}
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = resolve_device(args.device)
@@ -103,9 +243,8 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     if cfg.family not in SLOT_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.family}: no per-slot decode path in the port yet "
-            f"(see ROADMAP.md, P15)")
+        print(f"{cfg.family}: scalar-index decode only — static loop")
+        return legacy_main(args, cfg, dev)
     radio = make_radio(args)
     trace = resolve_trace(args, args.snr_db if args.snr_db is not None
                           else 20.0)

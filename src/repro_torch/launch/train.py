@@ -1,5 +1,5 @@
 """Training entry point — the port of `repro/launch/train.py`, for the
-paper's model and the dense and MoE families:
+paper's model and the dense, MoE, VLM and SSM (xLSTM) families:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
         --mode fl --steps 160
@@ -9,6 +9,12 @@ paper's model and the dense and MoE families:
     # the MoE family at its reduced size (2 layers, 4 experts top-2)
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen3-moe-235b-a22b --reduced --mode sl --steps 2
+    # xLSTM at full width and depth (24 layers: 4 super-blocks), FL
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
+        --mode fl --steps 2 --local-steps 2
+    # the VLM at its reduced size (2 layers, 16 patch tokens)
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch internvl2-76b --reduced --mode cl --steps 2
     # a 10,000-client synthetic fleet, 3 rounds (the billing plane)
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
         --fleet-size 10000 --fleet-sl-frac 0.3 --fleet-sample 0 --steps 3
@@ -35,8 +41,9 @@ counts. `--ckpt-dir` snapshots the whole run every `--ckpt-every`
 cycles (checkpoint/ckpt.py) and, when the directory already holds a
 snapshot, resumes from the latest one, bit for bit.
 
-Any other registered arch (the dense and MoE families; `--reduced` for
-its smoke-scale variant) runs the scaled schemes (schemes/scaled.py) on a
+Any other registered arch (the dense, MoE, VLM and SSM families;
+`--reduced` for its smoke-scale variant; a VLM batch adds stub patch
+embeddings) runs the scaled schemes (schemes/scaled.py) on a
 synthetic Zipf LM corpus (512 / 128 rows unless `--n-train`/`--n-test`
 say otherwise) at a constant `--lr` (3e-4): a CL/SL cycle is
 `--cycle-steps` optimizer steps (AdamW unless `--optimizer sgd`), an FL

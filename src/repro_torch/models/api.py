@@ -1,10 +1,13 @@
 """Unified model API: dispatch by family, input specs per shape, losses —
-the port of `repro/models/api.py`. The `dense` and `moe` families (one
-transformer, `moe` with expert blocks) and the paper's `tiny`
-classifier (a streaming decoder with no fused prefill, so serving
-prefills it by the exact scan) are ported; the others raise and are
-listed in ROADMAP.md (P15). The logical sharding axes (`param_axes`,
-`input_axes`) belong to the mesh machinery, still to port (P16)."""
+the port of `repro/models/api.py`. The `dense`, `moe` and `vlm` families
+(one transformer: `moe` with expert blocks, `vlm` with projected patch
+embeddings before the tokens), the `ssm` family (xLSTM, a recurrent
+decoder with no fused prefill, served by the billed static loop of
+launch/serve.py) and the paper's `tiny` classifier (a streaming decoder
+with no fused prefill, so serving prefills it by the exact scan) are
+ported; `hybrid` and `audio` raise and are listed in ROADMAP.md (P15).
+The logical sharding axes (`param_axes`, `input_axes`) belong to the
+mesh machinery, still to port (P16)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import lstm_tiny, transformer
+from repro_torch.models import lstm_tiny, transformer, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +38,10 @@ _TRANSFORMER = ModelApi(transformer.model_specs, transformer.forward,
 _FAMILIES = {
     "dense": _TRANSFORMER,
     "moe": _TRANSFORMER,
+    "vlm": _TRANSFORMER,
+    "ssm": ModelApi(xlstm.model_specs, xlstm.forward, xlstm.cache_shapes,
+                    xlstm.init_cache, xlstm.decode_step, None,
+                    xlstm.model_specs),
     "tiny": ModelApi(lstm_tiny.model_specs, lstm_tiny.forward,
                      lstm_tiny.cache_shapes, lstm_tiny.init_cache,
                      lstm_tiny.decode_step, None, lstm_tiny.model_specs),
@@ -66,11 +73,15 @@ def input_specs(cfg, shape_cfg) -> dict:
     B, S = shape_cfg.global_batch, shape_cfg.seq_len
     i32 = torch.int32
     if shape_cfg.kind in ("train", "prefill"):
-        if cfg.frontend == "vision" or cfg.family == "audio":
+        if cfg.family == "audio":
             raise NotImplementedError(
                 f"frontend inputs of family {cfg.family!r} are not ported "
                 f"yet (see ROADMAP.md, P15)")
-        return {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+        batch = {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+        if cfg.frontend == "vision":
+            batch["patch_embeds"] = ((B, cfg.n_frontend_tokens, cfg.d_model),
+                                     torch.float32)
+        return batch
     # decode: ONE new token against a seq_len cache
     return {"token": ((B, 1), i32), "index": ((), i32)}
 

@@ -1,9 +1,15 @@
-"""Decoder-only transformer LM, dense and MoE families — the port of
+"""Decoder-only transformer LM, dense, MoE and VLM families — the port of
 `repro/models/transformer.py` (teacher-forced forward, per-slot decode,
 fused chunk prefill; dense and paged KV caches). A MoE block holds
 `moe` (models/moe.py) where a dense block holds `mlp`; its load-balance
 loss is summed over the layers of `forward` and divided by n_layers,
-and decode and prefill drop it, as the JAX package does.
+and decode and prefill drop it, as the JAX package does. A VLM config
+(`frontend="vision"`) has `vis_proj`, which projects a batch's
+precomputed `patch_embeds` (the vision tower is a stub, as in the JAX
+package) and puts them before the tokens in `embed_inputs`. Serving runs
+on tokens only, as the JAX engine does (its serve steps never pass
+`patch_embeds`), so `vis_proj` is unused by `decode_step` and
+`prefill_step`.
 
 Two parameter layouts. Serving (`model_specs`, `init_params`) holds the
 layers as a list of per-layer subtrees. Training (`train_specs`,
@@ -24,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.moe import apply_moe, moe_specs
-from repro_torch.nn import (Spec, resolve_device, tree_leaves, tree_map,
+from repro_torch.nn import (resolve_device, stack_specs, tree_leaves,
                             tree_unflatten)
 
 
@@ -43,33 +49,33 @@ def block_specs(cfg) -> dict:
     return s
 
 
-def _no_frontend(cfg) -> None:
-    if cfg.frontend:
-        raise NotImplementedError("multimodal frontends are not ported yet "
-                                  "(ROADMAP.md, P15)")
+def _frontend_specs(cfg) -> dict:
+    """The VLM's projector from the (stub) vision tower's hidden size to
+    d_model, as the JAX package declares it."""
+    if cfg.frontend == "vision":
+        return {"vis_proj": L.linear_specs(cfg.d_model, cfg.d_model,
+                                           ("embed", "act_embed"))}
+    return {}
 
 
 def model_specs(cfg) -> dict:
     """The serving layout: `layers` a list of per-layer subtrees."""
-    _no_frontend(cfg)
     return {
         "embed": L.embed_specs(cfg.vocab_size, cfg.d_model),
         "layers": [block_specs(cfg) for _ in range(cfg.n_layers)],
         "ln_f": L.norm_specs(cfg.d_model, cfg.norm),
+        **_frontend_specs(cfg),
     }
 
 
 def train_specs(cfg) -> dict:
     """The training layout, the JAX package's `model_specs`: every layer
     leaf stacked to `[L, ...]` with a leading "layers" axis."""
-    _no_frontend(cfg)
-    stacked = tree_map(lambda s: Spec((cfg.n_layers,) + s.shape,
-                                      ("layers",) + s.axes, s.init,
-                                      s.dtype, s.scale), block_specs(cfg))
     return {
         "embed": L.embed_specs(cfg.vocab_size, cfg.d_model),
-        "layers": stacked,
+        "layers": stack_specs(block_specs(cfg), cfg.n_layers),
         "ln_f": L.norm_specs(cfg.d_model, cfg.norm),
+        **_frontend_specs(cfg),
     }
 
 
@@ -132,10 +138,14 @@ def apply_block_prefill(lp, x, cfg, ck, cv, start, n_valid, window=0,
 
 # ------------------------------------------------------------- forward
 def embed_inputs(params, batch: dict, cfg) -> torch.Tensor:
-    """tokens -> [B, S, d] activations (the dense path; the vision
-    frontend's patch embeddings are still to port)."""
-    _no_frontend(cfg)
-    return L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
+    """tokens (+ `patch_embeds` [B, P, d] for a vision config) -> [B, P +
+    S, d] activations: the projected patches first, then the tokens."""
+    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        vis = L.linear(params["vis_proj"],
+                       batch["patch_embeds"].to(cfg.dtype))
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def apply_blocks(layers: list, x, cfg, positions, window: int = 0,

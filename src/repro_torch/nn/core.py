@@ -57,6 +57,16 @@ class Spec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
+def stack_specs(specs, n: int, axis_name: str = "layers"):
+    """Prepend a stacked dim of `n` to every Spec of a tree (the JAX
+    package's `stack_specs`: the layout its `lax.scan` over layers
+    reads)."""
+    if isinstance(specs, dict):
+        return {k: stack_specs(v, n, axis_name) for k, v in specs.items()}
+    return Spec((n,) + specs.shape, (axis_name,) + specs.axes, specs.init,
+                specs.dtype, specs.scale)
+
+
 def _init_leaf(spec: Spec, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
     kw = {"dtype": spec.dtype, "device": device}
@@ -128,13 +138,13 @@ def params_from_jax(np_tree: dict, cfg=None, device="cuda"):
     ``ln_f``; a MoE block's ``moe.router.w``, ``moe.wi`` / ``wg`` /
     ``wo`` ``[L, E, ...]`` and ``moe.shared`` alike) become the port's
     serving `ParamDict` with the stacked layers as a list of per-layer
-    subtrees; the tiny family's, and with
-    `cfg` None any plain tree (the privacy adversary's MLP, an
+    subtrees; the tiny and ssm families' (xLSTM keeps JAX's stacked
+    super-block leaves), and with `cfg` None any plain tree (the privacy adversary's MLP, an
     `SLSession`'s model and codec, a transformer's training tree with
     its layers kept stacked), become a trainable tree (``init_tree``'s
     layout)."""
     dev = resolve_device(device)
-    if cfg is None or cfg.family == "tiny":
+    if cfg is None or cfg.family in ("tiny", "ssm"):
         return tree_map(lambda a: torch.from_numpy(
             np.array(a, dtype=np.float32, copy=True)).to(dev), np_tree)
 

@@ -1,10 +1,9 @@
 """Step builders: training (with gradient accumulation over microbatches)
 and prefill — the port of `repro/runtime/train_step.py` for the paper's
-tiny model and the dense and MoE families. The wireless mode is woven in
-here: SL routes the forward through the split + channel link
-(core/split.py); CL with a noisy link corrupts the tiny model's raw
-uplink tokens. FL wraps
-these in runtime/fl_runtime.py.
+tiny model and the dense, MoE, VLM and SSM (xLSTM) families. The
+wireless mode is woven in here: SL routes the forward through the split +
+channel link (core/split.py); CL with a noisy link corrupts the tiny
+model's raw uplink tokens. FL wraps these in runtime/fl_runtime.py.
 
 Gradients come from autograd: a step differentiates detached copies of
 the trainable tree's leaves (`torch.autograd.grad`) and applies the
@@ -12,7 +11,7 @@ plain-tensor optimizer update (optim/sgd.py, optim/adamw.py), in the
 JAX step's order. There is no mesh, so the sharding helpers of the JAX
 module (`trainable_axes`, `train_state_axes`, `axes_to_shardings`,
 `train_state_sds_and_shardings`, `key_sds`) are still to port
-(ROADMAP.md, P16); the other families' training is P15.
+(ROADMAP.md, P16); the hybrid and audio families' training is P15.
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ from repro_torch.nn import init_tree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw, sgd_momentum
 
 MOE_AUX_COEF = 0.01
-TRAINED_FAMILIES = ("tiny", "dense", "moe")
+TRAINED_FAMILIES = ("tiny", "dense", "moe", "vlm", "ssm")
 
 
 class TrainState(NamedTuple):

@@ -1,6 +1,9 @@
 """Scaled-architecture schemes — the port of `repro/schemes/scaled.py`:
-the dense and MoE families' CL / FL / SL behind the same `Scheme`
-protocol and `Experiment` driver as the paper's tiny model.
+the dense, MoE, VLM and SSM (xLSTM) families' CL / FL / SL behind the
+same `Scheme` protocol and `Experiment` driver as the paper's tiny model.
+A VLM batch carries stub `patch_embeds`, drawn from the experiment's rng
+after each batch's rows (eval: from `default_rng(999)`), as in the JAX
+package.
 
 * `ScaledCentralizedScheme` — the synthetic corpus crosses the radio
   once at `init` (`Radio.send_tokens`: bit errors corrupt token ids; a
@@ -27,8 +30,12 @@ FLOPs: the JAX package asks XLA for the cost of the compiled round
 program; here one round's step is run on meta tensors under
 `torch.utils.flop_counter.FlopCounterMode` (its matmuls, in the forward,
 the backward and any remat recompute), with the JAX package's user /
-server apportioning. Ahead-of-time lowering (`lower_step`,
-`warmup_compile`) is mesh machinery, still to port (ROADMAP.md, P16).
+server apportioning. An xLSTM's matmuls are all per token or per
+predicted token (no attention), so its count is affine in the sequence:
+it is taken at one and at two tokens and extended to seq_len, which
+spares the meta step's Python loop over time. Ahead-of-time lowering
+(`lower_step`, `warmup_compile`) is mesh machinery, still to port
+(ROADMAP.md, P16).
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ UPLOAD_STREAM = 7     # the CL corpus upload draws on key(seed + 7)
 FL_STREAM = 3         # FL cycle k draws on key(seed + 3).fold_in(k)
 EVAL_KEY = 999        # eval slice i is scored on key(999 + i)
 DEFAULT_LR = 3e-4
+SCALED_FAMILIES = ("dense", "moe", "vlm", "ssm")
 
 
 def _p16(what: str):
@@ -83,10 +91,10 @@ class _ScaledScheme:
         if cfg.family == "tiny":
             raise ValueError("the paper model runs the tiny schemes; "
                              "build_scheme routes it there")
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in SCALED_FAMILIES:
             raise NotImplementedError(
                 f"training family {cfg.family!r} is not ported yet; the "
-                f"scaled schemes train the dense and moe families (see "
+                f"scaled schemes train {list(SCALED_FAMILIES)} (see "
                 f"ROADMAP.md, P15)")
         self.cfg = cfg
         self.shape = shape or DEFAULT_SHAPE
@@ -123,10 +131,22 @@ class _ScaledScheme:
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _frontend_extras(self, rng, b: int) -> dict:
+        """The stubbed vision frontend's inputs, drawn from the same rng
+        stream as the token sampling (as data/pipeline.py's
+        `synthetic_lm_batches` draws them)."""
+        cfg = self.cfg
+        if cfg.frontend != "vision":
+            return {}
+        return {"patch_embeds": self._tensor(rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+            * 0.1)}
+
     def _sample_batch(self, x, y, rng, b: int) -> dict:
         idx = rng.integers(0, len(x), b)
         return {"tokens": self._tensor(x[idx]),
-                "labels": self._tensor(y[idx])}
+                "labels": self._tensor(y[idx]),
+                **self._frontend_extras(rng, b)}
 
     # ------------------------------------------------------------- eval
     def _eval_wcfg(self):
@@ -140,10 +160,12 @@ class _ScaledScheme:
         cfg, wcfg = self.cfg, self._eval_wcfg()
         window = window_for(cfg, self.shape)
         b = self.shape.global_batch
+        rng = np.random.default_rng(EVAL_KEY)      # frontend extras only
         accs = []
         for i in range(0, max(len(xte) - b + 1, 1), b):
             batch = {"tokens": self._tensor(xte[i:i + b]),
                      "labels": self._tensor(yte[i:i + b])}
+            batch.update(self._frontend_extras(rng, len(xte[i:i + b])))
             logits, _ = _forward(trainable, batch, cfg, wcfg,
                                  self.key(EVAL_KEY + i), window)
             labels = batch["labels"]
@@ -170,14 +192,22 @@ class _ScaledScheme:
         return {"model": tree_map(meta, M.train_param_specs(self.cfg)),
                 "codec": codec}
 
-    def _meta_batch(self) -> dict:
-        return {k: torch.zeros(shape, dtype=torch.int64, device="meta")
-                for k, (shape, _) in
-                M.input_specs(self.cfg, self.shape).items()}
+    def _meta_batch(self, seq_len: int) -> dict:
+        shape = dataclasses.replace(self.shape, seq_len=seq_len)
+        return {k: torch.zeros(shp, dtype=dtype if dtype.is_floating_point
+                               else torch.int64, device="meta")
+                for k, (shp, dtype) in
+                M.input_specs(self.cfg, shape).items()}
 
-    def _meta_step(self) -> None:
+    def _meta_step(self, seq_len: int) -> None:
         """One optimizer step on meta tensors (shapes only)."""
         raise NotImplementedError
+
+    def _count_flops(self, seq_len: int) -> float:
+        from torch.utils.flop_counter import FlopCounterMode
+        with FlopCounterMode(display=False) as fc:
+            self._meta_step(seq_len)
+        return float(fc.get_total_flops())
 
     # optimizer steps in one round program
     _steps_per_program = 1
@@ -186,11 +216,13 @@ class _ScaledScheme:
         """FLOPs of one round program: `_meta_step`'s count, times the
         program's steps; cached."""
         if self._cost_flops is None:
-            from torch.utils.flop_counter import FlopCounterMode
-            with FlopCounterMode(display=False) as fc:
-                self._meta_step()
-            self._cost_flops = float(fc.get_total_flops()) \
-                * self._steps_per_program
+            S = self.shape.seq_len
+            if self.cfg.family == "ssm":
+                one = self._count_flops(1)
+                flops = one + (S - 1) * (self._count_flops(2) - one)
+            else:
+                flops = self._count_flops(S)
+            self._cost_flops = flops * self._steps_per_program
         return self._cost_flops
 
     def flops(self, steps_total: int):
@@ -252,11 +284,12 @@ class ScaledCentralizedScheme(_ScaledScheme):
     def evaluate(self, state, xte, yte) -> float:
         return self._evaluate_trainable(state.train.trainable, xte, yte)
 
-    def _meta_step(self) -> None:
+    def _meta_step(self, seq_len: int) -> None:
         trainable = self._meta_trainable(self._step_wcfg())
         opt_init, _ = _optimizer(self.optimizer)
         state = TrainState(trainable, opt_init(trainable), 0)
-        self._step(state, self._meta_batch(), self.key(0), DEFAULT_LR)
+        self._step(state, self._meta_batch(seq_len), self.key(0),
+                   DEFAULT_LR)
 
 
 # ------------------------------------------------------------------- SL
@@ -440,11 +473,12 @@ class ScaledFederatedScheme(_ScaledScheme):
         # a cycle's local phase; the sync has no matmul
         return self.n_users * self.local_steps
 
-    def _meta_step(self) -> None:
+    def _meta_step(self, seq_len: int) -> None:
         trainable = self._meta_trainable(None)
         opt_init, _ = _optimizer("sgd")
         state = TrainState(trainable, opt_init(trainable), 0)
-        make_local_step(self.cfg, DEFAULT_LR)(state, self._meta_batch())
+        make_local_step(self.cfg, DEFAULT_LR)(state,
+                                              self._meta_batch(seq_len))
 
     def evaluate(self, state, xte, yte) -> float:
         if self.sync == "delayed":

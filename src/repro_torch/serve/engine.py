@@ -12,8 +12,9 @@ token per cycle through the decode step. `kv="paged"` keeps the KV in one
 shared page pool (serve/paging.PagePool), `kv="dense"` in a per-slot
 [B, Hkv, S, hd] cache. On CUDA every decode step runs the decode kernel
 (paged or dense) once per layer and every chunk the prefill kernel.
-The MoE family serves like the dense one; its expert capacity is per
-call, so a fused chunk's drops depend on every row the chunk holds
+The VLM serves like the dense family, on tokens only (the JAX engine
+passes no patch embeddings). So does the MoE family; its expert capacity
+is per call, so a fused chunk's drops depend on every row the chunk holds
 (idle rows and padded tails route too, as in the JAX engine), while a
 decode step of at most 8 slots cannot drop (capacity >= 8).
 The paper's tiny classifier serves too: its O(1) recurrent cache has
@@ -56,10 +57,11 @@ from repro_torch.serve.paging import (PagePool, bucket_for, pages_needed,
                                       prefill_buckets)
 from repro_torch.serve.trace import RequestTrace
 
-#: families whose decode path accepts a per-slot [B] index vector (ported)
-SLOT_FAMILIES = ("dense", "moe", "tiny")
-#: families whose KV cache can live in the shared page pool (ported)
-PAGED_FAMILIES = ("dense", "moe")
+#: families whose decode path accepts a per-slot [B] index vector (the
+#: JAX package's; the others serve through launch/serve.py's static loop)
+SLOT_FAMILIES = ("dense", "moe", "vlm", "tiny")
+#: families whose KV cache can live in the shared page pool
+PAGED_FAMILIES = ("dense", "moe", "vlm")
 #: the serving RNG stream offset (docs/ACCOUNTING.md §RNG)
 SERVE_STREAM = 13
 #: legs of a request's crossings, as the JAX package folds them
@@ -213,8 +215,9 @@ class ServeEngine:
                  device="cuda", draws=ServeDraws):
         if cfg.family not in SLOT_FAMILIES:
             raise ValueError(
-                f"family {cfg.family!r} has no per-slot decode path in the "
-                f"port; serving supports {SLOT_FAMILIES} (see ROADMAP.md, P15)")
+                f"family {cfg.family!r} has no per-slot decode path; the "
+                f"engine serves {SLOT_FAMILIES}, the others run the static "
+                f"loop of launch/serve.py (legacy_main)")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if prefill not in ("chunked", "token"):

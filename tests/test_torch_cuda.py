@@ -211,11 +211,15 @@ def test_paged_kernel_equals_dense_twin_bitwise(c, page, g, window, dtype,
 
 
 # K7-K10 at the head dims and GQA groups of the served configs: hd 128 at
-# G 5 (llama4-scout-17b-a16e), 12 (command-r-plus-104b) and 16
-# (chatglm3-6b), hd 64 at G 16 (qwen3-moe-235b-a22b). A G that is not a
-# power of two leaves a partial head-group block in decode (G 5: blocks
-# of 4 and 1 rows) and a partial 16-row group in prefill (C*G = 17 * 5)
-WIDE_HEADS = [(128, 5), (128, 12), (128, 16), (64, 16)]
+# G 5 (llama4-scout-17b-a16e), 12 (command-r-plus-104b), 16
+# (chatglm3-6b) and 8 (internvl2-76b), hd 64 at G 16
+# (qwen3-moe-235b-a22b), hd 160 at G 4 (stablelm-12b: a column of 20
+# bf16 or 40 f32 16-byte chunks in decode, a padded 21-chunk row in the
+# bf16 prefill, 16-column tiles in the f32 one). A G that is not a power
+# of two leaves a partial head-group block in decode (G 5: blocks of 4
+# and 1 rows) and a partial 16-row group in prefill (C*G = 17 * 5)
+WIDE_HEADS = [(128, 5), (128, 12), (128, 16), (64, 16), (160, 4),
+              (128, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1083,3 +1087,71 @@ def test_apply_moe_on_card_equals_cpu(name, cuda_device):
         if factor < 1:
             assert float(auxg["dropped_frac"]) > 0
 
+
+
+def _xlstm(dev):
+    """The reduced xlstm-350m (one super-block of 1 mLSTM + 1 sLSTM, f32)
+    with weights from one CPU generator, on `dev`."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api as M
+    from repro_torch.nn import init_tree
+    cfg = get_arch("xlstm-350m").reduced()
+    return cfg, init_tree(M.param_specs(cfg),
+                          torch.Generator().manual_seed(0), dev)
+
+
+def test_xlstm_forward_and_decode_on_card_equal_cpu(cuda_device):
+    """The reduced xLSTM's forward and its token-by-token decode (logits
+    and every state leaf) on the card against the same weights on the
+    CPU, within 2e-4 (the recurrences' matmuls sum in other orders on
+    the two devices: the 2e-5 of the JAX comparison holds on one)."""
+    from repro_torch.models import xlstm as X
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        1, 1024, (2, 10)).astype(np.int32))
+    out = {}
+    with torch.no_grad():
+        for dev in (cuda_device, "cpu"):
+            cfg, p = _xlstm(dev)
+            full, _ = X.forward(p, {"tokens": tok.to(dev)}, cfg)
+            cache = X.init_cache(cfg, 2, 10, dev)
+            steps = [X.decode_step(p, cache, tok[:, i:i + 1].to(dev), i,
+                                   cfg)[0][:, 0] for i in range(10)]
+            out[str(dev)] = (full, torch.stack(steps, 1), cache)
+    (fc, dc, cc), (fh, dh, ch) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(fc.cpu(), fh, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(dc.cpu(), dh, rtol=2e-4, atol=2e-4)
+    for k in ch:
+        torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=2e-4,
+                                   atol=2e-4)
+    torch.testing.assert_close(dc, fc, rtol=3e-3, atol=3e-3)
+
+
+def test_xlstm_static_serving_loop_on_card(cuda_device):
+    """`legacy_loop` (launch/serve.py) on the card with the CPU's weights
+    and the same draws: the same bill, the same greedy tokens where the
+    top two logits are not within 2e-4, and no kernel launch (the
+    recurrences are plain ops; no attention)."""
+    from repro_torch.launch import serve
+    from repro_torch.nn import tree_map
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.quant_channel import ops as qc
+    argv = ["--arch", "xlstm-350m", "--reduced", "--batch", "3",
+            "--prompt-len", "6", "--new-tokens", "5", "--snr-db", "8",
+            "--greedy", "--seed", "4"]
+    cfg, p = _xlstm("cpu")
+    n0 = (dec.gqa_decode.launches, qc.packed_wire_2d.launches)
+    got = serve.legacy_loop(serve.parse_args(argv), cfg,
+                            tree_map(lambda a: a.to(cuda_device), p),
+                            cuda_device)
+    assert (dec.gqa_decode.launches, qc.packed_wire_2d.launches) == n0
+    want = serve.legacy_loop(serve.parse_args(argv + ["--device", "cpu"]),
+                             cfg, p, torch.device("cpu"))
+    for k in ("bits", "erased_bits", "energy_j"):
+        assert got[k] == want[k], k
+    np.testing.assert_array_equal(got["prompt"], want["prompt"])
+    torch.testing.assert_close(got["prompt_logits"].cpu(),
+                               want["prompt_logits"], rtol=2e-4, atol=2e-4)
+    top2 = want["prompt_logits"][:, -1].topk(2).values
+    if bool(((top2[:, 0] - top2[:, 1]) > 2e-4).all()):
+        np.testing.assert_array_equal(got["generated"][:, 0],
+                                      want["generated"][:, 0])

@@ -208,4 +208,4 @@ def test_paged_equals_dense_within_port(both):
 def test_other_families_raise():
     import dataclasses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.get_model(dataclasses.replace(CFG, family="ssm"))
+        M.get_model(dataclasses.replace(CFG, family="hybrid"))
