@@ -224,10 +224,33 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    idle share. Then internvl2-76b and xlstm-350m at `reduced()` through
    the scaled CL, SL (2 steps) and FL (K1; 2 local steps) schemes, card
    against CPU as phase 12's MoE runs;
-14. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5 and 7-13 together, K7-K10 over phases 3
-   and 12; K1-K4 and K7-K10 also per timed shape, under "by_shape"), the
-   card's name and power limit, and as the last line
+14. drives the hybrid and audio families at full width and depth
+   (zamba2-1.2b: 38 Mamba2 blocks, 6 super-blocks of 6 + a tail of 2,
+   the shared attention + MLP block after each super-block, d_model
+   2048, 32 heads at hd 64, SSM state 64; seamless-m4t-medium: 12 + 12
+   layers, d_model 1024, 16 heads at hd 64, layernorm, vocab 256,256;
+   random weights from --seed), counters set to 0 before each part and
+   read after: `launch.serve` (the billed static loop as in phase 13;
+   seamless first encodes the stub frames, 0.1 everywhere, into its
+   cross-attention cache): the prompt's decode logits within 16
+   (zamba2, whose gap to the forward it prints block by block: it grows
+   through the Mamba2 stack) and 8 (seamless) bf16 ulps of the
+   teacher-forced `forward` (f32 reductions), the bill exactly the two
+   crossings', K7 6 (zamba2) and 24 (seamless) times a decode step and
+   no other kernel; then scaled CL and SL (AdamW, 2 steps; zamba2 cut
+   at super-block 2, seamless at the encoder output, frames [8, 512,
+   1024]) on the training CLI's corpus: bills exact (CL 983,040 and
+   1,179,648 bits once; SL 8,388,608 and 16,777,216 a step), losses
+   finite and falling, K1 twice an SL step and once an SL eval slice, no
+   K3-K10; seconds per round and eval, max_memory_allocated and a traced
+   eval slice's idle share. Then both at `reduced()` through the scaled
+   CL, SL and FL (K1) schemes, card against CPU as phase 12's MoE runs.
+   Phase 2 also holds K7 at the static loop's decode shapes (4 rows;
+   KV heads / cache 32 / 48, 16 / 48, 16 / 512) and times two of them;
+15. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5 and 7-14 together, K7-K10 over phases 3,
+   12 and 14; K1-K4 and K7-K10 also per timed shape, under "by_shape"),
+   the card's name and power limit, and as the last line
    {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
@@ -497,6 +520,12 @@ WIDE_HEADS = ((4, 16, 64), (8, 5, 128), (2, 16, 128), (8, 12, 128),
 # the heads added with stablelm-12b and internvl2-76b, checked also with a
 # sliding window (bf16 and f32)
 WINDOWED_HEADS = ((8, 4, 160), (8, 8, 128))
+# the static serving loop's decode calls (phase 14, 4 rows, hd 64, G 1):
+# (KV heads, cache length) of zamba2-1.2b's shared attention and of
+# seamless-m4t-medium's self- and cross-attention; the first and the last
+# are timed (the by_shape key has no cache length)
+STATIC_DECODE = ((32, 48), (16, 48), (16, 512))
+STATIC_TIMED = ("static-hkv32-s48", "static-hkv16-s512")
 
 
 def _shape_key(kern, case) -> list:
@@ -516,6 +545,7 @@ def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
     import torch
     rng = np.random.default_rng(seed)
     wide_rng = np.random.default_rng(seed + 12)
+    static_rng = np.random.default_rng(seed + 14)
     bf16, f32 = torch.bfloat16, torch.float32
     main = dict(B=8, Hkv=16, G=1, S=S, hd=64, page=16, window=0)
     from repro_torch.kernels.decode_attention import ops as dec
@@ -544,6 +574,11 @@ def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
                 variants += [
                     (f"window-hd{hd}-g{g}", dict(win, dtype=bf16)),
                     (f"window-hd{hd}-g{g}-f32", dict(win, dtype=f32))]
+        if kern["name"] == "decode_attention":
+            for hkv, s_len in STATIC_DECODE:
+                variants.append((f"static-hkv{hkv}-s{s_len}", dict(
+                    main, B=4, Hkv=hkv, S=s_len, C=None, dtype=bf16,
+                    rng=static_rng)))
         err_main, timed, by_shape = 0.0, None, []
         for label, kw in variants:
             kw = dict(kw)
@@ -576,8 +611,8 @@ def check_kernels(S: int, seed: int, S_wide: int) -> tuple:
                   f"{'ok' if ok else 'FAILED'}", flush=True)
             if not ok:
                 failures.append(tag)
-            if label == "main" or (label.startswith("wide")
-                                   and case.dtype == bf16):
+            if label == "main" or label in STATIC_TIMED or (
+                    label.startswith("wide") and case.dtype == bf16):
                 err_main = max(err_main, err)
                 ms = time_case(kern, case)
                 twin_note = ""
@@ -3712,9 +3747,10 @@ ROUTER_TIE = 2 ** -5
 MOE_TRAINED = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
 
 
-def ulp_tol(x) -> float:
-    """8 bf16 ulps at the largest |x| (bf16 keeps 8 significant bits)."""
-    return 8 * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+def ulp_tol(x, ulps: int = 8) -> float:
+    """`ulps` bf16 ulps at the largest |x| (bf16 keeps 8 significant
+    bits)."""
+    return ulps * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
 
 
 class RouteTape:
@@ -4069,41 +4105,111 @@ def wide_phase(seed: int, card_name: str, shapes: dict) -> tuple:
     return launches, by_shape, summary, failures
 
 
-# ----------------------------------------- phase 13: the ssm family
+# ------------------------- phases 13 and 14: the recurrent and enc-dec
 XLSTM = "xlstm-350m"
+HYBRID, AUDIO = "zamba2-1.2b", "seamless-m4t-medium"
 # the static serving loop's batch: 4 users, 32 prompt and 16 new tokens
-XLSTM_SERVE = dict(batch=4, prompt_len=32, new_tokens=16)
+STATIC_SERVE = dict(batch=4, prompt_len=32, new_tokens=16)
+# K7 launches a decode step of the static loop: none for xLSTM (no
+# attention), the shared block's 6 applications for zamba2-1.2b, 12
+# self- and 12 cross-attention layers for seamless-m4t-medium
+STATIC_K7 = {XLSTM: 0, HYBRID: 6, AUDIO: 24}
+# the static loop's prompt logits against the teacher-forced forward, in
+# bf16 ulps at the largest |logit|: 8 as phase 12; zamba2-1.2b's 16 from
+# its measured gap (15.75 ulps, 0.4922 at |logit| < 4, H100 80GB HBM3 at
+# 700 W), which grows block by block through its 38 Mamba2 blocks (the
+# gaps `hybrid_layer_gaps` prints: 0.5 ulps after the first block, at
+# most 19.5, 12.2 after the last): the decode's recurrent SSD and its
+# 4-row GEMMs round in other places than the forward's chunked scan and
+# 128-row GEMMs, and the SSM state carries each difference on to the
+# later tokens
+STATIC_ULPS = {XLSTM: 8, HYBRID: 16, AUDIO: 8}
 # the cuts of the full-width runs, all of steps: 2 steps a CL / SL cycle
 # (the loss must fall from the first to the second), 1 local step a user
 # in FL, and 4 eval slices (32 held-out rows); the corpus, batch and
 # sequence are the training CLI's (512 training rows, batch 8, seq 128)
-XLSTM_STEPS, XLSTM_FL_STEPS, XLSTM_N_TEST = 2, 1, 32
-XLSTM_SL_STEP_BITS = 4_194_304     # 2 legs x 8 x 128 x 1024 / 4 x Q8
-XLSTM_CL_BITS = 512 * 128 * 16     # 16-bit token ids (vocab 50,304)
+FAMILY_STEPS, FAMILY_FL_STEPS, FAMILY_N_TEST = 2, 1, 32
+# (CL's corpus bits once: token_bits(vocab) x 512 x 128; SL's bits a
+# step: 2 legs x 8 bits x crossing_elems) at full width
+FAMILY_BILLS = {
+    XLSTM: (512 * 128 * 16, 4_194_304),     # vocab 50,304; 8 x 128 x 256
+    HYBRID: (512 * 128 * 15, 8_388_608),    # vocab 32,000; 8 x 128 x 512
+    AUDIO: (512 * 128 * 18, 16_777_216),    # vocab 256,256; 8 x 512 x 256
+}
 # the FL run goes through the training CLI, as a user types it
-XLSTM_FL_CLI = ["--mode", "fl", "--steps", str(XLSTM_FL_STEPS),
-                "--local-steps", str(XLSTM_FL_STEPS), "--n-test",
-                str(XLSTM_N_TEST)]
+FAMILY_FL_CLI = ["--mode", "fl", "--steps", str(FAMILY_FL_STEPS),
+                 "--local-steps", str(FAMILY_FL_STEPS), "--n-test",
+                 str(FAMILY_N_TEST)]
 REDUCED_TRAINED = ("internvl2-76b", "xlstm-350m")
 
 
-def xlstm_serve(seed: int, card_name: str) -> tuple:
-    """Phase 13 (c), serving: `launch.serve --arch xlstm-350m` at full
+@contextlib.contextmanager
+def _hybrid_taps(log: list):
+    """While open, every Mamba2 block and every shared block of the
+    hybrid, in `forward` and in `decode_step`, appends its output (f32)
+    to `log`."""
+    from repro_torch.models import hybrid as Hy
+    names = ("apply_mamba_block", "_shared_block", "apply_mamba_decode",
+             "_shared_decode")
+    kept = {n: getattr(Hy, n) for n in names}
+
+    def tap(fn, first):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            log.append((out[0] if first else out).float())
+            return out
+        return call
+    for n in names:
+        setattr(Hy, n, tap(kept[n], n == "apply_mamba_decode"))
+    try:
+        yield log
+    finally:
+        for n, fn in kept.items():
+            setattr(Hy, n, fn)
+
+
+def hybrid_layer_gaps(cfg, params, tokens) -> list:
+    """The token-by-token decode's gap to the teacher-forced forward
+    after each block of the hybrid, in the order the blocks run (6 x (6
+    Mamba2 + the shared block) + 2 tail blocks), in bf16 ulps at that
+    output's largest |x|."""
+    import torch
+    from repro_torch.models import hybrid as Hy
+    B, P = tokens.shape
+    with torch.inference_mode():
+        with _hybrid_taps([]) as fw:
+            Hy.forward(params, {"tokens": tokens}, cfg)
+        cache = Hy.init_cache(cfg, B, P, "cuda")
+        with _hybrid_taps([]) as dec:
+            for i in range(P):
+                Hy.decode_step(params, cache, tokens[:, i:i + 1], i, cfg)
+    n = len(fw)
+    return [float((torch.cat(dec[l::n], 1) - ref).abs().max())
+            / ulp_tol(ref, 1) for l, ref in enumerate(fw)]
+
+
+def static_serve(name: str, seed: int, card_name: str) -> tuple:
+    """Phases 13 and 14, serving: `launch.serve --arch name` at full
     width (the static loop), every kernel counter set to 0 before and
-    read after. Returns (summary, failures)."""
+    read after. Returns (summary, {(B, Hkv, G, hd): K7 launches},
+    failures)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.centralized import token_bits
     from repro_torch.launch import serve
     from repro_torch.models import api as M
-    from repro_torch.models import xlstm as X
-    from repro_torch.nn import init_tree
-    argv = ["--arch", XLSTM, "--seed", str(seed), "--snr-db", "10",
-            "--greedy"] + [x for k, v in XLSTM_SERVE.items()
+    from repro_torch.models.encdec import src_len
+    from repro_torch.nn import count_params, init_tree
+    argv = ["--arch", name, "--seed", str(seed), "--snr-db", "10",
+            "--greedy"] + [x for k, v in STATIC_SERVE.items()
                            for x in (f"--{k.replace('_', '-')}", str(v))]
+    B, P, N = (STATIC_SERVE[k] for k in ("batch", "prompt_len",
+                                          "new_tokens"))
+    cfg = get_arch(name)
     counters = _all_counters()
     for f in counters.values():
         f.launches = 0
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = serve.main(argv)
@@ -4111,68 +4217,85 @@ def xlstm_serve(seed: int, card_name: str) -> tuple:
     n = {k: f.launches for k, f in counters.items() if f.launches}
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     # the reference: the same weights (the loop's seeded card generator)
-    # through the teacher-forced forward, on the prompt the server got,
-    # its bf16 products reducing in f32 as the JAX package's dots do:
-    # cuBLAS's default lets a split-K bf16 GEMM of the forward's 128 rows
-    # reduce in bf16, which moves its logits (the gap is printed)
-    cfg = get_arch(XLSTM)
+    # through the teacher-forced forward, on the prompt the server got
+    # (and the loop's stub frames), its bf16 products reducing in f32 as
+    # the JAX package's dots do: cuBLAS's default lets a split-K bf16 GEMM
+    # of the forward's 128 rows reduce in bf16, which moves its logits
+    # (the gap is printed)
     params = init_tree(M.param_specs(cfg), torch.Generator(
         device="cuda").manual_seed(seed), "cuda")
-    prompt = torch.from_numpy(out["prompt"]).cuda()
+    batch = {"tokens": torch.from_numpy(out["prompt"]).cuda()}
+    if cfg.family == "audio":
+        batch["frames"] = 0.1 * torch.ones(
+            (B, src_len(cfg, P + N), cfg.d_model), device="cuda")
+    forward = M.get_model(cfg).forward
     mm = torch.backends.cuda.matmul
     with torch.inference_mode():
-        loose = X.forward(params, {"tokens": prompt}, cfg)[0].float()
+        loose = forward(params, batch, cfg)[0].float()
         kept = mm.allow_bf16_reduced_precision_reduction
         mm.allow_bf16_reduced_precision_reduction = False
         try:
-            ref, _ = X.forward(params, {"tokens": prompt}, cfg)
+            ref, _ = forward(params, batch, cfg)
         finally:
             mm.allow_bf16_reduced_precision_reduction = kept
     ref, got = ref.float(), out["prompt_logits"]
-    tol, worst = ulp_tol(ref), float((got - ref).abs().max())
+    tol = ulp_tol(ref, STATIC_ULPS[name])
+    worst = float((got - ref).abs().max())
     worst_loose = float((got - loose).abs().max())
-    B, P, N = (XLSTM_SERVE[k] for k in ("batch", "prompt_len",
-                                         "new_tokens"))
+    gaps = (hybrid_layer_gaps(cfg, params, batch["tokens"])
+            if cfg.family == "hybrid" else [])
+    for k, f in counters.items():     # the gaps' own decode is not served
+        f.launches = n.get(k, 0)
     up, down = (float(token_bits(cfg.vocab_size) * B * t) for t in (P, N))
     want_bits = up + down
     radio = serve.make_radio(serve.parse_args(argv))
-    summary = dict(prompt_s=out["t_prefill_s"], decode_s=out["t_decode_s"],
+    want_k7 = STATIC_K7[name] * (P + N)
+    shape = (B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd)
+    summary = dict(params=count_params(params),
+                   prompt_s=out["t_prefill_s"], decode_s=out["t_decode_s"],
                    tokens_per_s=B * N / out["t_decode_s"], wall_s=wall,
                    bits=out["bits"], erased_bits=out["erased_bits"],
                    energy_j=out["energy_j"], max_memory_gib=mem,
                    prompt_logits_max_abs_vs_forward=worst, logit_tol=tol,
-                   vs_forward_with_bf16_reductions=worst_loose, launches=n)
-    print(f"serve {XLSTM} (static loop, {B} x {P} prompt + {N} new "
-          f"tokens): prompt {out['t_prefill_s']:.3f} s, decode "
-          f"{out['t_decode_s']:.3f} s = {summary['tokens_per_s']:.1f} "
-          f"tok/s; bits {out['bits']:.0f} (want {want_bits:.0f}), erased "
-          f"{out['erased_bits']:.0f}, energy {out['energy_j']:.6e} J; "
-          f"prompt logits vs forward max |diff| {worst:.4e} (tol {tol:g}, "
-          f"8 bf16 ulps at the largest |logit|; {worst_loose:.4e} against "
-          f"the forward with cuBLAS's bf16 split-K reductions); "
-          f"max_memory_allocated "
-          f"{mem:.2f} GiB; launches {n} ({card_name})", flush=True)
+                   vs_forward_with_bf16_reductions=worst_loose,
+                   layer_gaps_ulps=gaps, launches=n)
+    print(f"serve {name} (static loop, {summary['params']} params, {B} x "
+          f"{P} prompt + {N} new tokens): prompt {out['t_prefill_s']:.3f} "
+          f"s, decode {out['t_decode_s']:.3f} s = "
+          f"{summary['tokens_per_s']:.1f} tok/s; bits {out['bits']:.0f} "
+          f"(want {want_bits:.0f}), erased {out['erased_bits']:.0f}, "
+          f"energy {out['energy_j']:.6e} J; prompt logits vs forward max "
+          f"|diff| {worst:.4e} = {worst / ulp_tol(ref, 1):.2f} ulps (tol "
+          f"{tol:g}, {STATIC_ULPS[name]} bf16 ulps at the largest |logit|; "
+          f"{worst_loose:.4e} against the forward with cuBLAS's "
+          f"bf16 split-K reductions); max_memory_allocated {mem:.2f} GiB; "
+          f"launches {n} (K7 want {want_k7}, {STATIC_K7[name]} a step, "
+          f"heads {shape[1:]}) ({card_name})", flush=True)
+    if gaps:
+        print(f"  {name} decode vs forward after each block, bf16 ulps at "
+              f"its largest |x|: {[round(g, 2) for g in gaps]}", flush=True)
     failures = []
     if not (torch.isfinite(got).all() and got.shape == ref.shape) \
             or worst > tol:
-        failures.append(f"{XLSTM} serving: prompt logits {worst} > {tol}")
+        failures.append(f"{name} serving: prompt logits {worst} > {tol}")
     if out["bits"] != want_bits or out["erased_bits"] != 0.0 \
             or out["generated"].shape != (B, N) \
             or out["energy_j"] != radio.energy_j(up) + radio.energy_j(down):
-        failures.append(f"{XLSTM} serving: the bill does not add up "
+        failures.append(f"{name} serving: the bill does not add up "
                         f"{summary}")
-    if n:
-        failures.append(f"{XLSTM} serving launched kernels: {n}")
-    del params, ref, got, out, loose
+    if n != ({"decode_attention": want_k7} if want_k7 else {}):
+        failures.append(f"{name} serving launched {n}, want K7 {want_k7}")
+    del params, ref, got, out, loose, batch
     torch.cuda.empty_cache()
-    return summary, failures
+    return summary, ({shape: want_k7} if want_k7 else {}), failures
 
 
-def _xlstm_run(mode: str, seed: int, card_name: str) -> dict:
-    """One full-width xlstm-350m cycle on the card: CL / SL through
-    `build_scheme` + `Experiment` (AdamW, XLSTM_STEPS steps), FL through
-    the training CLI (3 users x XLSTM_FL_STEPS local steps, Q8, K1
-    sync). Returns its record."""
+def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
+    """One full-width cycle of `name` on the card: CL / SL through
+    `build_scheme` + `Experiment` (AdamW, FAMILY_STEPS steps; SL cut at
+    layer / super-block 2, or the encoder output), FL through the
+    training CLI (3 users x FAMILY_FL_STEPS local steps, Q8, K1 sync).
+    Returns its record."""
     import torch
     from repro_torch.configs import WirelessConfig, get_arch
     from repro_torch.schemes import Experiment, build_scheme
@@ -4191,8 +4314,8 @@ def _xlstm_run(mode: str, seed: int, card_name: str) -> dict:
         train.build_scheme = counted_scheme
         try:
             with _sync_clock(clock):
-                out = train.main(["--arch", XLSTM, "--seed", str(seed)]
-                                 + XLSTM_FL_CLI)
+                out = train.main(["--arch", name, "--seed", str(seed)]
+                                 + FAMILY_FL_CLI)
         finally:
             train.build_scheme = kept
         exp, res = out["experiment"], out["result"]
@@ -4201,16 +4324,17 @@ def _xlstm_run(mode: str, seed: int, card_name: str) -> dict:
         wcfg = (WirelessConfig(mode="cl", snr_db=20.0) if mode == "cl" else
                 WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
                                split_layer=2, compress_factor=4))
-        scheme = build_scheme(wcfg, cfg=get_arch(XLSTM), device="cuda",
-                              optimizer="adamw", steps_per_cycle=XLSTM_STEPS)
+        scheme = build_scheme(wcfg, cfg=get_arch(name), device="cuda",
+                              optimizer="adamw",
+                              steps_per_cycle=FAMILY_STEPS)
         _counted(scheme, kinds, losses)
         exp = Experiment(scheme, cycles=1, seed=seed,
-                         n_train=SCALED_N_TRAIN, n_test=XLSTM_N_TEST)
+                         n_train=SCALED_N_TRAIN, n_test=FAMILY_N_TEST)
         with _sync_clock(clock):
             res = exp.run()
     wall = time.perf_counter() - t0
     main, step_losses = list(kinds), list(losses)
-    prof = _profile_eval(exp, seed) if mode == "cl" else None
+    prof = _profile_eval(exp, seed, name) if mode == "cl" else None
     rec = dict(bits=[r.bits for r in exp.reports],
                n_tx=[r.n_tx for r in exp.reports], loss=res.loss,
                accuracy=res.accuracy, step_losses=step_losses,
@@ -4226,7 +4350,7 @@ def _xlstm_run(mode: str, seed: int, card_name: str) -> dict:
         rec["profile"] = prof
     del exp
     torch.cuda.empty_cache()
-    print(f"{XLSTM} {mode}: 1 cycle, {wall:.1f} s (round "
+    print(f"{name} {mode}: 1 cycle, {wall:.1f} s (round "
           f"{[round(x, 3) for x in rec['round_s']]} s, eval "
           f"{[round(x, 3) for x in rec['eval_s']]} s); sync "
           f"{rec.get('sync_s', 0.0):.2f} s of which flip-word draws "
@@ -4239,7 +4363,7 @@ def _xlstm_run(mode: str, seed: int, card_name: str) -> dict:
     return rec
 
 
-def _profile_eval(exp, seed: int) -> dict:
+def _profile_eval(exp, seed: int, name: str) -> dict:
     """One eval slice (8 held-out rows: the forward of the trained model)
     under torch.profiler, device activity only: the device's idle share.
     A training step launches ~4x its kernels, and the profiler's own
@@ -4253,99 +4377,120 @@ def _profile_eval(exp, seed: int) -> dict:
         exp.scheme.evaluate(exp.final_state, xte, yte)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return _idle_summary(prof, wall_us, f"{XLSTM}, one eval slice")
+    return _idle_summary(prof, wall_us, f"{name}, one eval slice")
 
 
-def _xlstm_checks(runs: dict) -> list:
-    """The phase-13 gates on the full-width xlstm-350m runs."""
+def _family_checks(name: str, runs: dict) -> list:
+    """The gates on the full-width runs of phases 13 and 14: exact
+    bills, finite losses, CL's and SL's loss falling, K1 twice an SL
+    step, once an SL eval slice and once an FL cycle, no K3-K10."""
     import math
     from repro_torch.configs import get_arch
     from repro_torch.models import api as M
-    from repro_torch.nn import count_params
-    n_params = count_params(M.train_param_specs(get_arch(XLSTM)))
+    from repro_torch.nn import count_params, tree_leaves
+    specs = M.train_param_specs(get_arch(name))
+    cl_bits, sl_step_bits = FAMILY_BILLS[name]
     failures = []
     k1, k2 = "packed_wire_2d", "packed_wire_mean_2d"
 
-    def want(name, ok, what):
+    def want(mode, ok, what):
         if not ok:
-            failures.append(f"{XLSTM} {name}: {what}")
-    for name, r in runs.items():
-        want(name, all(math.isfinite(x) for x in r["loss"] + r["step_losses"]),
-             f"a loss is not finite {r['loss']}")
+            failures.append(f"{name} {mode}: {what}")
+    for mode, r in runs.items():
+        want(mode, all(math.isfinite(x) for x in r["loss"]
+                       + r["step_losses"]), f"a loss is not finite "
+             f"{r['loss']}")
         for c in r["rounds"] + r["evals"]:
-            want(name, not any(c[k] for k in ("conv_pool",
+            want(mode, not any(c[k] for k in ("conv_pool",
                                               "lstm_final_state",
                                               "quant_channel_2d",
                                               "packed_wire_2d_philox")
-                                + ATTN_ROWS), f"K3-K10 launched: {c}")
-    cl, sl, fl = runs["cl"], runs["sl"], runs["fl"]
-    want("cl", cl["init_bits"] == XLSTM_CL_BITS, f"init bits "
-         f"{cl['init_bits']}")
+                               + ATTN_ROWS), f"K3-K10 launched: {c}")
+    cl, sl = runs["cl"], runs["sl"]
+    want("cl", cl["init_bits"] == cl_bits, f"init bits {cl['init_bits']}")
     want("cl", all(c[k1] == c[k2] == 0 for c in cl["rounds"] + cl["evals"]),
          "CL launched the wire")
-    want("sl", sl["bits"] == [XLSTM_STEPS * XLSTM_SL_STEP_BITS]
-         and sl["n_tx"] == [2.0 * XLSTM_STEPS], f"bill {sl['bits']}, "
+    want("sl", sl["bits"] == [FAMILY_STEPS * sl_step_bits]
+         and sl["n_tx"] == [2.0 * FAMILY_STEPS], f"bill {sl['bits']}, "
          f"n_tx {sl['n_tx']}")
-    want("sl", all(c[k1] == 2 * XLSTM_STEPS and c[k2] == 0
+    want("sl", all(c[k1] == 2 * FAMILY_STEPS and c[k2] == 0
                    for c in sl["rounds"]), "K1 not twice a step")
-    want("sl", all(c[k1] == XLSTM_N_TEST // 8 for c in sl["evals"]),
+    want("sl", all(c[k1] == FAMILY_N_TEST // 8 for c in sl["evals"]),
          "K1 not once an eval slice")
-    for name in ("cl", "sl"):
-        r = runs[name]
-        want(name, len(r["step_losses"]) == XLSTM_STEPS
+    for mode in ("cl", "sl"):
+        r = runs[mode]
+        want(mode, len(r["step_losses"]) == FAMILY_STEPS
              and r["step_losses"][-1] < r["step_losses"][0],
              f"loss did not fall {r['step_losses']}")
-    per_user = [b / 3 for b in fl["bits"]]
-    want("fl", per_user == [8.0 * n_params], f"bits per user "
-         f"{per_user}, {n_params} parameters")
-    want("fl", fl["n_tx"] == [3.0 * 17], f"n_tx {fl['n_tx']} (3 users x "
-         f"17 leaves)")
-    want("fl", all(c[k1] == 1 and c[k2] == 0 for c in fl["rounds"]),
-         f"K1 not once a cycle: {fl['rounds']}")
-    want("fl", all(c[k1] == c[k2] == 0 for c in fl["evals"]),
-         "an FL eval launched the wire")
+    if "fl" in runs:
+        fl, n_leaves = runs["fl"], len(tree_leaves(specs))
+        per_user = [b / 3 for b in fl["bits"]]
+        want("fl", per_user == [8.0 * count_params(specs)],
+             f"bits per user {per_user}")
+        want("fl", fl["n_tx"] == [3.0 * n_leaves], f"n_tx {fl['n_tx']} "
+             f"(3 users x {n_leaves} leaves)")
+        want("fl", all(c[k1] == 1 and c[k2] == 0 for c in fl["rounds"]),
+             f"K1 not once a cycle: {fl['rounds']}")
+        want("fl", all(c[k1] == c[k2] == 0 for c in fl["evals"]),
+             "an FL eval launched the wire")
     return failures
 
 
-def ssm_phase(seed: int, card_name: str, shapes: dict) -> tuple:
-    """Phase 13: xlstm-350m served and trained at full width, then
-    internvl2-76b and xlstm-350m at `reduced()` card vs CPU. Returns
-    ({kernel: launches}, summary, failures)."""
-    secs, summary = {}, {}
+def family_phase(seed: int, card_name: str, shapes: dict, served: tuple,
+                 modes: tuple, reduced: tuple, phase: int) -> tuple:
+    """Phases 13 and 14: each of `served` through the static serving
+    loop and its `modes` at full width, then `reduced` at `reduced()`
+    through the scaled CL, SL and FL (K1) schemes, card vs CPU. Returns
+    ({kernel: launches}, {kernel: {(B, Hkv, G, hd): launches}}, summary,
+    failures)."""
+    secs, summary, failures, by_shape = {}, {}, [], {}
     counters = _all_counters()
     for f in counters.values():
         f.launches = 0
+    launches = dict.fromkeys(counters, 0)
+
+    def tally():
+        """Move the counts into `launches`: every part (a serve, a run)
+        starts from 0."""
+        for k, f in counters.items():
+            launches[k] += f.launches
+            f.launches = 0
     with launch_shapes({}) as phase_shapes:
-        t0 = time.perf_counter()
-        summary["serve"], failures = xlstm_serve(seed, card_name)
-        secs["serve"] = time.perf_counter() - t0
-        runs = {}
-        for mode in ("cl", "sl", "fl"):
+        for name in served:
             t0 = time.perf_counter()
-            runs[mode] = _xlstm_run(mode, seed, card_name)
-            secs[mode] = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in counters.items()}
-    failures += _xlstm_checks(runs)
+            summary[name], k7, f = static_serve(name, seed, card_name)
+            tally()
+            secs[f"{name} serve"] = time.perf_counter() - t0
+            failures += f
+            for shp, v in k7.items():
+                by_shape.setdefault("decode_attention", {})[shp] = v
+            runs = {}
+            for mode in modes:
+                t0 = time.perf_counter()
+                runs[mode] = _family_run(name, mode, seed, card_name)
+                tally()
+                secs[f"{name} {mode}"] = time.perf_counter() - t0
+            failures += _family_checks(name, runs)
+            summary[name]["training"] = runs
     failures += merge_shapes(shapes, phase_shapes, launches,
-                             f"{XLSTM} full width")
-    summary["training"] = runs
+                             f"phase {phase} full width")
     summary["k1_by_shape"] = {str(list(k)): v for k, v in
                               phase_shapes.get("packed_wire_2d", {}).items()}
-    print(f"{XLSTM} full width: launches {launches}; K1 by shape "
+    print(f"phase {phase} full width: launches {launches}; K1 by shape "
           f"{summary['k1_by_shape']}", flush=True)
     t0 = time.perf_counter()
     red_launches, summary["reduced"], f = reduced_training(
-        seed, card_name, shapes, REDUCED_TRAINED, "vlm and ssm training",
-        XLSTM_STEPS)
+        seed, card_name, shapes, reduced, f"phase {phase} reduced training",
+        FAMILY_STEPS)
     secs["reduced"] = time.perf_counter() - t0
     failures += f
     for k, v in red_launches.items():
         launches[k] = launches.get(k, 0) + v
     summary["seconds"] = secs
-    print(f"phase 13 parts: "
+    print(f"phase {phase} parts: "
           f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}",
           flush=True)
-    return launches, summary, failures
+    return launches, by_shape, summary, failures
 
 
 # ------------------------------------------------------------------ main
@@ -4470,22 +4615,36 @@ def main() -> None:
           f"launches {wide_launches}", flush=True)
     failures += wide_failures
     t_ssm = time.perf_counter()
-    ssm_launches, ssm_summary, ssm_failures = ssm_phase(args.seed, card,
-                                                        shapes)
+    ssm_launches, _, ssm_summary, ssm_failures = family_phase(
+        args.seed, card, shapes, (XLSTM,), ("cl", "sl", "fl"),
+        REDUCED_TRAINED, 13)
     print(f"ssm and reduced vlm phase: {time.perf_counter() - t_ssm:.1f} s;"
           f" launches {ssm_launches}", flush=True)
     failures += ssm_failures
-    # the serving path's launches: phases 3 and 12, by head shape
-    qwen_heads = (16, 1, 64)
+    t_p14 = time.perf_counter()
+    p14_launches, p14_by_shape, p14_summary, p14_failures = family_phase(
+        args.seed, card, shapes, (HYBRID, AUDIO), ("cl", "sl"),
+        (HYBRID, AUDIO), 14)
+    print(f"hybrid and audio phase: {time.perf_counter() - t_p14:.1f} s; "
+          f"launches {p14_launches}", flush=True)
+    failures += p14_failures
+    # the serving paths' launches by (rows, KV heads, G, hd): phase 3
+    # (qwen1.5-0.5b) and phase 12 on the engine's 8 slots, phase 14 on the
+    # static loop's 4 rows
+    attn = {k: {(8, 16, 1, 64): n} for k, n in launches.items()}
+    for k, per in wide_by_shape.items():
+        for heads, n in per.items():
+            attn[k][(8,) + heads] = attn[k].get((8,) + heads, 0) + n
+    for k, per in p14_by_shape.items():
+        for shp, n in per.items():
+            attn[k][shp] = attn[k].get(shp, 0) + n
     for r in rows:
-        r["launches"] = launches.get(r["name"], 0) \
-            + wide_launches.get(r["name"], 0)
+        per = attn.get(r["name"], {})
+        r["launches"] = sum(per.values())
         for s in r["by_shape"]:
-            heads = tuple(s["shape"][-3:])
-            s["launches"] = (launches.get(r["name"], 0)
-                             if heads == qwen_heads else 0) \
-                + wide_by_shape.get(r["name"], {}).get(heads, 0)
-    # the training paths' launches: phases 5 and 7-13
+            s["launches"] = per.get((s["shape"][0],) + tuple(s["shape"][-3:]),
+                                    0)
+    # the training paths' launches: phases 5 and 7-14
     for r in wire_rows + tiny_rows:
         extra = qwen_timed.get(r["name"])
         if extra:
@@ -4497,13 +4656,14 @@ def main() -> None:
         r.pop("shape", None)
         r["launches"] = sum(p.get(r["name"], 0) for p in (
             train_launches, priv_launches, tiny_launches, opt_launches,
-            fleet_launches, qwen_launches, wide_launches, ssm_launches))
+            fleet_launches, qwen_launches, wide_launches, ssm_launches,
+            p14_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
     shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
               for k, c in shapes.items()}
-    print(f"launches by shape over phases 5 and 7-13: {shapes}",
+    print(f"launches by shape over phases 5 and 7-14: {shapes}",
           flush=True)
     rows += wire_rows + tiny_rows
     if args.out:
@@ -4523,6 +4683,7 @@ def main() -> None:
                                    "qwen_training": qwen_summary,
                                    "moe_and_wide_heads": wide_summary,
                                    "ssm_and_reduced_vlm": ssm_summary,
+                                   "hybrid_and_audio": p14_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

@@ -9,5 +9,7 @@ from repro_torch.configs import llama4_scout_17b_a16e  # noqa: F401
 from repro_torch.configs import paper_tinylstm  # noqa: F401
 from repro_torch.configs import qwen1_5_0_5b  # noqa: F401
 from repro_torch.configs import qwen3_moe_235b_a22b  # noqa: F401
+from repro_torch.configs import seamless_m4t_medium  # noqa: F401
 from repro_torch.configs import stablelm_12b  # noqa: F401
 from repro_torch.configs import xlstm_350m  # noqa: F401
+from repro_torch.configs import zamba2_1_2b  # noqa: F401

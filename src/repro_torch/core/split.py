@@ -4,9 +4,9 @@ the user-side activation is semantically compressed (x4), crosses the
 wireless channel (forward AND backward — the gradient is tau-clipped and
 re-quantized on the way down, Alg. 2 lines 11-17), and the server side
 finishes the pass. The cut is a layer for the dense, MoE and VLM
-families and a super-block for xLSTM stacks; the hybrid family's
-super-block cut and the encoder/decoder cut are still to port
-(ROADMAP.md, P15)."""
+families, a super-block for xLSTM and hybrid stacks, and the
+encoder/decoder boundary for the enc-dec family (the encoder output is
+the smashed data)."""
 from __future__ import annotations
 
 import torch
@@ -14,7 +14,7 @@ import torch
 from repro_torch.core import semantic
 from repro_torch.core.channel import channel_crossing
 from repro_torch.models import layers as L
-from repro_torch.models import lstm_tiny, transformer, xlstm
+from repro_torch.models import encdec, hybrid, lstm_tiny, transformer, xlstm
 from repro_torch.nn import init_tree
 
 
@@ -54,19 +54,41 @@ def _split_transformer(params, codec, batch, cfg, wcfg, key, window):
     return L.unembed(params["embed"], x), {"aux_loss": aux / cfg.n_layers}
 
 
-def _split_outer_scan(params, codec, batch, cfg, wcfg, key):
-    """xLSTM: super-blocks [0, cut) on the user, the link, [cut, n_super)
-    on the server, cut = max(1, min(split_layer, n_super - 1)) counted
-    in super-blocks (the stacked outer dim), not layers."""
-    n_outer = xlstm.super_block_layout(cfg)[0]
+def _split_outer_scan(params, codec, batch, cfg, wcfg, key, window):
+    """xLSTM / hybrid: super-blocks [0, cut) on the user, the link,
+    [cut, n_super) on the server, cut = max(1, min(split_layer,
+    n_super - 1)) counted in super-blocks (the stacked outer dim), not
+    layers. A hybrid's tail blocks run after super-block n_super - 1,
+    on whichever side runs it."""
+    if cfg.family == "ssm":
+        n_outer = xlstm.super_block_layout(cfg)[0]
+
+        def run(x, lo, hi):
+            return xlstm.run_superblocks(params, x, cfg, lo, hi)
+    else:
+        n_outer = hybrid.layout(cfg)[0]
+
+        def run(x, lo, hi):
+            return hybrid.run_superblocks(params, x, cfg, lo, hi, window)
     cut = max(1, min(wcfg.split_layer, n_outer - 1))
     x = L.embed_lookup(params["embed"], batch["tokens"], cfg.dtype)
-    x = xlstm.run_superblocks(params, x, cfg, 0, cut)
+    x = run(x, 0, cut)
     x = _link(codec, x, wcfg, key)
-    x = xlstm.run_superblocks(params, x, cfg, cut, n_outer)
+    x = run(x, cut, n_outer)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
     return L.unembed(params["embed"], x), {
         "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+
+def _split_encdec(params, codec, batch, cfg, wcfg, key, window):
+    """Enc-dec: the encoder output IS the smashed data (the canonical SL
+    cut; for seamless the user device runs the speech encoder)."""
+    enc_out = encdec.encode(params, batch["frames"], cfg)
+    enc_out = _link(codec, enc_out, wcfg, key)
+    logits = encdec.decode_tokens(params, batch["tokens"], enc_out, cfg,
+                                  window)
+    return logits, {"aux_loss": torch.zeros((), dtype=torch.float32,
+                                            device=logits.device)}
 
 
 def _split_tiny(params, codec, batch, cfg, wcfg, key):
@@ -86,7 +108,7 @@ def crossing_elems(cfg, shape_cfg, wcfg) -> int:
     if cfg.family == "tiny":
         s = (lstm_tiny.SEQ - lstm_tiny.CONV_K + 1) // 2
     elif cfg.family == "audio":
-        s = max(cfg.attn_chunk, shape_cfg.seq_len // 4)   # encdec.src_len
+        s = encdec.src_len(cfg, shape_cfg.seq_len)
     elif cfg.frontend == "vision":
         s = shape_cfg.seq_len + cfg.n_frontend_tokens
     else:
@@ -98,11 +120,11 @@ def split_forward(params, codec, batch, cfg, wcfg, key, window: int = 0):
     if cfg.family in ("dense", "moe", "vlm"):
         return _split_transformer(params, codec, batch, cfg, wcfg, key,
                                   window)
-    if cfg.family == "ssm":
-        return _split_outer_scan(params, codec, batch, cfg, wcfg, key)
+    if cfg.family in ("ssm", "hybrid"):
+        return _split_outer_scan(params, codec, batch, cfg, wcfg, key,
+                                 window)
+    if cfg.family == "audio":
+        return _split_encdec(params, codec, batch, cfg, wcfg, key, window)
     if cfg.family == "tiny":
         return _split_tiny(params, codec, batch, cfg, wcfg, key)
-    raise NotImplementedError(
-        f"split learning for family {cfg.family!r} is not ported yet; the "
-        f"port splits the dense, moe, vlm, ssm and tiny families (see "
-        f"ROADMAP.md, P15)")
+    raise ValueError(f"split learning: unknown family {cfg.family!r}")

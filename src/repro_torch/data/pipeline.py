@@ -9,6 +9,8 @@ from typing import Iterator
 
 import numpy as np
 
+from repro_torch.models.encdec import src_len
+
 
 def batches(x: np.ndarray, y: np.ndarray, batch_size: int, seed: int = 0,
             shuffle: bool = True, drop_last: bool = True) -> Iterator[dict]:
@@ -31,13 +33,9 @@ def synthetic_lm_batches(cfg, batch_size: int, seq_len: int,
                          seed: int = 0) -> Iterator[dict]:
     """Endless synthetic next-token batches of Zipf tokens (labels =
     tokens); a vision config's stub `patch_embeds` [batch, P, d_model]
-    f32 (0.1 x standard normals) come from the same stream, after each
-    batch's tokens. The audio family's frames are still to port
-    (ROADMAP.md, P15) and raise."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"frontend inputs of family {cfg.family!r} are not ported yet "
-            f"(see ROADMAP.md, P15)")
+    and an audio config's stub `frames` [batch, src_len, d_model], f32
+    (0.1 x standard normals), come from the same stream, after each
+    batch's tokens."""
     rng = np.random.default_rng(seed)
     vocab = cfg.vocab_size
     p = _zipf(vocab)
@@ -48,6 +46,10 @@ def synthetic_lm_batches(cfg, batch_size: int, seq_len: int,
         if cfg.frontend == "vision":
             batch["patch_embeds"] = rng.standard_normal(
                 (batch_size, cfg.n_frontend_tokens, cfg.d_model)
+            ).astype(np.float32) * 0.1
+        if cfg.family == "audio":
+            batch["frames"] = rng.standard_normal(
+                (batch_size, src_len(cfg, seq_len), cfg.d_model)
             ).astype(np.float32) * 0.1
         yield batch
 

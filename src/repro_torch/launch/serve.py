@@ -15,14 +15,21 @@ the engine path of `repro/launch/serve.py`.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
         --batch 4 --prompt-len 32 --new-tokens 16 --snr-db 10 --greedy
 
+    # the hybrid (zamba2-1.2b) and the enc-dec (seamless-m4t-medium) at
+    # their reduced size on the CPU (the static loop as well)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --reduced --device cpu --greedy
+
 Runs on the GPU by default (`--device cpu` for the plain versions, at
 `--reduced` size for the transformer). Weights are random, drawn from
 `--seed`. The paper's tiny classifier answers each prompt with its
 sentiment class (one generated token in {0, 1} per step). Families
-without a per-slot decode path (ssm) run `legacy_main`: one static
-batch, token by token, its prompt batch billed on one uplink and its
-generated tokens on one downlink through the same Radio; a family with
-no decode step at all exits.
+without a per-slot decode path (ssm, hybrid, audio) run `legacy_main`:
+one static batch, token by token, its prompt batch billed on one uplink
+and its generated tokens on one downlink through the same Radio (an
+audio batch first encodes stub frames, 0.1 everywhere, into its
+cross-attention cache, as the JAX package does); a family with no
+decode step at all exits.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.draws import seeded
 from repro_torch.models import api as M
+from repro_torch.models import encdec
 from repro_torch.nn import init_params, init_tree, resolve_device
 from repro_torch.runtime.train_step import window_for
 from repro_torch.schemes.radio import Radio
@@ -152,7 +160,8 @@ def sample(lg: torch.Tensor, noise, temperature: float,
 
 def legacy_main(args, cfg, device) -> dict:
     """Single static batch, token by token: the decode path of families
-    without a per-slot index (ssm). Weights drawn from `--seed`."""
+    without a per-slot index (ssm, hybrid, audio). Weights drawn from
+    `--seed`."""
     if M.get_model(cfg).decode_step is None:
         raise SystemExit(f"{args.arch} has no decode step (encoder-only)")
     gen = torch.Generator(device=device)
@@ -185,6 +194,11 @@ def legacy_loop(args, cfg, params, device, draws=None) -> dict:
             torch.cuda.synchronize(device)
 
     cache = model.init_cache(cfg, B, P + N, device)
+    if cfg.family == "audio":
+        frames = 0.1 * torch.ones((B, encdec.src_len(cfg, P + N),
+                                   cfg.d_model), device=device)
+        with torch.inference_mode():
+            cache = encdec.prefill_cross(params, frames, cfg, cache)
     prompt = draws.prompt((B, P), cfg.vocab_size)
     # uplink: the users' prompts cross the radio BEFORE the server sees
     # them; the server decodes what was received

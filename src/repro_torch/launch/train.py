@@ -1,5 +1,6 @@
 """Training entry point — the port of `repro/launch/train.py`, for the
-paper's model and the dense, MoE, VLM and SSM (xLSTM) families:
+paper's model and every scaled family (dense, MoE, VLM, SSM, hybrid,
+audio):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
         --mode fl --steps 160
@@ -15,6 +16,12 @@ paper's model and the dense, MoE, VLM and SSM (xLSTM) families:
     # the VLM at its reduced size (2 layers, 16 patch tokens)
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch internvl2-76b --reduced --mode cl --steps 2
+    # the hybrid (Mamba2 + shared attention) and the enc-dec at full
+    # width, SL (cut at super-block 2 / at the encoder output)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+        --mode sl --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-medium --mode sl --steps 2
     # a 10,000-client synthetic fleet, 3 rounds (the billing plane)
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinylstm \\
         --fleet-size 10000 --fleet-sl-frac 0.3 --fleet-sample 0 --steps 3
@@ -41,9 +48,8 @@ counts. `--ckpt-dir` snapshots the whole run every `--ckpt-every`
 cycles (checkpoint/ckpt.py) and, when the directory already holds a
 snapshot, resumes from the latest one, bit for bit.
 
-Any other registered arch (the dense, MoE, VLM and SSM families;
-`--reduced` for its smoke-scale variant; a VLM batch adds stub patch
-embeddings) runs the scaled schemes (schemes/scaled.py) on a
+Any other registered arch (`--reduced` for its smoke-scale variant; a
+VLM batch adds stub patch embeddings, an audio batch stub frames) runs the scaled schemes (schemes/scaled.py) on a
 synthetic Zipf LM corpus (512 / 128 rows unless `--n-train`/`--n-test`
 say otherwise) at a constant `--lr` (3e-4): a CL/SL cycle is
 `--cycle-steps` optimizer steps (AdamW unless `--optimizer sgd`), an FL

@@ -1,13 +1,15 @@
 """Unified model API: dispatch by family, input specs per shape, losses —
-the port of `repro/models/api.py`. The `dense`, `moe` and `vlm` families
-(one transformer: `moe` with expert blocks, `vlm` with projected patch
-embeddings before the tokens), the `ssm` family (xLSTM, a recurrent
-decoder with no fused prefill, served by the billed static loop of
-launch/serve.py) and the paper's `tiny` classifier (a streaming decoder
-with no fused prefill, so serving prefills it by the exact scan) are
-ported; `hybrid` and `audio` raise and are listed in ROADMAP.md (P15).
-The logical sharding axes (`param_axes`, `input_axes`) belong to the
-mesh machinery, still to port (P16)."""
+the port of `repro/models/api.py`. Every family of the JAX package is
+ported: `dense`, `moe` and `vlm` (one transformer: `moe` with expert
+blocks, `vlm` with projected patch embeddings before the tokens), the
+recurrent `ssm` (xLSTM) and `hybrid` (Mamba2 + a shared attention
+block) decoders and the `audio` encoder-decoder (stub frame embeddings
+in, `input_specs` gives them), which have no fused prefill and are
+served by the billed static loop of launch/serve.py, and the paper's
+`tiny` classifier (a streaming decoder with no fused prefill, so
+serving prefills it by the exact scan). The logical sharding axes
+(`param_axes`, `input_axes`) belong to the mesh machinery, still to
+port (P16)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import lstm_tiny, transformer, xlstm
+from repro_torch.models import encdec, hybrid, lstm_tiny, transformer, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +44,12 @@ _FAMILIES = {
     "ssm": ModelApi(xlstm.model_specs, xlstm.forward, xlstm.cache_shapes,
                     xlstm.init_cache, xlstm.decode_step, None,
                     xlstm.model_specs),
+    "hybrid": ModelApi(hybrid.model_specs, hybrid.forward,
+                       hybrid.cache_shapes, hybrid.init_cache,
+                       hybrid.decode_step, None, hybrid.model_specs),
+    "audio": ModelApi(encdec.model_specs, encdec.forward,
+                      encdec.cache_shapes, encdec.init_cache,
+                      encdec.decode_step, None, encdec.model_specs),
     "tiny": ModelApi(lstm_tiny.model_specs, lstm_tiny.forward,
                      lstm_tiny.cache_shapes, lstm_tiny.init_cache,
                      lstm_tiny.decode_step, None, lstm_tiny.model_specs),
@@ -50,9 +58,8 @@ _FAMILIES = {
 
 def get_model(cfg) -> ModelApi:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port has "
-            f"{sorted(_FAMILIES)} (see ROADMAP.md, P15)")
+        raise ValueError(f"unknown family {cfg.family!r}; the port has "
+                         f"{sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -73,14 +80,13 @@ def input_specs(cfg, shape_cfg) -> dict:
     B, S = shape_cfg.global_batch, shape_cfg.seq_len
     i32 = torch.int32
     if shape_cfg.kind in ("train", "prefill"):
-        if cfg.family == "audio":
-            raise NotImplementedError(
-                f"frontend inputs of family {cfg.family!r} are not ported "
-                f"yet (see ROADMAP.md, P15)")
         batch = {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
         if cfg.frontend == "vision":
             batch["patch_embeds"] = ((B, cfg.n_frontend_tokens, cfg.d_model),
                                      torch.float32)
+        if cfg.family == "audio":
+            batch["frames"] = ((B, encdec.src_len(cfg, S), cfg.d_model),
+                               torch.float32)
         return batch
     # decode: ONE new token against a seq_len cache
     return {"token": ((B, 1), i32), "index": ((), i32)}

@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.layers import (apply_norm, embed_lookup, embed_specs,
                                        linear, linear_specs, norm_specs,
                                        unembed)
-from repro_torch.nn import Spec, resolve_device, stack_specs, tree_map
+from repro_torch.nn import Spec, resolve_device, stack_specs, tree_at
 
 
 def _dims(cfg):
@@ -225,14 +225,9 @@ def model_specs(cfg) -> dict:
     return s
 
 
-def _at(tree, i):
-    """The [i] slice of every leaf of a stacked tree (views)."""
-    return tree_map(lambda a: a[i], tree)
-
-
 def _super_block(x, mstack, slp, cfg):
     for i in range(super_block_layout(cfg)[1]):
-        x = apply_mlstm(_at(mstack, i), x, cfg)
+        x = apply_mlstm(tree_at(mstack, i), x, cfg)
     if slp is not None:
         x = apply_slstm(slp, x, cfg)
     return x
@@ -243,8 +238,8 @@ def run_superblocks(params, x, cfg, lo: int, hi: int) -> torch.Tensor:
     pass when `cfg.remat` is set and autograd records."""
     slstm = params.get("slstm")
     for s in range(lo, hi):
-        mstack = _at(params["mlstm"], s)
-        slp = _at(slstm, s) if slstm is not None else None
+        mstack = tree_at(params["mlstm"], s)
+        slp = tree_at(slstm, s) if slstm is not None else None
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(_super_block, x, mstack, slp, cfg,
                            use_reentrant=False)
@@ -306,9 +301,9 @@ def decode_step(params, cache: dict, token: torch.Tensor, index, cfg,
     slstm = params.get("slstm")
     n_super, n_m = super_block_layout(cfg)
     for s in range(n_super):
-        mstack = _at(params["mlstm"], s)
+        mstack = tree_at(params["mlstm"], s)
         for i in range(n_m):
-            mp = _at(mstack, i)
+            mp = tree_at(mstack, i)
             h = apply_norm(mp["ln"], x, cfg.norm)
             q, k, v, it, ft, og = _mlstm_gates(mp, h, cfg)
             st = (cache["mC"][s, i], cache["mn"][s, i], cache["mm"][s, i])
@@ -319,7 +314,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, index, cfg,
             y = y.reshape(B, 1, -1).to(x.dtype) * og
             x = x + linear(mp["wo"], y)
         if slstm is not None:
-            slp = _at(slstm, s)
+            slp = tree_at(slstm, s)
             hin = apply_norm(slp["ln"], x, cfg.norm)
             xproj = linear(slp["wx"], hin).float()[:, 0]
             st = tuple(cache[n][s] for n in ("sc", "sn", "sm", "sh"))

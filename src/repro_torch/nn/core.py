@@ -138,13 +138,15 @@ def params_from_jax(np_tree: dict, cfg=None, device="cuda"):
     ``ln_f``; a MoE block's ``moe.router.w``, ``moe.wi`` / ``wg`` /
     ``wo`` ``[L, E, ...]`` and ``moe.shared`` alike) become the port's
     serving `ParamDict` with the stacked layers as a list of per-layer
-    subtrees; the tiny and ssm families' (xLSTM keeps JAX's stacked
-    super-block leaves), and with `cfg` None any plain tree (the privacy adversary's MLP, an
+    subtrees; the tiny, ssm, hybrid and audio families' (which keep
+    JAX's stacked leaves: xLSTM's and Mamba2's super-blocks, the hybrid's
+    tail and shared block, the encoder's and decoder's layers), and with
+    `cfg` None any plain tree (the privacy adversary's MLP, an
     `SLSession`'s model and codec, a transformer's training tree with
     its layers kept stacked), become a trainable tree (``init_tree``'s
     layout)."""
     dev = resolve_device(device)
-    if cfg is None or cfg.family in ("tiny", "ssm"):
+    if cfg is None or cfg.family in ("tiny", "ssm", "hybrid", "audio"):
         return tree_map(lambda a: torch.from_numpy(
             np.array(a, dtype=np.float32, copy=True)).to(dev), np_tree)
 
@@ -184,6 +186,12 @@ def tree_map(fn, tree, *rest):
     leaves = [fn(*xs) for xs in zip(tree_leaves(tree),
                                     *map(tree_leaves, rest))]
     return tree_unflatten(tree, leaves)
+
+
+def tree_at(tree, i):
+    """The [i] slice of every leaf of a stacked tree (views): one layer
+    or super-block of the JAX package's stacked leaves."""
+    return tree_map(lambda a: a[i], tree)
 
 
 def init_tree(specs: dict, generator: torch.Generator,

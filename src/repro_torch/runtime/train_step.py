@@ -1,6 +1,7 @@
 """Step builders: training (with gradient accumulation over microbatches)
 and prefill — the port of `repro/runtime/train_step.py` for the paper's
-tiny model and the dense, MoE, VLM and SSM (xLSTM) families. The
+tiny model and every scaled family (dense, MoE, VLM, SSM, hybrid,
+audio). The
 wireless mode is woven in here: SL routes the forward through the split +
 channel link (core/split.py); CL with a noisy link corrupts the tiny
 model's raw uplink tokens. FL wraps these in runtime/fl_runtime.py.
@@ -11,7 +12,7 @@ plain-tensor optimizer update (optim/sgd.py, optim/adamw.py), in the
 JAX step's order. There is no mesh, so the sharding helpers of the JAX
 module (`trainable_axes`, `train_state_axes`, `axes_to_shardings`,
 `train_state_sds_and_shardings`, `key_sds`) are still to port
-(ROADMAP.md, P16); the hybrid and audio families' training is P15.
+(ROADMAP.md, P16).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.nn import init_tree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw, sgd_momentum
 
 MOE_AUX_COEF = 0.01
-TRAINED_FAMILIES = ("tiny", "dense", "moe", "vlm", "ssm")
+TRAINED_FAMILIES = ("tiny", "dense", "moe", "vlm", "ssm", "hybrid",
+                    "audio")
 
 
 class TrainState(NamedTuple):
@@ -38,9 +40,9 @@ class TrainState(NamedTuple):
 
 def _check_family(cfg) -> None:
     if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"training family {cfg.family!r} is not ported yet; the port "
-            f"trains {list(TRAINED_FAMILIES)} (see ROADMAP.md, P15)")
+        raise ValueError(
+            f"training: unknown family {cfg.family!r}; the port trains "
+            f"{list(TRAINED_FAMILIES)}")
 
 
 def _optimizer(optimizer: str, momentum: float = 0.9):

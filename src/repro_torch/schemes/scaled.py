@@ -1,9 +1,9 @@
 """Scaled-architecture schemes — the port of `repro/schemes/scaled.py`:
-the dense, MoE, VLM and SSM (xLSTM) families' CL / FL / SL behind the
-same `Scheme` protocol and `Experiment` driver as the paper's tiny model.
-A VLM batch carries stub `patch_embeds`, drawn from the experiment's rng
-after each batch's rows (eval: from `default_rng(999)`), as in the JAX
-package.
+every scaled family's (dense, MoE, VLM, SSM, hybrid, audio) CL / FL /
+SL behind the same `Scheme` protocol and `Experiment` runner as the
+paper's tiny model. A VLM batch carries stub `patch_embeds` and an audio
+batch stub `frames`, drawn from the experiment's rng after each batch's
+rows (eval: from `default_rng(999)`), as in the JAX package.
 
 * `ScaledCentralizedScheme` — the synthetic corpus crosses the radio
   once at `init` (`Radio.send_tokens`: bit errors corrupt token ids; a
@@ -52,6 +52,7 @@ from repro_torch.core import wire as W
 from repro_torch.core.draws import Key
 from repro_torch.data.pipeline import synthetic_corpus
 from repro_torch.models import api as M
+from repro_torch.models.encdec import src_len
 from repro_torch.nn import resolve_device, tree_leaves, tree_map
 from repro_torch.runtime.fl_runtime import SYNC_KEY_FOLD, make_fl_train_step
 from repro_torch.runtime.train_step import (TrainState, _forward,
@@ -66,7 +67,7 @@ UPLOAD_STREAM = 7     # the CL corpus upload draws on key(seed + 7)
 FL_STREAM = 3         # FL cycle k draws on key(seed + 3).fold_in(k)
 EVAL_KEY = 999        # eval slice i is scored on key(999 + i)
 DEFAULT_LR = 3e-4
-SCALED_FAMILIES = ("dense", "moe", "vlm", "ssm")
+SCALED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def _p16(what: str):
@@ -92,10 +93,9 @@ class _ScaledScheme:
             raise ValueError("the paper model runs the tiny schemes; "
                              "build_scheme routes it there")
         if cfg.family not in SCALED_FAMILIES:
-            raise NotImplementedError(
-                f"training family {cfg.family!r} is not ported yet; the "
-                f"scaled schemes train {list(SCALED_FAMILIES)} (see "
-                f"ROADMAP.md, P15)")
+            raise ValueError(
+                f"unknown family {cfg.family!r}; the scaled schemes train "
+                f"{list(SCALED_FAMILIES)}")
         self.cfg = cfg
         self.shape = shape or DEFAULT_SHAPE
         self.wcfg = wcfg
@@ -132,15 +132,18 @@ class _ScaledScheme:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _frontend_extras(self, rng, b: int) -> dict:
-        """The stubbed vision frontend's inputs, drawn from the same rng
-        stream as the token sampling (as data/pipeline.py's
-        `synthetic_lm_batches` draws them)."""
-        cfg = self.cfg
-        if cfg.frontend != "vision":
-            return {}
-        return {"patch_embeds": self._tensor(rng.standard_normal(
-            (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
-            * 0.1)}
+        """The stubbed frontends' inputs (vision patches, audio frames),
+        drawn from the same rng stream as the token sampling, in the JAX
+        package's order (as data/pipeline.py's `synthetic_lm_batches`
+        draws them)."""
+        cfg, extras = self.cfg, {}
+        if cfg.frontend == "vision":
+            extras["patch_embeds"] = (b, cfg.n_frontend_tokens, cfg.d_model)
+        if cfg.family == "audio":
+            extras["frames"] = (b, src_len(cfg, self.shape.seq_len),
+                                cfg.d_model)
+        return {k: self._tensor(rng.standard_normal(shape).astype(
+            np.float32) * 0.1) for k, shape in extras.items()}
 
     def _sample_batch(self, x, y, rng, b: int) -> dict:
         idx = rng.integers(0, len(x), b)

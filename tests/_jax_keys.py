@@ -11,8 +11,12 @@ own float32 erfc. A FaultPlan's uniforms ("fault_outage",
 participation is `jax.random.choice(key, n, (k,), replace=False)` or
 `jax.random.bernoulli(key, p, (n,))`. `split(n)` is `jax.random.split`.
 `JaxServeDraws` hands the JAX serving engine's draws to the port's
-`ServeEngine`. `port_train_state` and `port_pop_state` turn the JAX
-package's initial states into the port's."""
+`ServeEngine`, `JaxLegacyDraws` the JAX static serving loop's to the
+port's `legacy_loop`. `port_train_state` and `port_pop_state` turn the
+JAX package's initial states into the port's; `scaled_on_init` hands a
+port `Experiment` the initial weights of a JAX scaled scheme."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,8 @@ import torch
 
 from repro.core import channel as JCH
 from repro.core import wire as JW
+from repro_torch.core import federated as FED
+from repro_torch.launch.serve import PROMPT as LEGACY_PROMPT
 from repro_torch.serve.engine import SERVE_STREAM
 
 
@@ -183,8 +189,6 @@ def port_train_state(js):
 def port_pop_state(jpop, like):
     """The JAX PopulationScheme's initial `_PopState` as the port's
     (`like`, the port's own initial one, gives the group sizes)."""
-    import dataclasses
-    from repro_torch.core import federated as FED
     groups = [FED.broadcast_state(port_train_state(jax.tree.map(
         lambda a: a[0], g)), int(jax.tree.leaves(g)[0].shape[0]))
         for g in jpop.groups]
@@ -194,3 +198,37 @@ def port_pop_state(jpop, like):
         sl_states=[port_train_state(s) for s in jpop.sl_states],
         cl_states=[port_train_state(s) for s in jpop.cl_states],
         global_trainable=_torch_tree(jpop.global_trainable))
+
+
+def scaled_on_init(jscheme, xtr, ytr):
+    """`Experiment.on_init` handing the port the JAX scheme's weights."""
+    def hook(state):
+        jstate, _ = jscheme.init(0, xtr, ytr)
+        train = jstate.train
+        if jscheme.mode == "fl":
+            one = port_train_state(jax.tree.map(lambda a: a[0], train))
+            train = FED.broadcast_state(one, jscheme.n_users)
+        else:
+            train = port_train_state(train)
+        return dataclasses.replace(state, train=train)
+    return hook
+
+
+class JaxLegacyDraws:
+    """The JAX static loop's draws behind the port's `LegacyDraws`
+    seams: everything folds PRNGKey(seed)."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def prompt(self, shape, vocab):
+        return torch.from_numpy(np.array(jax.random.randint(
+            jax.random.fold_in(self.key, LEGACY_PROMPT), tuple(shape), 1,
+            vocab, jnp.int32)))
+
+    def link(self, fold):
+        return JaxLinkDraws(jax.random.fold_in(self.key, fold))
+
+    def gumbel(self, fold, shape):
+        return torch.from_numpy(np.array(jax.random.gumbel(
+            jax.random.fold_in(self.key, fold), tuple(shape), jnp.float32)))

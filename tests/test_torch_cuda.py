@@ -1155,3 +1155,104 @@ def test_xlstm_static_serving_loop_on_card(cuda_device):
     if bool(((top2[:, 0] - top2[:, 1]) > 2e-4).all()):
         np.testing.assert_array_equal(got["generated"][:, 0],
                                       want["generated"][:, 0])
+
+
+# ------------------------------------- the hybrid and audio families (P15)
+def _reduced(name: str, dev):
+    """A reduced config (f32) with weights from one CPU generator, on
+    `dev`."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api as M
+    from repro_torch.nn import init_tree
+    cfg = get_arch(name).reduced()
+    return cfg, init_tree(M.param_specs(cfg),
+                          torch.Generator().manual_seed(0), dev)
+
+
+def test_ssd_chunked_at_two_chunks_on_card_equals_cpu(cuda_device):
+    """Mamba2's chunked SSD at S 256 (two chunks of 128: the inter-chunk
+    scan runs) on the card against the CPU within 2e-4."""
+    from repro_torch.models import mamba2 as MB
+    rng = np.random.default_rng(3)
+    B, S, nh, hd, ds = 2, 256, 4, 16, 16
+    args = [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, S, nh, hd), (B, S, ds), (B, S, ds))]
+    args.append(np.log1p(np.exp(rng.standard_normal((B, S, nh)) - 2.0))
+                .astype(np.float32))
+    args += [(0.5 * rng.standard_normal(nh)).astype(np.float32),
+             rng.standard_normal(nh).astype(np.float32)]
+    t = [torch.from_numpy(a) for a in args]
+    got = MB.ssd_chunked(*(a.to(cuda_device) for a in t))
+    torch.testing.assert_close(got.cpu(), MB.ssd_chunked(*t), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_hybrid_block_forward_and_decode_on_card_equal_cpu(cuda_device):
+    """The reduced zamba2's Mamba2 block, forward and token-by-token
+    decode (logits and every cache leaf; the shared attention through K7
+    on the card) against the same weights on the CPU within 2e-4, and
+    decode = forward at 5e-3 (tests/test_archs_smoke.py's)."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.models import hybrid as Hy
+    from repro_torch.models import mamba2 as MB
+    from repro_torch.nn import tree_at
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        1, 1024, (2, 10)).astype(np.int32))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 10, 256)).astype(np.float32))
+    out = {}
+    with torch.no_grad():
+        for dev in (cuda_device, "cpu"):
+            cfg, p = _reduced("zamba2-1.2b", dev)
+            blk = MB.apply_mamba_block(tree_at(tree_at(p["mamba"], 0), 0),
+                                       x.to(dev), cfg)
+            full, _ = Hy.forward(p, {"tokens": tok.to(dev)}, cfg)
+            cache = Hy.init_cache(cfg, 2, 10, dev)
+            n0 = dec.gqa_decode.launches
+            steps = [Hy.decode_step(p, cache, tok[:, i:i + 1].to(dev), i,
+                                    cfg)[0][:, 0] for i in range(10)]
+            n = dec.gqa_decode.launches - n0
+            out[str(dev)] = (blk, full, torch.stack(steps, 1), cache, n)
+    (bc, fc, dc, cc, nc), (bh, fh, dh, ch, nh) = out["cuda"], out["cpu"]
+    assert (nc, nh) == (10 * Hy.layout(cfg)[0], 0)
+    for a, b in ((bc, bh), (fc, fh), (dc, dh)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+    for k in ch:
+        torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=2e-4,
+                                   atol=2e-4)
+    torch.testing.assert_close(dc, fc, rtol=5e-3, atol=5e-3)
+
+
+def test_encoder_prefill_cross_and_decode_on_card_equal_cpu(cuda_device):
+    """The reduced seamless's encoder, `prefill_cross` and token-by-token
+    decode (self- and cross-attention through K7 on the card: two
+    launches a layer a step) against the same weights on the CPU within
+    2e-4, and decode = forward at 3e-3."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.models import encdec as E
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        1, 1024, (2, 10)).astype(np.int32))
+    fr = torch.from_numpy((0.1 * np.random.default_rng(4).standard_normal(
+        (2, 64, 256))).astype(np.float32))
+    out = {}
+    with torch.no_grad():
+        for dev in (cuda_device, "cpu"):
+            cfg, p = _reduced("seamless-m4t-medium", dev)
+            enc = E.encode(p, fr.to(dev), cfg)
+            full, _ = E.forward(p, {"tokens": tok.to(dev),
+                                    "frames": fr.to(dev)}, cfg)
+            cache = E.prefill_cross(p, fr.to(dev), cfg,
+                                    E.init_cache(cfg, 2, 10, dev))
+            n0 = dec.gqa_decode.launches
+            steps = [E.decode_step(p, cache, tok[:, i:i + 1].to(dev), i,
+                                   cfg)[0][:, 0] for i in range(10)]
+            n = dec.gqa_decode.launches - n0
+            out[str(dev)] = (enc, full, torch.stack(steps, 1), cache, n)
+    (ec, fc, dc, cc, nc), (eh, fh, dh, ch, nh) = out["cuda"], out["cpu"]
+    assert (nc, nh) == (10 * 2 * cfg.n_layers, 0)
+    for a, b in ((ec, eh), (fc, fh), (dc, dh)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+    for k in ch:
+        torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=2e-4,
+                                   atol=2e-4)
+    torch.testing.assert_close(dc, fc, rtol=3e-3, atol=3e-3)

@@ -206,6 +206,9 @@ def test_paged_equals_dense_within_port(both):
 
 
 def test_other_families_raise():
+    """A family the JAX package does not have raises and names the
+    port's families, every one of the JAX package's."""
     import dataclasses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.get_model(dataclasses.replace(CFG, family="hybrid"))
+    with pytest.raises(ValueError, match=r"the port has \['audio', "
+                       r"'dense', 'hybrid', 'moe', 'ssm', 'tiny', 'vlm'\]"):
+        M.get_model(dataclasses.replace(CFG, family="diffusion"))

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_keys import JaxKey, JaxServeDraws, port_train_state
+from _jax_keys import (JaxKey, JaxServeDraws, port_train_state,
+                       scaled_on_init)
 from repro.configs import get_arch as jax_arch
 from repro.configs.base import ShapeConfig as JShape
 from repro.configs.base import WirelessConfig as JW
@@ -34,7 +35,6 @@ from repro.serve import Request as JRequest
 from repro.serve import RequestTrace as JRequestTrace
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import ShapeConfig, WirelessConfig, get_arch
-from repro_torch.core import federated as FED
 from repro_torch.core import split as SPLIT
 from repro_torch.data import pipeline as P
 from repro_torch.models import api as M
@@ -269,20 +269,6 @@ def test_split_with_patches_matches_jax():
         JSPLIT.crossing_elems(jcfg, JSHAPE, jw) == 4 * (16 + 16) * 64
 
 
-def _on_init(jscheme, xtr, ytr):
-    """`Experiment.on_init` handing the port the JAX scheme's weights."""
-    def hook(state):
-        jstate, _ = jscheme.init(0, xtr, ytr)
-        train = jstate.train
-        if jscheme.mode == "fl":
-            one = port_train_state(jax.tree.map(lambda a: a[0], train))
-            train = FED.broadcast_state(one, jscheme.n_users)
-        else:
-            train = port_train_state(train)
-        return dataclasses.replace(state, train=train)
-    return hook
-
-
 @pytest.mark.parametrize("mode,kw", [
     ("cl", dict(snr_db=10.0)),
     ("fl", dict(quant_bits=8, local_steps=2)),
@@ -304,7 +290,7 @@ def test_scaled_schemes_match_live_jax(mode, kw):
                           key=JaxKey.root, steps_per_cycle=2)
     (xtr, ytr), _ = scheme.default_data(32, 8, 0)
     exp = Experiment(scheme, cycles=1, seed=0, n_train=32, n_test=8,
-                     on_init=_on_init(j_build_scheme(
+                     on_init=scaled_on_init(j_build_scheme(
                          jw, cfg=jcfg, shape=JSHAPE, steps_per_cycle=2),
                          xtr, ytr))
     res = exp.run()

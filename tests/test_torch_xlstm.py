@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_keys import JaxKey, JaxLinkDraws, port_train_state
+from _jax_keys import (JaxKey, JaxLegacyDraws, port_train_state,
+                       scaled_on_init)
 from repro.configs import get_arch as jax_arch
 from repro.configs.base import ShapeConfig as JShape
 from repro.configs.base import WirelessConfig as JW
@@ -31,7 +32,6 @@ from repro.runtime import train_step as JTS
 from repro.schemes import Experiment as JExperiment
 from repro.schemes import build_scheme as j_build_scheme
 from repro_torch.configs import ShapeConfig, WirelessConfig, get_arch
-from repro_torch.core import federated as FED
 from repro_torch.core import split as SPLIT
 from repro_torch.launch import serve as SERVE
 from repro_torch.models import api as M
@@ -267,20 +267,6 @@ def test_train_step_with_remat_equals_without():
                                    rtol=0, atol=LOSS_TOL)
 
 
-def _on_init(jscheme, xtr, ytr):
-    """`Experiment.on_init` handing the port the JAX scheme's weights."""
-    def hook(state):
-        jstate, _ = jscheme.init(0, xtr, ytr)
-        train = jstate.train
-        if jscheme.mode == "fl":
-            one = port_train_state(jax.tree.map(lambda a: a[0], train))
-            train = FED.broadcast_state(one, jscheme.n_users)
-        else:
-            train = port_train_state(train)
-        return dataclasses.replace(state, train=train)
-    return hook
-
-
 @pytest.mark.parametrize("mode,kw", [
     ("cl", dict(snr_db=10.0)),
     ("fl", dict(quant_bits=8, local_steps=2)),
@@ -299,7 +285,7 @@ def test_scaled_schemes_match_live_jax(mode, kw):
                           key=JaxKey.root, steps_per_cycle=2)
     (xtr, ytr), _ = scheme.default_data(32, 8, 0)
     exp = Experiment(scheme, cycles=1, seed=0, n_train=32, n_test=8,
-                     on_init=_on_init(j_build_scheme(
+                     on_init=scaled_on_init(j_build_scheme(
                          jw, cfg=jcfg, shape=JSHAPE, steps_per_cycle=2),
                          xtr, ytr))
     res = exp.run()
@@ -333,26 +319,6 @@ def test_flop_count_from_two_lengths_is_the_full_count(mode):
 
 
 # --------------------------------------------------------------- serving
-class JaxLegacyDraws:
-    """The JAX static loop's draws behind the port's `LegacyDraws`
-    seams: everything folds PRNGKey(seed)."""
-
-    def __init__(self, seed):
-        self.key = jax.random.PRNGKey(seed)
-
-    def prompt(self, shape, vocab):
-        return torch.from_numpy(np.array(jax.random.randint(
-            jax.random.fold_in(self.key, SERVE.PROMPT), tuple(shape), 1,
-            vocab, jnp.int32)))
-
-    def link(self, fold):
-        return JaxLinkDraws(jax.random.fold_in(self.key, fold))
-
-    def gumbel(self, fold, shape):
-        return torch.from_numpy(np.array(jax.random.gumbel(
-            jax.random.fold_in(self.key, fold), tuple(shape), jnp.float32)))
-
-
 @pytest.mark.parametrize("argv", [
     ["--snr-db", "6", "--greedy"],
     ["--snr-db", "0", "--arq-max-tx", "1", "--greedy"],
