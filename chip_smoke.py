@@ -247,10 +247,24 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    CL, SL and FL (K1) schemes, card against CPU as phase 12's MoE runs.
    Phase 2 also holds K7 at the static loop's decode shapes (4 rows;
    KV heads / cache 32 / 48, 16 / 48, 16 / 512) and times two of them;
-15. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5 and 7-14 together, K7-K10 over phases 3,
-   12 and 14; K1-K4 and K7-K10 also per timed shape, under "by_shape"),
-   the card's name and power limit, and as the last line
+15. drives the mesh and compile machinery (P16): qwen1.5-0.5b at full
+   width, SL (split 2, one step, 16 / 8 rows), through
+   `python -m repro_torch.launch.train` in two processes that share one
+   fresh kernel-build cache (`REPRO_TORCH_KERNEL_CACHE_DIR`): first
+   `--mesh test --aot-warmup` (cold: `nvcc` builds K1's library), then
+   `--mesh none --aot-warmup` (warm: it is found). It checks warm <
+   0.2 x cold (the JAX package's gate on its compile cache), the two
+   runs' bills, losses and accuracy equal bit for bit, and K1 launched
+   three times in each (two legs, one eval slice). On phase 11's live SL
+   scheme, `lower_step(make_test_mesh())`'s argument bytes must equal the
+   bytes of its state and a batch on the card (printed beside
+   `max_memory_allocated`). Then `launch.serve --arch qwen1.5-0.5b
+   --mesh test --aot-warmup` on 4 requests must give the same tokens and
+   bills as the same trace without a mesh, through K8 and K10;
+16. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
+   their launches over phases 5 and 7-15 together, K7-K10 over phases 3,
+   12, 14 and 15; K1-K4 and K7-K10 also per timed shape, under
+   "by_shape"), the card's name and power limit, and as the last line
    {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
@@ -259,13 +273,16 @@ a machine without CUDA, or from a directory without src/repro_torch.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import functools
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3337,6 +3354,8 @@ def _qwen_run(name: str, seed: int, card_name: str, profile_one: bool):
                "build_scheme + Experiment", settings_as_asked=same, **clock)
     if profile_one:
         rec["profile"] = prof
+    if name == "sl":
+        rec["dry_run"] = _dry_run_bytes(scheme, exp, seed)
     del exp, scheme
     torch.cuda.empty_cache()
     print(f"qwen {name} through {rec['entry']}: {cycles} cycles, "
@@ -4493,6 +4512,157 @@ def family_phase(seed: int, card_name: str, shapes: dict, served: tuple,
     return launches, by_shape, summary, failures
 
 
+# ------------------------------- the mesh and compile machinery (P16)
+# phase 15. (a) qwen1.5-0.5b at full width, SL, one step, through the
+# training CLI in two processes sharing one fresh kernel-build cache:
+# `--mesh test --aot-warmup` (cold: nvcc runs), then `--mesh none
+# --aot-warmup` (warm: the library is found); (b) phase 11's live SL
+# scheme's `lower_step(make_test_mesh())` against its bytes on the card;
+# (c) `launch.serve --mesh test --aot-warmup` on 4 requests against the
+# same trace without a mesh
+P15_TRAIN = ["--arch", QWEN, "--mode", "sl", "--steps", "1", "--cycle-steps",
+             "1", "--split-layer", "2", "--n-train", "16", "--n-test", "8",
+             "--aot-warmup"]
+P15_SERVE = ["--arch", QWEN, "--requests", "4", "--snr-db", "10",
+             "--greedy"]
+WARM_OVER_COLD = 0.2         # scripts/ci.sh's gate on the JAX compile cache
+
+
+def _dry_run_bytes(scheme, exp, seed: int) -> dict:
+    """Phase 15 (b), on phase 11's live SL scheme: `lower_step` on the
+    one-card test mesh, its argument bytes against the bytes of the
+    scheme's state and one batch on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.nn import tree_leaves
+    st = exp.final_state
+    x, y = st.data
+    batch = scheme._sample_batch(x, y, np.random.default_rng(seed),
+                                 scheme.shape.global_batch)
+    train = st.train
+    leaves = (tree_leaves(train.trainable) + tree_leaves(train.opt_state.mu)
+              + tree_leaves(train.opt_state.nu) + list(batch.values()))
+    if not all(t.is_cuda for t in leaves):
+        fail("phase 15: the live SL scheme holds a tensor off the card")
+    live = sum(t.numel() * t.element_size() for t in leaves)
+    mem = scheme.lower_step(make_test_mesh()).memory_analysis()
+    return {"argument_size_in_bytes": mem.argument_size_in_bytes,
+            "live_state_and_batch_bytes": live,
+            "alias_size_in_bytes": mem.alias_size_in_bytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _train_cli(extra: list, cache: str, out: Path) -> dict:
+    """`python -m repro_torch.launch.train` in a process of its own with
+    the kernel-build cache at `cache`; its wall, its printed warm-up
+    wall and its --report-json."""
+    import os
+    env = dict(os.environ, REPRO_TORCH_KERNEL_CACHE_DIR=cache,
+               PYTHONPATH=str(ROOT / "src"))
+    if sys.pycache_prefix:
+        env["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           *P15_TRAIN, *extra, "--report-json", str(out)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 15: launch.train {extra} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    warm = [float(line.split("=", 1)[1]) for line in proc.stdout.split("\n")
+            if line.startswith("aot_warmup_compile_wall_s=")]
+    rec = json.loads(out.read_text())
+    rec.update(process_s=wall, aot_warmup_compile_wall_s=warm[0])
+    return rec
+
+
+def _serve_summary(out: dict) -> tuple:
+    d = out["report"]
+    return (out["generated"].tolist(), d["bits"], d["energy_j"],
+            d["erased_bits"], [(r.bits, r.n_tx, r.energy_j)
+                               for r in out["results"]])
+
+
+def mesh_phase(seed: int, card_name: str, dry_run: dict) -> tuple:
+    """Phase 15. Returns ({kernel: launches}, summary, failures)."""
+    from repro_torch.launch import serve
+    failures, secs = [], {}
+    t0 = time.perf_counter()
+    cache = tempfile.mkdtemp(prefix="p15_kernels_")
+    try:
+        cold = _train_cli(["--mesh", "test", "--seed", str(seed)], cache,
+                          Path(cache) / "cold.json")
+        warm = _train_cli(["--mesh", "none", "--seed", str(seed)], cache,
+                          Path(cache) / "warm.json")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    secs["train_cold_warm"] = time.perf_counter() - t0
+    c_s, w_s = (r["aot_warmup_compile_wall_s"] for r in (cold, warm))
+    print(f"phase 15 (a): qwen SL through launch.train, kernel-build cache "
+          f"cold (--mesh test) {c_s:.6f} s, warm (--mesh none) {w_s:.6f} s "
+          f"= {w_s / c_s:.5f} of cold; processes {cold['process_s']:.1f} / "
+          f"{warm['process_s']:.1f} s; bills {cold['reports']} / "
+          f"{warm['reports']}; accuracy {cold['accuracy']} / "
+          f"{warm['accuracy']}; K1 {cold['kernel_launches']['packed_wire_2d']}"
+          f" / {warm['kernel_launches']['packed_wire_2d']} ({card_name})",
+          flush=True)
+    if not w_s < WARM_OVER_COLD * c_s:
+        failures.append(f"phase 15: warm warm-up {w_s} s not below "
+                        f"{WARM_OVER_COLD} x cold {c_s} s")
+    if (cold["reports"], cold["accuracy"]) != (warm["reports"],
+                                               warm["accuracy"]):
+        failures.append("phase 15: --mesh test and --mesh none bill or "
+                        "learn differently")
+    if cold["device"] != "cuda" or warm["device"] != "cuda":
+        failures.append("phase 15: a training run left the card")
+    for r in (cold, warm):
+        if r["kernel_launches"]["packed_wire_2d"] != 3:   # 2 legs + 1 eval
+            failures.append(f"phase 15: K1 launched "
+                            f"{r['kernel_launches']['packed_wire_2d']} "
+                            f"times, want 3 (two legs, one eval slice)")
+    print(f"phase 15 (b): phase 11's SL scheme, lower_step(make_test_mesh())"
+          f" argument bytes {dry_run['argument_size_in_bytes']:,}, its state"
+          f" and a batch on the card {dry_run['live_state_and_batch_bytes']:,}"
+          f"; max_memory_allocated {dry_run['max_memory_allocated']:,}",
+          flush=True)
+    if dry_run["argument_size_in_bytes"] != \
+            dry_run["live_state_and_batch_bytes"]:
+        failures.append("phase 15: lower_step's argument bytes are not the "
+                        "live scheme's")
+    t0 = time.perf_counter()
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    served = {}
+    for mesh in ("test", "none"):
+        extra = ["--aot-warmup"] if mesh == "test" else []
+        served[mesh] = serve.main(P15_SERVE + ["--seed", str(seed),
+                                               "--mesh", mesh] + extra)
+    launches = {k: f.launches for k, f in counters.items()}
+    secs["serve"] = time.perf_counter() - t0
+    same = _serve_summary(served["test"]) == _serve_summary(served["none"])
+    print(f"phase 15 (c): launch.serve --mesh test --aot-warmup = --mesh "
+          f"none on 4 requests: {same}; bits "
+          f"{served['test']['report']['bits']}; launches {launches}",
+          flush=True)
+    if not same:
+        failures.append("phase 15: serving under the test mesh gave other "
+                        "tokens or bills")
+    for k in ("paged_decode_attention", "paged_prefill_attention"):
+        if launches[k] == 0:
+            failures.append(f"phase 15: {k} did not launch while serving")
+    for r in (cold, warm):
+        launches["packed_wire_2d"] += r["kernel_launches"]["packed_wire_2d"]
+    print(f"phase 15 parts: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}",
+          flush=True)
+    summary = dict(cold=cold, warm=warm, warm_over_cold=w_s / c_s,
+                   dry_run=dry_run, serve_same=same, seconds=secs)
+    return launches, summary, failures
+
+
 # ------------------------------------------------------------------ main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4504,6 +4674,13 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
              f"from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    # bytecode of what this process imports from here on (torch, the
+    # port) goes to a directory of its own, which phase 15's training
+    # processes read: the card's Python finds no usable .pyc for torch,
+    # and compiling its modules costs a fresh process ~7 s
+    pyc = tempfile.mkdtemp(prefix="chip_smoke_pyc_")
+    atexit.register(shutil.rmtree, pyc, ignore_errors=True)
+    sys.pycache_prefix = pyc
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs "
@@ -4628,10 +4805,19 @@ def main() -> None:
     print(f"hybrid and audio phase: {time.perf_counter() - t_p14:.1f} s; "
           f"launches {p14_launches}", flush=True)
     failures += p14_failures
+    t_p15 = time.perf_counter()
+    p15_launches, p15_summary, p15_failures = mesh_phase(
+        args.seed, card, qwen_summary["runs"]["sl"]["dry_run"])
+    print(f"mesh and compile phase: {time.perf_counter() - t_p15:.1f} s; "
+          f"launches {p15_launches}", flush=True)
+    failures += p15_failures
     # the serving paths' launches by (rows, KV heads, G, hd): phase 3
     # (qwen1.5-0.5b) and phase 12 on the engine's 8 slots, phase 14 on the
     # static loop's 4 rows
     attn = {k: {(8, 16, 1, 64): n} for k, n in launches.items()}
+    for k, n in p15_launches.items():        # phase 15's 4 slots
+        if k in attn:
+            attn[k][(4, 16, 1, 64)] = n
     for k, per in wide_by_shape.items():
         for heads, n in per.items():
             attn[k][(8,) + heads] = attn[k].get((8,) + heads, 0) + n
@@ -4644,7 +4830,7 @@ def main() -> None:
         for s in r["by_shape"]:
             s["launches"] = per.get((s["shape"][0],) + tuple(s["shape"][-3:]),
                                     0)
-    # the training paths' launches: phases 5 and 7-14
+    # the training paths' launches: phases 5 and 7-15
     for r in wire_rows + tiny_rows:
         extra = qwen_timed.get(r["name"])
         if extra:
@@ -4657,7 +4843,7 @@ def main() -> None:
         r["launches"] = sum(p.get(r["name"], 0) for p in (
             train_launches, priv_launches, tiny_launches, opt_launches,
             fleet_launches, qwen_launches, wide_launches, ssm_launches,
-            p14_launches))
+            p14_launches, p15_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
@@ -4684,6 +4870,7 @@ def main() -> None:
                                    "moe_and_wide_heads": wide_summary,
                                    "ssm_and_reduced_vlm": ssm_summary,
                                    "hybrid_and_audio": p14_summary,
+                                   "mesh_and_compile": p15_summary,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     if failures:

@@ -1,7 +1,7 @@
 """Importing this package populates the architecture registry (the
 configurations ported so far; ROADMAP.md lists the rest)."""
-from repro_torch.configs.base import (ArchConfig, ShapeConfig, WirelessConfig,
-                                      get_arch, list_archs)
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
+                                      WirelessConfig, get_arch, list_archs)
 from repro_torch.configs import chatglm3_6b  # noqa: F401
 from repro_torch.configs import command_r_plus_104b  # noqa: F401
 from repro_torch.configs import internvl2_76b  # noqa: F401
@@ -13,3 +13,10 @@ from repro_torch.configs import seamless_m4t_medium  # noqa: F401
 from repro_torch.configs import stablelm_12b  # noqa: F401
 from repro_torch.configs import xlstm_350m  # noqa: F401
 from repro_torch.configs import zamba2_1_2b  # noqa: F401
+
+# the architectures the JAX package's dry run covers by default
+ASSIGNED = [
+    "stablelm-12b", "command-r-plus-104b", "internvl2-76b", "zamba2-1.2b",
+    "xlstm-350m", "qwen1.5-0.5b", "seamless-m4t-medium", "chatglm3-6b",
+    "llama4-scout-17b-a16e", "qwen3-moe-235b-a22b",
+]

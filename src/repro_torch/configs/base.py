@@ -103,6 +103,15 @@ class ShapeConfig:
     microbatch: int = 0
 
 
+# the JAX package's input shapes (the dry run's)
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class WirelessConfig:
     """Paper Table I knobs; field for field the JAX package's

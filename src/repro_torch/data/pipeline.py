@@ -1,7 +1,8 @@
 """Host-side batching and the synthetic LM corpus of the scaled schemes
 — the port of `repro/data/pipeline.py`, in numpy, byte for byte the JAX
-package's arrays for a seed. Sharded device placement (`sharded_batches`)
-belongs to the mesh machinery, which is still to port (ROADMAP.md, P16).
+package's arrays for a seed. The JAX package's `sharded_batches` (each
+batch placed on a mesh) has no counterpart: nothing in either package
+calls it, and on one card a batch is whole on the card (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -64,3 +65,4 @@ def synthetic_corpus(cfg, n: int, seq_len: int, seed: int = 0):
     toks = 1 + rng.choice(vocab - 1, size=(n, seq_len),
                           p=_zipf(vocab)).astype(np.int32)
     return toks, toks.copy()
+

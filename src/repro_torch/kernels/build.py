@@ -3,9 +3,11 @@
 Each kernel source (``kernels/<name>/csrc/<name>.cu``, which may include
 the shared ``kernels/csrc/*.cuh``) is compiled by ``nvcc`` for sm_90a
 into a shared library with a plain C interface and loaded with
-``ctypes``. Libraries go to ``build/kernels/`` at the repository root
-(listed in ``.gitignore``), named by a digest of their sources and
-flags, so a changed source is rebuilt and an unchanged one is reused.
+``ctypes``. Libraries go to ``$REPRO_TORCH_KERNEL_CACHE_DIR``, or else
+``build/kernels/`` at the repository root (listed in ``.gitignore``),
+named by a digest of their sources and flags, so a changed source is
+rebuilt and an unchanged one is reused: the directory is the kernel-
+build cache that every process shares (launch/compile_cache.py).
 Nothing is compiled at import: the first launch builds its library,
 and ``build_all`` builds every library at once (one ``nvcc`` per
 source, all started together).
@@ -23,7 +25,8 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 INCLUDE_DIR = KERNELS_DIR / "csrc"
-BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+CACHE_ENV = "REPRO_TORCH_KERNEL_CACHE_DIR"
+DEFAULT_BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -47,12 +50,18 @@ def _nvcc() -> str:
     return found
 
 
+def build_dir() -> Path:
+    """Where libraries are built and found: $REPRO_TORCH_KERNEL_CACHE_DIR,
+    or build/kernels/ at the repository root."""
+    return Path(os.environ.get(CACHE_ENV) or DEFAULT_BUILD_DIR).resolve()
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(SOURCES[name].read_bytes())
     for hdr in sorted(INCLUDE_DIR.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -61,7 +70,7 @@ def _start(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),

@@ -30,6 +30,15 @@ and its generated tokens on one downlink through the same Radio (an
 audio batch first encodes stub frames, 0.1 everywhere, into its
 cross-attention cache, as the JAX package does); a family with no
 decode step at all exits.
+
+`--mesh test` builds the engine and serves under the test mesh (all ones
+on one card: every logical axis resolves to replication, so tokens and
+bills are `--mesh none`'s). `--aot-warmup` builds the kernels and runs
+the decode step and every prefill bucket once before admitting
+requests (`ServeEngine.warmup_compile`) and prints
+`aot_warmup_compile_wall_s=`; the kernel libraries come from the
+kernel-build cache (launch/compile_cache.py), or from a fresh temporary
+directory under `--no-compile-cache`.
 """
 from __future__ import annotations
 
@@ -42,9 +51,11 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.draws import seeded
+from repro_torch.launch import compile_cache
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import api as M
 from repro_torch.models import encdec
-from repro_torch.nn import init_params, init_tree, resolve_device
+from repro_torch.nn import init_params, init_tree, resolve_device, use_mesh
 from repro_torch.runtime.train_step import window_for
 from repro_torch.schemes.radio import Radio
 from repro_torch.serve import (RequestTrace, ServeEngine, SLOT_FAMILIES,
@@ -81,11 +92,16 @@ def parse_args(argv=None):
     ap.add_argument("--page-budget", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--mesh", default="none", choices=["none", "test"])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--warmup", action="store_true",
+    ap.add_argument("--aot-warmup", action="store_true",
                     help="build the kernels and run the decode step and "
-                         "every prefill bucket once before serving; "
-                         "prints warmup_wall_s=")
+                         "every prefill bucket once before admitting "
+                         "requests; prints aot_warmup_compile_wall_s=")
+    ap.add_argument("--no-compile-cache", action="store_true",
+                    help="build the kernels into a fresh temporary "
+                         "directory instead of the kernel-build cache "
+                         "(launch/compile_cache.py)")
     return ap.parse_args(argv)
 
 
@@ -252,29 +268,33 @@ def legacy_loop(args, cfg, params, device, draws=None) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    compile_cache.use_kernel_cache(args.no_compile_cache)
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = make_test_mesh() if args.mesh == "test" else None
     if cfg.family not in SLOT_FAMILIES:
         print(f"{cfg.family}: scalar-index decode only — static loop")
-        return legacy_main(args, cfg, dev)
+        with use_mesh(mesh):
+            return legacy_main(args, cfg, dev)
     radio = make_radio(args)
     trace = resolve_trace(args, args.snr_db if args.snr_db is not None
                           else 20.0)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    params = init_params(M.param_specs(cfg), gen, dev)
-    engine = ServeEngine(cfg, params, n_slots=args.batch, radio=radio,
-                         temperature=args.temperature, greedy=args.greedy,
-                         prefill=args.prefill, kv=args.kv,
-                         chunk_size=args.chunk_size,
-                         page_size=args.page_size,
-                         page_budget=args.page_budget, device=dev)
-    if args.warmup:
-        print(f"warmup_wall_s={engine.warmup_compile(trace.max_seq_len())}",
-              flush=True)
-    report = engine.serve(trace, args.engine)
+    with use_mesh(mesh):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        params = init_params(M.param_specs(cfg), gen, dev)
+        engine = ServeEngine(cfg, params, n_slots=args.batch, radio=radio,
+                             temperature=args.temperature,
+                             greedy=args.greedy, prefill=args.prefill,
+                             kv=args.kv, chunk_size=args.chunk_size,
+                             page_size=args.page_size,
+                             page_budget=args.page_budget, device=dev)
+        if args.aot_warmup:
+            wall = engine.warmup_compile(trace.max_seq_len())
+            print(f"aot_warmup_compile_wall_s={wall:.6f}", flush=True)
+        report = engine.serve(trace, args.engine)
 
     d = report.to_dict()
     print(f"{args.engine} on {dev}: {trace.n_requests} requests on "

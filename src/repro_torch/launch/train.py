@@ -54,16 +54,27 @@ synthetic Zipf LM corpus (512 / 128 rows unless `--n-train`/`--n-test`
 say otherwise) at a constant `--lr` (3e-4): a CL/SL cycle is
 `--cycle-steps` optimizer steps (AdamW unless `--optimizer sgd`), an FL
 cycle `--local-steps` SGD-momentum steps per user and one sync
-(`--sync barrier|delayed`, `--use-kernel` for K2's fused mean). The
-mesh and compile flags of the JAX driver (`--mesh`, `--aot-warmup`,
-`--no-compile-cache`) are still to port (ROADMAP.md, P16).
+(`--sync barrier|delayed`, `--use-kernel` for K2's fused mean).
+
+`--mesh test` builds the scheme and runs every round under the test
+mesh (launch/mesh.py: all ones on one card, so every logical axis
+resolves to replication and the run is `--mesh none`'s, bit for bit).
+`--aot-warmup` builds and loads the kernel libraries the rounds launch
+before the first cycle and prints `aot_warmup_compile_wall_s=`; the
+libraries live in the kernel-build cache (launch/compile_cache.py:
+`$REPRO_TORCH_KERNEL_CACHE_DIR` or build/kernels/), so a second process
+reports a near-zero wall. `--no-compile-cache` builds into a fresh
+temporary directory instead, so the process pays `nvcc`.
 
 Runs on the GPU by default and raises without one (`--device cpu` runs
-the plain versions). Weights are drawn from `--seed`.
+the plain versions). Weights are drawn from `--seed`. `--report-json`
+writes every cycle's bill, loss and accuracy at full precision and each
+kernel's launches over the run.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import time
@@ -73,7 +84,10 @@ import numpy as np
 from repro_torch.checkpoint.ckpt import latest_experiment_cycle
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeConfig, WirelessConfig
-from repro_torch.nn import resolve_device
+from repro_torch.kernels import launch_counts
+from repro_torch.launch import compile_cache
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.nn import resolve_device, use_mesh
 from repro_torch.schemes import (BATCH, N_TEST, N_TRAIN, ClientBatch,
                                  ClientSpec, Experiment,
                                  ParticipationPolicy, build_scheme, corpus)
@@ -138,6 +152,22 @@ def parse_args(argv=None):
                     help="checkpoint every k cycles")
     ap.add_argument("--log-every", type=int, default=1,
                     help="print every k cycles")
+    ap.add_argument("--mesh", default="none", choices=["none", "test"],
+                    help="test: build and run under the test mesh (all "
+                         "ones on one card)")
+    ap.add_argument("--aot-warmup", action="store_true",
+                    help="build and load the kernels the rounds launch "
+                         "before the first cycle and print "
+                         "aot_warmup_compile_wall_s= (near zero when the "
+                         "kernel-build cache holds them)")
+    ap.add_argument("--no-compile-cache", action="store_true",
+                    help="build the kernels into a fresh temporary "
+                         "directory instead of the kernel-build cache "
+                         "(launch/compile_cache.py)")
+    ap.add_argument("--report-json", default="",
+                    help="also write every cycle's bill, loss and accuracy "
+                         "(full precision) and the kernel launches as JSON "
+                         "to this file")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -206,33 +236,42 @@ def build_scaled(args, cfg, device):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    compile_cache.use_kernel_cache(args.no_compile_cache)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     tiny = cfg.family == "tiny"
     device = resolve_device(args.device)
+    mesh = make_test_mesh() if args.mesh == "test" else None
+    launched0 = launch_counts()
     args.n_train = args.n_train or (N_TRAIN if tiny else 512)
     args.n_test = args.n_test or (N_TEST if tiny else 128)
     lr_schedule = (lambda e: args.lr) if args.lr is not None else None
     data = None
-    if not tiny:
-        if args.fleet_size > 0:
-            raise SystemExit("--fleet-size runs the paper's tiny model; "
-                             "use --arch paper-tinylstm")
-        scheme, spc = build_scaled(args, cfg, device)
-    else:
-        data = corpus(args.n_train, args.n_test, args.seed)
-        if args.fleet_size > 0:
-            scheme = build_fleet(args, device, data)
-            spc = 1                  # one communication cycle per step
+    with use_mesh(mesh):
+        if not tiny:
+            if args.fleet_size > 0:
+                raise SystemExit("--fleet-size runs the paper's tiny "
+                                 "model; use --arch paper-tinylstm")
+            scheme, spc = build_scaled(args, cfg, device)
         else:
-            scheme = build_scheme(build_wcfg(args), device=device)
-            if args.mode == "fl":
-                spc = args.local_steps * (args.n_train // args.n_users
-                                          // BATCH)
+            data = corpus(args.n_train, args.n_test, args.seed)
+            if args.fleet_size > 0:
+                scheme = build_fleet(args, device, data)
+                spc = 1              # one communication cycle per step
             else:
-                spc = args.n_train // BATCH
+                scheme = build_scheme(build_wcfg(args), device=device)
+                if args.mode == "fl":
+                    spc = args.local_steps * (args.n_train // args.n_users
+                                              // BATCH)
+                else:
+                    spc = args.n_train // BATCH
     cycles = max(1, math.ceil(args.steps / max(spc, 1)))
+
+    if args.aot_warmup:
+        with use_mesh(mesh):
+            wall = compile_cache.warmup(scheme)
+        print(f"aot_warmup_compile_wall_s={wall:.6f}", flush=True)
     history = []
     t0 = time.time()
 
@@ -260,14 +299,25 @@ def main(argv=None) -> dict:
         print(f"resuming from cycle "
               f"{latest_experiment_cycle(args.ckpt_dir)} "
               f"({os.path.abspath(args.ckpt_dir)})", flush=True)
-    exp = Experiment(scheme, cycles=cycles, seed=args.seed,
-                     n_train=args.n_train, n_test=args.n_test, data=data,
-                     lr_schedule=lr_schedule, on_cycle=on_cycle,
-                     checkpoint_dir=args.ckpt_dir or None,
-                     checkpoint_every=(args.ckpt_every if args.ckpt_dir
-                                       else 0),
-                     resume_from=resume)
-    res = exp.run()
+    with use_mesh(mesh):
+        exp = Experiment(scheme, cycles=cycles, seed=args.seed,
+                         n_train=args.n_train, n_test=args.n_test,
+                         data=data, lr_schedule=lr_schedule,
+                         on_cycle=on_cycle,
+                         checkpoint_dir=args.ckpt_dir or None,
+                         checkpoint_every=(args.ckpt_every if args.ckpt_dir
+                                           else 0),
+                         resume_from=resume)
+        res = exp.run()
+    if args.report_json:
+        launched = {k: n - launched0[k]
+                    for k, n in launch_counts().items()}
+        with open(args.report_json, "w") as f:
+            json.dump({"reports": [
+                {k: getattr(r, k) for k in ("loss", "steps", "bits", "n_tx",
+                                            "energy_j", "erased_bits")}
+                for r in exp.reports], "accuracy": res.accuracy,
+                "kernel_launches": launched, "device": str(device)}, f)
     init_bits = exp.init_delivery.bits if exp.init_delivery else 0.0
     print(f"done: {cycles} cycles on {device}, final acc "
           f"{res.final_accuracy:.3f}, total bits {res.total_bits:.3e} "

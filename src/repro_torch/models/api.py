@@ -7,9 +7,9 @@ block) decoders and the `audio` encoder-decoder (stub frame embeddings
 in, `input_specs` gives them), which have no fused prefill and are
 served by the billed static loop of launch/serve.py, and the paper's
 `tiny` classifier (a streaming decoder with no fused prefill, so
-serving prefills it by the exact scan). The logical sharding axes
-(`param_axes`, `input_axes`) belong to the mesh machinery, still to
-port (P16)."""
+serving prefills it by the exact scan). `param_axes` and `input_axes`
+name the logical axes of the trainable parameters and of a step's
+inputs, which nn/sharding.py resolves against a mesh."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models import encdec, hybrid, lstm_tiny, transformer, xlstm
+from repro_torch.nn import axes_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,12 @@ def train_param_specs(cfg):
     return get_model(cfg).train_specs(cfg)
 
 
+def param_axes(cfg):
+    """Logical axes of the trainable layout (the JAX package's
+    `param_axes`)."""
+    return axes_tree(train_param_specs(cfg))
+
+
 # ------------------------------------------------------------- inputs
 def input_specs(cfg, shape_cfg) -> dict:
     """{name: (shape, dtype)} of every model input of one step."""
@@ -90,6 +97,24 @@ def input_specs(cfg, shape_cfg) -> dict:
         return batch
     # decode: ONE new token against a seq_len cache
     return {"token": ((B, 1), i32), "index": ((), i32)}
+
+
+def input_axes(cfg, shape_cfg) -> dict:
+    """Logical axes of each input of `input_specs`."""
+    if shape_cfg.kind in ("train", "prefill"):
+        ax = {"tokens": ("batch", None), "labels": ("batch", None)}
+        if cfg.frontend == "vision":
+            ax["patch_embeds"] = ("batch", None, None)
+        if cfg.family == "audio":
+            ax["frames"] = ("batch", None, None)
+        return ax
+    return {"token": ("batch", None), "index": ()}
+
+
+def input_sds(cfg, shape_cfg) -> dict:
+    """`input_specs` as meta tensors (no allocation)."""
+    return {k: torch.empty(shp, dtype=dt, device="meta")
+            for k, (shp, dt) in input_specs(cfg, shape_cfg).items()}
 
 
 # ------------------------------------------------------------- losses

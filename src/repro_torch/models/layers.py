@@ -28,6 +28,7 @@ from repro_torch.kernels.decode_attention.ref import (NEG_INF,
 from repro_torch.kernels.prefill_attention import ops as prefill_ops
 from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref
 from repro_torch.nn import Spec
+from repro_torch.nn.sharding import refuse_model_split
 
 # the plain attention math and `paged_view` live beside the kernels
 # (kernels/*/ref.py); the JAX package's names are kept here so that
@@ -266,7 +267,10 @@ def attention_decode_slots(p, x, cfg, cache_k, cache_v, indices, window=0,
     k/v at its own cache position (in place) and attends its own prefix.
     With `pages` = {"tables", "page_size", "active"} the caches are the
     shared page pool. `kept` selects the rows whose write lands (default:
-    the active rows, or every row). Returns (out [B,1,d], k, v)."""
+    the active rows, or every row). Returns (out [B,1,d], k, v). Under a
+    mesh whose `model` axis spans more than one device (where the JAX
+    package may shard the cache along the sequence) it raises."""
+    refuse_model_split("decode attention")
     B = x.shape[0]
     positions = indices[:, None]                           # [B,1]
     q, k, v = _qkv(p, x, cfg, positions)
@@ -280,8 +284,8 @@ def attention_decode_slots(p, x, cfg, cache_k, cache_v, indices, window=0,
     else:
         dense_insert(cache_k, positions, k, kept)
         dense_insert(cache_v, positions, v, kept)
-        out = decode_attention_slots(q[:, 0], cache_k, cache_v, indices + 1,
-                                     window)
+        out = decode_attention_slots(q[:, 0], cache_k, cache_v,
+                                     indices + 1, window)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
     return linear(p["wo"], out), cache_k, cache_v
 

@@ -3,12 +3,20 @@ device: capacity dispatch into a compact `[E, C, d]` buffer (the
 `[T, E, C]` one-hot never exists), top-k gates renormalised, and the
 Switch-style load-balance loss.
 
-The JAX package picks among three strategies; on one device (no mesh)
-it always takes the token-chunked one, and so does the port:
-`apply_moe` -> `_moe_chunked` -> `_single` or one `_moe_core` per chunk.
-The expert-parallel `shard_map` path (`_moe_ep`) belongs to the mesh
-machinery (ROADMAP.md, P16). The expert products are plain batched
-matmuls: the JAX package computes them outside any Pallas kernel.
+The JAX package picks between the token-chunked dispatch
+(`_moe_chunked` -> `_single` or one `_moe_core` per chunk) and, under a
+mesh with a `model` axis that divides the experts and at >= 2,048
+tokens, the expert-parallel `_moe_ep` (`shard_map`: each model shard
+dispatches to its own experts, then one psum). On one card the `model`
+axis has one shard, and `_moe_ep`'s arithmetic there is `_moe_chunked`'s
+(bit for bit in the JAX package too): the window of experts is all of
+them (`e_lo` 0), the chunks are `auto_chunk`'s, the psum and pmeans are
+over one shard, and the lb / dropped means over one chunk equal the
+chunk's own values. So the port has the one function; where JAX would
+select `_moe_ep` over a `model` axis of more than one device,
+`apply_moe` raises: sharding across cards is not part of the port.
+The expert products are plain batched matmuls: the JAX package
+computes them outside any Pallas kernel.
 
 What has to match the reference beyond plain arithmetic:
   * routing is in float32 whatever the activation dtype;
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (apply_mlp, linear, linear_specs,
                                        mlp_specs)
 from repro_torch.nn import Spec
+from repro_torch.nn.sharding import current_mesh, refuse_model_split
 
 
 def moe_specs(cfg) -> dict:
@@ -69,13 +78,19 @@ def auto_chunk(T: int, cfg) -> int:
 
 
 # below this many tokens the JAX package's expert-parallel path costs
-# more than the scatter it replaces; kept for the mesh port (P16)
+# more than the scatter it replaces
 EP_MIN_TOKENS = 2048
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg) -> tuple:
-    """x [B, S, d] -> (y [B, S, d], aux). One device: the chunked path,
-    as the JAX package takes without a mesh."""
+    """x [B, S, d] -> (y [B, S, d], aux). Where the JAX package selects
+    its expert-parallel `_moe_ep`, a `model` axis of more than one
+    device raises; at one shard `_moe_ep` is the chunked dispatch."""
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh.shape \
+            and cfg.n_experts % mesh.shape["model"] == 0 \
+            and x.shape[0] * x.shape[1] >= EP_MIN_TOKENS:
+        refuse_model_split("expert parallelism")
     return _moe_chunked(p, x, cfg)
 
 
@@ -130,8 +145,8 @@ def route(p: dict, xf: torch.Tensor, cfg) -> tuple:
 
 def _moe_core(p: dict, xf: torch.Tensor, cfg) -> tuple:
     """Capacity dispatch of xf [T, d] over all E experts (the JAX
-    package's expert window [e_lo, e_lo + n_local) serves only its
-    expert-parallel path, P16). Returns (y [T, d], aux)."""
+    package's expert window [e_lo, e_lo + n_local) is all of them on one
+    card). Returns (y [T, d], aux)."""
     T, d = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(T, cfg)

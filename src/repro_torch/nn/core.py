@@ -210,3 +210,28 @@ def count_params(params) -> int:
     if isinstance(params, nn.Module):
         return int(sum(p.numel() for p in params.parameters()))
     return int(sum(math.prod(x.shape) for x in tree_leaves(params)))
+
+
+# ------------------------------------------------- spec trees
+def _map_specs(fn, specs):
+    """`fn` over the Spec leaves of a tree of dicts and lists."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(_map_specs(fn, v) for v in specs)
+    return fn(specs)
+
+
+def axes_tree(specs):
+    """The logical-axes tree of a Spec tree (what the sharding resolver
+    reads)."""
+    return _map_specs(lambda s: s.axes, specs)
+
+
+def shapes_tree(specs):
+    """A Spec tree as meta tensors of the same shapes and dtypes: the
+    JAX package's `ShapeDtypeStruct` stand-ins, which allocate
+    nothing."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                            device="meta"), specs)
+

@@ -46,6 +46,16 @@ def make_decode_step(cfg, shape_cfg):
     return decode_step
 
 
+def cache_specs(cfg, shape_cfg) -> tuple:
+    """(meta-tensor tree, logical-axes tree) of the dense decode cache of
+    `shape_cfg` (global_batch rows, seq_len columns)."""
+    shapes = M.get_model(cfg).cache_shapes(cfg, shape_cfg.global_batch,
+                                           shape_cfg.seq_len)
+    sds = {k: torch.empty(sh, dtype=dt, device="meta")
+           for k, (sh, ax, dt) in shapes.items()}
+    return sds, {k: ax for k, (sh, ax, dt) in shapes.items()}
+
+
 def _check_paged(cfg):
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"paged KV unsupported for family {cfg.family!r}")

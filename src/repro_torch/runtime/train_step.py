@@ -9,23 +9,37 @@ model's raw uplink tokens. FL wraps these in runtime/fl_runtime.py.
 Gradients come from autograd: a step differentiates detached copies of
 the trainable tree's leaves (`torch.autograd.grad`) and applies the
 plain-tensor optimizer update (optim/sgd.py, optim/adamw.py), in the
-JAX step's order. There is no mesh, so the sharding helpers of the JAX
-module (`trainable_axes`, `train_state_axes`, `axes_to_shardings`,
-`train_state_sds_and_shardings`, `key_sds`) are still to port
-(ROADMAP.md, P16).
+JAX step's order.
+
+The sharding helpers (`trainable_axes`, `train_state_axes`,
+`train_state_sds`, `key_sds`) give a train state's logical axes and
+its meta-tensor stand-in (shapes and dtypes, no allocation), as the
+JAX module's do; `Lowered` resolves each leaf's spec on a mesh
+(nn/sharding.py's `tree_shardings`). The scaled schemes' `lower_step`
+and launch/dryrun.py read them. The step pins its gradient accumulator
+to the parameters' axes (`constrain_tree`), which on the one-card mesh
+is the identity.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import dataclasses
+import types
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch.core import centralized
-from repro_torch.core.split import init_codec, split_forward
+from repro_torch.core.draws import Key
+from repro_torch.core.split import codec_specs, init_codec, split_forward
 from repro_torch.models import api as M
 from repro_torch.models import lstm_tiny
-from repro_torch.nn import init_tree, tree_leaves, tree_map, tree_unflatten
+from repro_torch.nn import (axes_tree, constrain_tree, init_tree, shapes_tree,
+                            tree_leaves, tree_map, tree_shardings,
+                            tree_unflatten)
+from repro_torch.nn.sharding import local_bytes, map_axes, use_mesh
 from repro_torch.optim import adamw, sgd_momentum
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.sgd import SGDState
 
 MOE_AUX_COEF = 0.01
 TRAINED_FAMILIES = ("tiny", "dense", "moe", "vlm", "ssm", "hybrid",
@@ -62,20 +76,20 @@ def window_for(cfg, shape_cfg) -> int:
     return 0
 
 
-# data shards of the JAX package's production mesh, which the last rule
-# of `auto_microbatch` divides the batch by (the port has no mesh yet:
-# ROADMAP.md, P16)
-N_DATA_SHARDS = 16
+# data shards of the JAX package's production mesh (16 x 16): the live
+# steps microbatch as if on it; the dry run passes its mesh's count
+DEFAULT_DATA_SHARDS = 16
 
 
-def auto_microbatch(cfg, shape_cfg) -> int:
+def auto_microbatch(cfg, shape_cfg,
+                    n_data_shards: int = DEFAULT_DATA_SHARDS) -> int:
     """Number of grad-accumulation microbatches: the shape's override,
     then the arch's microbatch_size, then one sample per data shard."""
     if shape_cfg.microbatch:
         return shape_cfg.global_batch // shape_cfg.microbatch
     if cfg.microbatch_size and shape_cfg.global_batch > cfg.microbatch_size:
         return shape_cfg.global_batch // cfg.microbatch_size
-    return max(1, shape_cfg.global_batch // N_DATA_SHARDS)
+    return max(1, shape_cfg.global_batch // n_data_shards)
 
 
 def _forward(trainable, batch, cfg, wcfg, key, window: int = 0):
@@ -146,8 +160,16 @@ def init_train_state(generator: torch.Generator, cfg, wcfg=None,
     return TrainState(trainable, opt_init(trainable), 0)
 
 
+def trainable_axes(cfg, wcfg=None) -> dict:
+    """Logical axes of the trainable tree {"model", "codec"}."""
+    return {"model": M.param_axes(cfg),
+            "codec": (axes_tree(codec_specs(cfg, wcfg))
+                      if (wcfg is not None and wcfg.mode == "sl") else {})}
+
+
 def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
-                    lr: float = 3e-4, momentum: float = 0.9):
+                    lr: float = 3e-4, momentum: float = 0.9,
+                    n_data_shards: int = DEFAULT_DATA_SHARDS):
     """Returns train_step(state, batch, key[, lr]) -> (state, metrics):
     gradients summed over `auto_microbatch` microbatches in float32
     accumulators (microbatch i on key.fold_in(i)), divided by their
@@ -155,8 +177,9 @@ def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
     SL link draws from it."""
     _check_family(cfg)
     window = window_for(cfg, shape_cfg)
-    n_micro = auto_microbatch(cfg, shape_cfg)
+    n_micro = auto_microbatch(cfg, shape_cfg, n_data_shards)
     _, opt_update = _optimizer(optimizer, momentum)
+    tax = trainable_axes(cfg, wcfg)     # the accumulator's placement
 
     def train_step(state: TrainState, batch: dict, key, lr=lr):
         if wcfg is not None and wcfg.mode == "cl" \
@@ -178,6 +201,7 @@ def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
             else:
                 g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
                 m_acc = {k: m_acc[k] + v for k, v in metrics.items()}
+            g_acc = constrain_tree(g_acc, tax)
             del g
         grads = tree_map(lambda g: g / n_micro, g_acc)
         del g_acc
@@ -198,3 +222,98 @@ def make_prefill_step(cfg, shape_cfg, wcfg=None):
         return logits[:, -1]
 
     return prefill
+
+
+# ------------------------------------------------- state specs / shardings
+def key_sds() -> Key:
+    """The stand-in of a built step's key argument: a `Key` holds no
+    tensor, so any one serves."""
+    return Key(0)
+
+
+def train_state_axes(cfg, wcfg=None, optimizer: str = "adamw",
+                     n_users: int = 0) -> TrainState:
+    """Logical-axes tree of a whole TrainState (trainable + optimizer
+    moments + step). With n_users > 0 every leaf gains a leading "users"
+    axis: the FL user-stacked layout ("users" resolves to `pod`)."""
+    tax = trainable_axes(cfg, wcfg)
+    if n_users:
+        tax = map_axes(lambda ax: ("users",) + ax, tax)
+    _optimizer(optimizer)                       # validates the name
+    opt_ax = (AdamWState(tax, tax, ()) if optimizer == "adamw"
+              else SGDState(tax, ()))
+    return TrainState(tax, opt_ax, ())
+
+
+def train_state_sds(cfg, wcfg=None, optimizer: str = "adamw",
+                    n_users: int = 0) -> TrainState:
+    """A TrainState of meta tensors in `init_train_state`'s layout (the
+    step counters plain ints), user-stacked when n_users > 0."""
+    _check_family(cfg)
+    trainable = {"model": shapes_tree(M.train_param_specs(cfg)),
+                 "codec": (shapes_tree(codec_specs(cfg, wcfg))
+                           if (wcfg is not None and wcfg.mode == "sl")
+                           else {})}
+    if n_users:
+        trainable = tree_map(lambda t: t.new_empty((n_users,) + t.shape),
+                             trainable)
+    opt_init, _ = _optimizer(optimizer)
+    return TrainState(trainable, opt_init(trainable), 0)
+
+
+def metrics_sds(cfg) -> dict:
+    """The metrics a built step returns, as meta f32 scalars."""
+    keys = ("loss", "accuracy", "aux_loss") if cfg.family == "tiny" \
+        else ("loss", "aux_loss")
+    return {k: torch.empty((), dtype=torch.float32, device="meta")
+            for k in keys}
+
+
+@dataclasses.dataclass
+class Lowered:
+    """A step readied for a mesh without running it: the port's
+    counterpart of JAX's `Lowered` (what `lower_step` and
+    launch/dryrun.py return). `args` are the step's tensor arguments as
+    meta trees with their logical axes, `specs` each leaf's resolved
+    spec on `mesh`; `outputs` / `out_axes` likewise (the donated `args`
+    come back as outputs). Nothing is compiled: the step is the eager
+    program the card runs, and `flops` counts its matmuls on meta
+    tensors (`FlopCounterMode`) when first asked."""
+    step: Callable
+    args: tuple
+    arg_axes: tuple
+    outputs: tuple
+    out_axes: tuple
+    mesh: Any
+    flops: Callable[[], float]
+    donate: tuple = (0,)
+
+    def __post_init__(self):
+        self.specs = tuple(tree_shardings(a, ax, self.mesh)
+                           for a, ax in zip(self.args, self.arg_axes))
+        self._flops = None
+
+    def cost_analysis(self) -> dict:
+        """{"flops": matmul FLOPs of one call of the whole program}: the
+        count launch/hlo_analysis.py takes from JAX's compiled HLO
+        (`dot_flops`), not XLA's `cost_analysis`, which counts a scan's
+        body once."""
+        if self._flops is None:
+            with use_mesh(None):          # the whole program, one card
+                self._flops = float(self.flops())
+        return {"flops": self._flops}
+
+    def memory_analysis(self):
+        """Bytes per device from the resolved specs: every argument and
+        output leaf's share on `mesh` (a replicated leaf whole), the
+        donated arguments as the aliased bytes. Temporaries and code size
+        are None: nothing compiles the program."""
+        def size(trees, axes):
+            return sum(local_bytes(t, ax, self.mesh)
+                       for t, ax in zip(trees, axes))
+        return types.SimpleNamespace(
+            argument_size_in_bytes=size(self.args, self.arg_axes),
+            output_size_in_bytes=size(self.outputs, self.out_axes),
+            alias_size_in_bytes=size([self.args[i] for i in self.donate],
+                                     [self.arg_axes[i] for i in self.donate]),
+            temp_size_in_bytes=None, generated_code_size_in_bytes=None)

@@ -35,11 +35,12 @@ Two planes:
   identically and is the engine that trains mixed ones.
 
 The JAX package shards its replays' [clients, ...] draws over a
-`clients` mesh axis and vectorises the per-client SL keys; on one card
-there is no mesh, and the port's per-(key, name) generators are opened
-one client at a time, so the SL replay is a host loop over the active
-SL clients (`last_round_seconds["sl_replay"]` says what it costs). The
-mesh is ROADMAP item P16's to decide.
+`clients` mesh axis and vectorises the per-client SL keys. On one card
+the `clients` axis has nothing to place (under the one-card test mesh it
+resolves to replication, so a fleet bills the same with or without it),
+and the port's per-(key, name) generators are opened one client at a
+time, so the SL replay is a host loop over the active SL clients
+(`last_round_seconds["sl_replay"]` says what it costs).
 
 Reports stream as AGGREGATES: `RoundReport.clients` stays empty and
 `metrics["fleet"]` carries count / sum / quantile / histogram summaries

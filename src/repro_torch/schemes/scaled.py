@@ -27,19 +27,28 @@ experiment's numpy rng (`seed + 1`) by sampling with replacement.
 Weights come from a torch generator seeded with `seed` (not JAX's draw).
 
 FLOPs: the JAX package asks XLA for the cost of the compiled round
-program; here one round's step is run on meta tensors under
+program; here one microbatch's step is run on meta tensors under
 `torch.utils.flop_counter.FlopCounterMode` (its matmuls, in the forward,
-the backward and any remat recompute), with the JAX package's user /
+the backward and any remat recompute) and multiplied by the step's
+microbatches (each has the same shapes), with the JAX package's user /
 server apportioning. An xLSTM's matmuls are all per token or per
 predicted token (no attention), so its count is affine in the sequence:
 it is taken at one and at two tokens and extended to seq_len, which
-spares the meta step's Python loop over time. Ahead-of-time lowering
-(`lower_step`, `warmup_compile`) is mesh machinery, still to port
-(ROADMAP.md, P16).
+spares the meta step's Python loop over time. The count equals the
+matmul FLOPs that the JAX package's dry run reads from the compiled HLO
+(launch/hlo_analysis.py's `dot_flops`); XLA's `cost_analysis`, which the
+JAX package's `RoundReport` reports, counts a scan's body once.
+
+`lower_step(mesh)` readies the round's step for a mesh without running
+it (runtime/train_step.py's `Lowered`: meta state and batch, their
+resolved specs, the FLOP count, the bytes per device) for
+launch/dryrun.py; `warmup_compile()` builds and loads the kernel
+libraries the rounds launch (the `--aot-warmup` flag).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -55,10 +64,13 @@ from repro_torch.models import api as M
 from repro_torch.models.encdec import src_len
 from repro_torch.nn import resolve_device, tree_leaves, tree_map
 from repro_torch.runtime.fl_runtime import SYNC_KEY_FOLD, make_fl_train_step
-from repro_torch.runtime.train_step import (TrainState, _forward,
-                                            _optimizer, auto_microbatch,
-                                            init_train_state, make_local_step,
-                                            make_train_step, window_for)
+from repro_torch.runtime.train_step import (Lowered, _forward,
+                                            DEFAULT_DATA_SHARDS,
+                                            auto_microbatch, init_train_state,
+                                            key_sds, make_local_step,
+                                            make_train_step, metrics_sds,
+                                            train_state_axes, train_state_sds,
+                                            window_for)
 from repro_torch.schemes.base import RoundReport, SchemeState, train_cycle
 from repro_torch.schemes.radio import Radio
 
@@ -68,12 +80,6 @@ FL_STREAM = 3         # FL cycle k draws on key(seed + 3).fold_in(k)
 EVAL_KEY = 999        # eval slice i is scored on key(999 + i)
 DEFAULT_LR = 3e-4
 SCALED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
-
-
-def _p16(what: str):
-    raise NotImplementedError(
-        f"{what} lowers the round program for a mesh; the mesh and "
-        f"compile machinery is not ported yet (see ROADMAP.md, P16)")
 
 
 class _ScaledScheme:
@@ -187,55 +193,76 @@ class _ScaledScheme:
         return DEFAULT_LR
 
     # ------------------------------------------------------------ FLOPs
-    def _meta_trainable(self, wcfg) -> dict:
-        def meta(s):
-            return torch.empty(s.shape, dtype=s.dtype, device="meta")
-        codec = (tree_map(meta, SPLIT.codec_specs(self.cfg, wcfg))
-                 if (wcfg is not None and wcfg.mode == "sl") else {})
-        return {"model": tree_map(meta, M.train_param_specs(self.cfg)),
-                "codec": codec}
-
-    def _meta_batch(self, seq_len: int) -> dict:
-        shape = dataclasses.replace(self.shape, seq_len=seq_len)
-        return {k: torch.zeros(shp, dtype=dtype if dtype.is_floating_point
-                               else torch.int64, device="meta")
-                for k, (shp, dtype) in
-                M.input_specs(self.cfg, shape).items()}
-
-    def _meta_step(self, seq_len: int) -> None:
-        """One optimizer step on meta tensors (shapes only)."""
+    def _meta_step(self, shape: ShapeConfig) -> None:
+        """One optimizer step at `shape` on meta tensors (shapes only)."""
         raise NotImplementedError
 
-    def _count_flops(self, seq_len: int) -> float:
+    def _micro_count(self, n_data_shards: int) -> int:
+        """Microbatches of one optimizer step."""
+        return auto_microbatch(self.cfg, self.shape, n_data_shards)
+
+    def _count_flops(self, seq_len: int,
+                     shape: Optional[ShapeConfig] = None) -> float:
+        """FLOPs of one meta step at `shape` (default the scheme's) cut
+        to `seq_len` tokens."""
         from torch.utils.flop_counter import FlopCounterMode
+        shape = dataclasses.replace(shape or self.shape, seq_len=seq_len)
         with FlopCounterMode(display=False) as fc:
-            self._meta_step(seq_len)
+            self._meta_step(shape)
         return float(fc.get_total_flops())
 
     # optimizer steps in one round program
     _steps_per_program = 1
 
+    def _program_flops(self, n_data_shards: int) -> float:
+        """FLOPs of one round program: one microbatch's meta step, times
+        the step's microbatches and the program's steps."""
+        n_micro = self._micro_count(n_data_shards)
+        b = self.shape.global_batch // n_micro
+        one_micro = dataclasses.replace(self.shape, global_batch=b,
+                                        microbatch=b)
+        S = self.shape.seq_len
+        if self.cfg.family == "ssm":
+            one = self._count_flops(1, one_micro)
+            flops = one + (S - 1) * (self._count_flops(2, one_micro) - one)
+        else:
+            flops = self._count_flops(S, one_micro)
+        return flops * n_micro * self._steps_per_program
+
     def _step_cost_flops(self) -> float:
-        """FLOPs of one round program: `_meta_step`'s count, times the
-        program's steps; cached."""
+        """FLOPs of one round program; cached."""
         if self._cost_flops is None:
-            S = self.shape.seq_len
-            if self.cfg.family == "ssm":
-                one = self._count_flops(1)
-                flops = one + (S - 1) * (self._count_flops(2) - one)
-            else:
-                flops = self._count_flops(S)
-            self._cost_flops = flops * self._steps_per_program
+            self._cost_flops = self._program_flops(DEFAULT_DATA_SHARDS)
         return self._cost_flops
 
     def flops(self, steps_total: int):
         return 0.0, self._step_cost_flops() * steps_total
 
-    def lower_step(self, mesh=None):
-        _p16("lower_step")
+    # ------------------------------------------------------- lowering
+    # kernel libraries (kernels/build.py) the rounds launch on the card
+    _kernel_libs: tuple = ()
 
     def warmup_compile(self) -> float:
-        _p16("warmup_compile")
+        """Build with `nvcc` (where the kernel-build cache lacks them) and
+        load every kernel library the rounds launch on this scheme's
+        device; returns the wall seconds. No step runs and nothing is
+        drawn, so the run after it is unchanged. On the CPU there is
+        nothing to build."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda" and self._kernel_libs:
+            from repro_torch.kernels import build
+            build.build_all(self._kernel_libs)
+            for name in self._kernel_libs:
+                build.load(name)
+        return time.perf_counter() - t0
+
+    def _lowered(self, step, state, state_ax, batch, batch_ax, mesh,
+                 n_data_shards) -> Lowered:
+        metrics = metrics_sds(self.cfg)
+        return Lowered(
+            step, (state, batch), (state_ax, batch_ax),
+            (state, metrics), (state_ax, {k: () for k in metrics}), mesh,
+            lambda: self._program_flops(n_data_shards))
 
 
 # ------------------------------------------------------------------- CL
@@ -287,12 +314,26 @@ class ScaledCentralizedScheme(_ScaledScheme):
     def evaluate(self, state, xte, yte) -> float:
         return self._evaluate_trainable(state.train.trainable, xte, yte)
 
-    def _meta_step(self, seq_len: int) -> None:
-        trainable = self._meta_trainable(self._step_wcfg())
-        opt_init, _ = _optimizer(self.optimizer)
-        state = TrainState(trainable, opt_init(trainable), 0)
-        self._step(state, self._meta_batch(seq_len), self.key(0),
-                   DEFAULT_LR)
+    def _meta_step(self, shape: ShapeConfig) -> None:
+        wcfg = self._step_wcfg()
+        step = make_train_step(self.cfg, shape, wcfg,
+                               optimizer=self.optimizer)
+        step(train_state_sds(self.cfg, wcfg, self.optimizer),
+             M.input_sds(self.cfg, shape), key_sds(), DEFAULT_LR)
+
+    def lower_step(self, mesh, n_data_shards: Optional[int] = None):
+        """The round's train step readied for `mesh` (launch/dryrun.py's
+        input), with `n_data_shards` data shards for its microbatching
+        (default the live step's)."""
+        nd = n_data_shards or DEFAULT_DATA_SHARDS
+        wcfg = self._step_wcfg()
+        step = make_train_step(self.cfg, self.shape, wcfg,
+                               optimizer=self.optimizer, n_data_shards=nd)
+        return self._lowered(
+            step, train_state_sds(self.cfg, wcfg, self.optimizer),
+            train_state_axes(self.cfg, wcfg, self.optimizer),
+            M.input_sds(self.cfg, self.shape),
+            M.input_axes(self.cfg, self.shape), mesh, nd)
 
 
 # ------------------------------------------------------------------- SL
@@ -302,6 +343,7 @@ class ScaledSplitScheme(ScaledCentralizedScheme):
     down through the radio (K1 per leg on the card), billed at the
     DRAWN ARQ counts replayed from the same keys."""
     mode = "sl"
+    _kernel_libs = ("quant_channel",)      # K1, each leg
 
     def __init__(self, cfg, shape=None, wcfg=None, perfect_eval=False,
                  **kw):
@@ -391,6 +433,7 @@ class ScaledFederatedScheme(_ScaledScheme):
     barrier one's (the same packets cross); `evaluate` deploys the
     aggregate (the server's weights)."""
     mode = "fl"
+    _kernel_libs = ("quant_channel",)      # the sync: K1, or K2
 
     def __init__(self, cfg, shape=None, wcfg=None, **kw):
         kw.pop("steps_per_cycle", None)   # one cycle IS local_steps steps
@@ -476,12 +519,30 @@ class ScaledFederatedScheme(_ScaledScheme):
         # a cycle's local phase; the sync has no matmul
         return self.n_users * self.local_steps
 
-    def _meta_step(self, seq_len: int) -> None:
-        trainable = self._meta_trainable(None)
-        opt_init, _ = _optimizer("sgd")
-        state = TrainState(trainable, opt_init(trainable), 0)
-        make_local_step(self.cfg, DEFAULT_LR)(state,
-                                              self._meta_batch(seq_len))
+    def _micro_count(self, n_data_shards: int) -> int:
+        return 1             # a local step takes the whole batch
+
+    def _meta_step(self, shape: ShapeConfig) -> None:
+        make_local_step(self.cfg, DEFAULT_LR)(
+            train_state_sds(self.cfg, None, "sgd"),
+            M.input_sds(self.cfg, shape))
+
+    def lower_step(self, mesh, n_data_shards: Optional[int] = None):
+        """The whole FL cycle readied for `mesh`, the user axis leading
+        every state and batch leaf ("users" resolves to `pod`).
+        `n_data_shards` is accepted for launch/dryrun.py's call and
+        unused: a local step takes its whole batch."""
+        n = self.n_users
+        state_ax = train_state_axes(self.cfg, None, "sgd", n_users=n)
+        batch = {k: v.new_empty((n,) + tuple(v.shape)) for k, v in
+                 M.input_sds(self.cfg, self.shape).items()}
+        batch_ax = {k: ("users",) + ax for k, ax in
+                    M.input_axes(self.cfg, self.shape).items()}
+        return self._lowered(
+            self._step,
+            self._as_train(train_state_sds(self.cfg, None, "sgd",
+                                           n_users=n)),
+            self._as_train(state_ax), batch, batch_ax, mesh, n)
 
     def evaluate(self, state, xte, yte) -> float:
         if self.sync == "delayed":

@@ -1256,3 +1256,20 @@ def test_encoder_prefill_cross_and_decode_on_card_equal_cpu(cuda_device):
         torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=2e-4,
                                    atol=2e-4)
     torch.testing.assert_close(dc, fc, rtol=3e-3, atol=3e-3)
+
+
+def test_warmup_compile_cold_then_warm(cuda_device, tmp_path,
+                                      monkeypatch):
+    """The SL scheme's `warmup_compile` into an empty kernel-build cache
+    runs `nvcc` (cold); again, it finds the library (warm): warm < 0.2 x
+    cold, scripts/ci.sh's gate for the JAX package's compile cache."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import compile_cache
+    scheme, _, _, _ = _scaled("sl", cuda_device)
+    monkeypatch.setenv(compile_cache.ENV, str(tmp_path))
+    compile_cache.enable_persistent_cache()
+    assert not build.library_path("quant_channel").exists()
+    cold = scheme.warmup_compile()
+    assert build.library_path("quant_channel").exists()
+    warm = scheme.warmup_compile()
+    assert warm < 0.2 * cold, (warm, cold)

@@ -363,23 +363,35 @@ def test_launch_train_runs_on_cpu_when_asked(capsys):
 
 
 def test_unported_paths_raise_and_name_the_roadmap():
-    """What is still to port raises and names ROADMAP.md: the scaled
-    schemes' ahead-of-time lowering (`lower_step`, `warmup_compile`),
-    which is mesh and compile machinery (P16). Every family and every
-    registered config trains and serves now (P15: the hybrid and audio
-    families in tests/test_torch_hybrid.py and tests/test_torch_encdec.py,
-    the others in tests/test_torch_scaled_schemes.py,
-    tests/test_torch_moe.py, tests/test_torch_vlm.py and
-    tests/test_torch_xlstm.py); populations, fleets and checkpointing
-    (P14) too (tests/test_torch_population.py, tests/test_torch_fleet.py,
-    tests/test_torch_resume.py), and DP, FedProx, the median and
-    sampling with replacement (tests/test_torch_extensions.py)."""
-    scheme = build_scheme(WirelessConfig(mode="fl"),
-                          cfg=get_arch("zamba2-1.2b").reduced(),
-                          device="cpu")
-    for call in (scheme.lower_step, scheme.warmup_compile):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, P16"):
-            call()
+    """What lies outside the port raises and names ROADMAP.md: sharding
+    over more than one card (a constraint that would split a tensor,
+    expert parallelism over a model axis of 2). The scaled schemes'
+    ahead-of-time lowering (`lower_step`, `warmup_compile`), the mesh
+    and compile machinery (P16), answers now (tests/test_torch_dryrun.py,
+    tests/test_torch_sharding.py), as every family and registered config
+    does (P15: tests/test_torch_hybrid.py, tests/test_torch_encdec.py,
+    tests/test_torch_scaled_schemes.py, tests/test_torch_moe.py,
+    tests/test_torch_vlm.py, tests/test_torch_xlstm.py); populations,
+    fleets and checkpointing (P14) too (tests/test_torch_population.py,
+    tests/test_torch_fleet.py, tests/test_torch_resume.py), and DP,
+    FedProx, the median and sampling with replacement
+    (tests/test_torch_extensions.py)."""
+    import torch
+    from repro_torch.launch.mesh import Mesh, make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.nn import constrain, use_mesh
+    cfg = get_arch("zamba2-1.2b").reduced()
+    scheme = build_scheme(WirelessConfig(mode="fl"), cfg=cfg, device="cpu")
+    assert scheme.lower_step(make_test_mesh()).cost_analysis()["flops"] > 0
+    assert scheme.warmup_compile() >= 0.0
+    two = Mesh(("data", "model"), (1, 2))
+    moe_cfg = get_arch("qwen3-moe-235b-a22b").reduced()
+    with use_mesh(two):
+        with pytest.raises(RuntimeError, match="ROADMAP.md"):
+            constrain(torch.zeros(4, 4), None, "mlp")
+        with pytest.raises(RuntimeError, match="ROADMAP.md"):
+            moe.apply_moe({}, torch.zeros(1, 2048, moe_cfg.d_model),
+                          moe_cfg)
     # the P14 entry points answer now: an empty population is refused
     # as the JAX package refuses it
     with pytest.raises(ValueError, match="at least one"):

@@ -324,3 +324,21 @@ def test_flop_counts_against_xla():
         assert (u, s) == ((0.0, 3 * pf) if mode == "cl" else
                           (3 * pf * 0.5, 3 * pf * 0.5))
     print(f"FLOPs per step (port FlopCounterMode, JAX XLA): {out}")
+
+
+def test_flop_counts_equal_jax_dry_run_dot_flops():
+    """CL's and SL's FlopCounterMode count of one step equals, exactly,
+    the matmul FLOPs of JAX's compiled step (launch/hlo_analysis.py's
+    trip-count-scaled `dot_flops`, what its dry run records): 610,271,232
+    and 622,854,144. XLA's `cost_analysis`, which the test above holds
+    within a factor 2, counts a scan's body once."""
+    from repro.launch.hlo_analysis import analyze
+    for mode, jw, w, want in (
+            ("cl", None, None, 610_271_232),
+            ("sl", JW(mode="sl", quant_bits=8),
+             WirelessConfig(mode="sl", quant_bits=8), 622_854_144)):
+        js = j_build_scheme(jw, cfg=JCFG, shape=JSHAPE)
+        ps = build_scheme(w, cfg=CFG, shape=SHAPE, device="cpu")
+        hlo = js._lower_for_cost().compile().as_text()
+        assert analyze(hlo)["dot_flops"] == want, mode
+        assert ps._step_cost_flops() == want, mode
