@@ -101,10 +101,13 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    and K4 once per eval slice, neither under autograd), the two-party
    bills against the same run on the CPU bit for bit and its loss and
    accuracy within phase 5's gates, and the captures' shapes; then it
-   computes benchmarks/table2.py's reconstruction errors (CL direct read,
-   FL per-sample protocol from phase 5's FL captures, SL 600 adversary
-   steps, also on the CPU from the same draws: within 5 % relative) and
-   requires err_SL > err_CL; it prints the Table II rows;
+   takes the Table II rows from `repro_torch.launch.table2.rows_from_runs`
+   on these captures and phase 5's FL captures (CL direct read, FL
+   statistic and per-sample protocols, SL 600 adversary steps; the SL
+   adversary also on the CPU from the same draws: within 5 % relative)
+   and requires err_SL > err_CL; it prints the entry point's Table II
+   lines (`fl_q8_extra`, the paper-scale bits and the seven claims
+   included) and the two-party SL row;
 8. serves the paper's classifier (paper-tinylstm, phase 5's CL-trained
    weights) with `ServeEngine` on the card: 256 requests of 30-token
    prompts, 1 new token each (the class) and 4 for every fourth, 32
@@ -1456,9 +1459,10 @@ def _runs() -> dict:
     """name -> (WirelessConfig, scheme options) of every training run: FL,
     fused SL and CL at phase 5's settings (FL recording the privacy
     capture), the privacy phase's two-party SL, fused SL at Q16 with
-    capture, and CL over a 20 dB link with capture (benchmarks/table2.py's
-    settings for the last two), and phase 9's FL options."""
+    capture, and CL over a 20 dB link with capture (the last two as
+    `repro_torch.launch.table2` runs them), and phase 9's FL options."""
     from repro_torch.configs import WirelessConfig
+    from repro_torch.launch.table2 import SCHEMES
     sl8 = WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
                          compress_factor=4)
     fl = dict(mode="fl", quant_bits=8, snr_db=20.0, n_users=3,
@@ -1474,11 +1478,9 @@ def _runs() -> dict:
         "sl": (sl8, {}),
         "cl": (None, {}),
         "sl_two_party": (sl8, dict(protocol="two_party", capture=True)),
-        "sl_q16_capture": (WirelessConfig(mode="sl", quant_bits=16,
-                                          snr_db=20.0, compress_factor=4),
-                           dict(capture=True, capture_every=8)),
-        "cl_20db_capture": (WirelessConfig(mode="cl", snr_db=20.0),
-                            dict(capture=True)),
+        "sl_q16_capture": (SCHEMES["sl_early_cut"][0],
+                           dict(SCHEMES["sl_early_cut"][1], capture=True)),
+        "cl_20db_capture": (SCHEMES["central"][0], dict(capture=True)),
     }
 
 
@@ -1830,8 +1832,6 @@ def train_phase(seed: int, shapes: dict) -> tuple:
 # observations, initial weights and batch rows) trained on the CPU:
 # relative gap of the held-out errors
 RECON_REL_TOL = 0.05
-ADV_STEPS = 600                 # benchmarks/table2.py's adversary steps
-FL_PROJ, FL_PER = 1024, 64      # table2's FL projection and samples/user
 
 
 def privacy_phase(seed: int, fl_run: dict, card_name: str,
@@ -1843,14 +1843,12 @@ def privacy_phase(seed: int, fl_run: dict, card_name: str,
     two-party SL on the CPU on the same draws, and the Table II rows from
     the captures (FL's from phase 5's card run). Returns ({kernel name:
     launches}, summary, failures)."""
-    import numpy as np
-    import torch
-    from repro_torch.core import energy as EN
     from repro_torch.core import privacy as PRIV
-    from repro_torch.data.sentiment import partition_users
     from repro_torch.kernels.conv_pool import ops as cp
     from repro_torch.kernels.lstm_cell import ops as lc
-    from repro_torch.schemes.base import BATCH, CFG, N_TRAIN, corpus
+    from repro_torch.launch import table2 as T2
+    from repro_torch.schemes.base import BATCH, N_TRAIN
+    ADV_STEPS = T2.ADV_STEPS
     counters = dict(_wire_counters(), conv_pool=cp.user_conv_pool,
                     lstm_final_state=lc.lstm_final_state)
     for f in counters.values():
@@ -1946,101 +1944,60 @@ def privacy_phase(seed: int, fl_run: dict, card_name: str,
             if not ok:
                 failures.append(f"capture {n} {k} shapes {got}")
 
-    # Table II: pair observations and targets as benchmarks/table2.py
-    def norm(t):
-        return np.asarray(t).astype(np.float32) / float(CFG.vocab_size)
-    draws = PRIV.AdversaryDraws(seed + 11)
-    c = caps["cl_20db_capture"]
-    err = {"central": PRIV.direct_error(norm(c["received"][:4096]),
-                                        norm(c["original"][:4096]))}
+    # Table II from the captures, through the entry point's own assembly
+    # (repro_torch.launch.table2, benchmarks/table2.py's order)
+    draws = PRIV.AdversaryDraws(seed + T2.ADV_SEED)
     t0 = time.perf_counter()
-    deltas = caps["fl"]["deltas"]
-    rngp = np.random.default_rng(0)
-    proj = rngp.standard_normal((deltas[0].shape[1], FL_PROJ)) \
-        .astype(np.float32)
-    proj /= np.sqrt(deltas[0].shape[1])
-    (xtr, _), _ = corpus()
-    shards = partition_users(xtr, np.zeros(len(xtr), np.int32), 3)
-    obs_b, tgt_b = [], []
-    for d in deltas:
-        for u in range(3):
-            idx = rngp.integers(0, len(shards[u][0]), FL_PER)
-            obs_b.append(np.repeat((d[u] @ proj)[None], FL_PER, axis=0))
-            tgt_b.append(shards[u][0][idx])
-    err["fl_q8"] = PRIV.reconstruction_error(
-        draws, np.concatenate(obs_b), norm(np.concatenate(tgt_b)),
-        steps=ADV_STEPS)
-    sl_obs = {}
-    for n in ("sl_q16_capture", "sl_two_party"):
-        obs = np.concatenate(caps[n]["smashed"], axis=0)
-        obs = obs.reshape(len(obs), -1)[:20_000]
-        sl_obs[n] = (obs, norm(np.concatenate(caps[n]["original"]))[
-            :len(obs)])
-    err["sl"] = PRIV.reconstruction_error(draws, *sl_obs["sl_q16_capture"],
-                                          steps=ADV_STEPS)
+    rows = T2.rows_from_runs(card["cl_20db_capture"]["res"], fl_run["res"],
+                             card["sl_q16_capture"]["res"], draws,
+                             adv_steps=ADV_STEPS)
     t_adv = time.perf_counter() - t0
-    obs = sl_obs["sl_q16_capture"][0]
+    err_sl = rows["sl_early_cut"]["recon_error"]
+    sl_obs = T2.sl_pair(caps["sl_q16_capture"])
     t0 = time.perf_counter()
-    err_sl_cpu = PRIV.reconstruction_error(
-        draws, *sl_obs["sl_q16_capture"], steps=ADV_STEPS, device="cpu")
+    err_sl_cpu = PRIV.reconstruction_error(draws, *sl_obs, steps=ADV_STEPS,
+                                           device="cpu")
     t_cpu = time.perf_counter() - t0
-    rel = abs(err["sl"] - err_sl_cpu) / err_sl_cpu
-    print(f"privacy SL adversary ({ADV_STEPS} steps on {len(obs)} "
-          f"observations): card {err['sl']:.6g}, CPU {err_sl_cpu:.6g}, "
-          f"relative gap {rel:.3e} (tol {RECON_REL_TOL}); adversaries on "
-          f"the card {t_adv:.2f} s (FL projection included), on the CPU "
-          f"{t_cpu:.2f} s", flush=True)
-    summary["sl_adversary"] = dict(card=err["sl"], cpu=err_sl_cpu,
+    rel = abs(err_sl - err_sl_cpu) / err_sl_cpu
+    print(f"privacy SL adversary ({ADV_STEPS} steps on {len(sl_obs[0])} "
+          f"observations): card {err_sl:.6g}, CPU {err_sl_cpu:.6g}, "
+          f"relative gap {rel:.3e} (tol {RECON_REL_TOL}); the four "
+          f"adversaries on the card {t_adv:.2f} s (FL projection and "
+          f"direct read included), on the CPU {t_cpu:.2f} s", flush=True)
+    summary["sl_adversary"] = dict(card=err_sl, cpu=err_sl_cpu,
                                    rel_gap=rel, card_s=t_adv, cpu_s=t_cpu)
     if not rel <= RECON_REL_TOL:
-        failures.append(f"SL reconstruction error card {err['sl']} vs CPU "
+        failures.append(f"SL reconstruction error card {err_sl} vs CPU "
                         f"{err_sl_cpu}")
-    if not err["sl"] > err["central"]:
-        failures.append(f"privacy: err_SL {err['sl']} <= err_CL "
-                        f"{err['central']}")
-    err["sl_two_party_q8"] = PRIV.reconstruction_error(
-        draws, *sl_obs["sl_two_party"], steps=ADV_STEPS)
-
-    rows = {}
-    for name, res, wcfg in (
-            ("central", card["cl_20db_capture"]["res"],
-             _runs()["cl_20db_capture"][0]),
-            ("fl_q8", fl_run["res"], _runs()["fl"][0]),
-            ("sl", card["sl_q16_capture"]["res"],
-             _runs()["sl_q16_capture"][0]),
-            ("sl_two_party_q8", tp["res"], _runs()["sl_two_party"][0])):
-        comp = EN.comp_energy_j(res.user_flops)
-        comm = EN.comm_energy_j(res.total_bits, wcfg)
-        rows[name] = dict(total_bits_M=res.total_bits / 1e6,
-                          accuracy=res.final_accuracy,
-                          recon_error=err[name], comp_energy_j=comp,
-                          comm_energy_j=comm, total_energy_j=comp + comm,
-                          co2_kg=EN.co2_kg(comp + comm),
-                          cycles=len(res.accuracy))
-        r = rows[name]
-        print(f"table2 {name} ({card_name}; {r['cycles']} cycles): "
-              f"{r['total_bits_M']:.6f} Mbit, accuracy {r['accuracy']:.4f},"
-              f" recon error {r['recon_error']:.6g}, comp "
-              f"{r['comp_energy_j']:.6g} J, comm {r['comm_energy_j']:.6g} "
-              f"J, total {r['total_energy_j']:.6g} J, CO2 "
-              f"{r['co2_kg']:.6g} kg", flush=True)
-    # the error of an adversary that guesses each position's mean token
-    guess = float(sl_obs["sl_q16_capture"][1].var(axis=0).mean())
-    ratios = dict(sl_over_fl=err["sl"] / err["fl_q8"],
-                  sl_over_cl=err["sl"] / err["central"],
-                  fl_over_cl=err["fl_q8"] / err["central"])
+    if not err_sl > rows["central"]["recon_error"]:
+        failures.append(f"privacy: err_SL {err_sl} <= err_CL "
+                        f"{rows['central']['recon_error']}")
+    # the port's two-party SL row, scored as Table II's SL row
+    tp_err = PRIV.reconstruction_error(
+        draws, *T2.sl_pair(caps["sl_two_party"]), steps=ADV_STEPS)
+    tp_row = T2.energy_row(tp["res"], _runs()["sl_two_party"][0], tp_err)
+    cycles = dict(central=len(card["cl_20db_capture"]["res"].accuracy),
+                  fl_q8=len(fl_run["res"].accuracy),
+                  sl_early_cut=len(card["sl_q16_capture"]["res"].accuracy),
+                  sl_two_party_q8=len(tp["res"].accuracy))
+    print(f"table2 rows ({card_name}; cycles {cycles}; the entry point's "
+          f"lines):", flush=True)
+    for line in T2.lines(rows):
+        print(line, flush=True)
+    for k, v in tp_row.items():
+        print(f"table2,sl_two_party_q8,{k},{v:.6g}", flush=True)
+    # the held-out error of an adversary that answers the mean token
+    guess = T2.mean_guess_error(sl_obs[1])
+    ratios = T2.ratios(rows)
     print(f"table2 orderings (printed, not gated; the paper's 20 / 7 / 35 "
           f"cycles give SL ~4x FL ~18x CL): err_SL / err_FL "
           f"{ratios['sl_over_fl']:.3f}, err_SL / err_CL "
           f"{ratios['sl_over_cl']:.3f}, err_FL / err_CL "
-          f"{ratios['fl_over_cl']:.3f}; guessing each position's mean "
-          f"token scores {guess:.6g} on SL's targets; comm SL > FL "
-          f"{rows['sl']['comm_energy_j'] > rows['fl_q8']['comm_energy_j']};"
-          f" comp SL < FL "
-          f"{rows['sl']['comp_energy_j'] < rows['fl_q8']['comp_energy_j']}",
-          flush=True)
-    summary["table2"] = dict(rows=rows, ratios=ratios,
-                             mean_guess_error=guess)
+          f"{ratios['fl_over_cl']:.3f}; answering the training rows' mean "
+          f"token scores {guess:.6g} on SL's held-out targets", flush=True)
+    summary["table2"] = dict(rows=dict(rows, sl_two_party_q8=tp_row),
+                             cycles=cycles, claims=dict(T2.claims(rows)),
+                             ratios=ratios, mean_guess_error=guess)
     return launches, summary, failures
 
 
