@@ -49,10 +49,12 @@ Run from the root of a checkout, on a machine with a CUDA card. It
 4. holds each packed-wire kernel against its plain PyTorch version on the
    card, bit for bit (`torch.equal`): K1 `packed_wire_2d` in its three
    code widths (uint32, int8, int4) at the FL upload's [1080, 256] (3
-   users x 360 rows) and the SL leg's [224, 256]; K2
-   `packed_wire_mean_2d` at [1080, 256] with 3 users; K5
+   users x 360 rows) and the SL leg's [224, 256], the float32 wire also
+   at Q16 and Q32 (Fig. 3's bits: the top level saturates as in XLA); K2
+   `packed_wire_mean_2d` at [1080, 256] with 3 users at Q8 and Q32; K5
    `quant_channel_2d` through `ops.transmit` of an 89,673-element
-   vector (the model's size); K6 `packed_wire_2d_philox` against its
+   vector (the model's size), and at [256, 512] at Q8 and Q32; K6
+   `packed_wire_2d_philox` at Q32 and Q8 against its
    plain Philox version, its share of changed outputs at x = 0, p =
    0.05, Q8 within 0.02 of 1 - (1 - p)^8, and different from the
    host-word stream. It times each (K1 at both shapes; K5 with its
@@ -108,6 +110,17 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    and requires err_SL > err_CL; it prints the entry point's Table II
    lines (`fl_q8_extra`, the paper-scale bits and the seven claims
    included) and the two-party SL row;
+7b. runs the paper's Fig. 3 through `repro_torch.launch.fig3` on the
+   card, counters set to 0 before and read after: all four panels (3a
+   CL, FL Q8 / Q32, SL Q16; 3b FL Q4-Q32; 3c CL, FL, FL with ARQ and SL
+   at 0 / 10 / 20 / 30 dB; 3d CL clean and fading, FL, SL) at one cycle
+   a run on 3,072 / 512 rows. It checks the JAX scripts' line names
+   (benchmarks/accuracy_cycles.py, quant_sweep.py, snr_sweep.py,
+   fading.py), every bill against its closed form (FL with ARQ: the
+   width x the packet sizes x the drawn n_tx), every run's K1 / K3 / K4
+   launches per round and eval against the path's, finite scores, and
+   FL Q32 rerun on the CPU: equal bills, accuracy within 0.01 and train
+   loss within 2e-3;
 8. serves the paper's classifier (paper-tinylstm, phase 5's CL-trained
    weights) with `ServeEngine` on the card: 256 requests of 30-token
    prompts, 1 new token each (the class) and 4 for every fourth, 32
@@ -833,10 +846,12 @@ def check_wire_kernels(seed: int) -> tuple:
             failures.append(tag)
         return err
 
-    # K1 in its three code widths at both shapes; the float32 wire at Q8
-    # timed at both
+    # K1 in its three code widths at both shapes, the float32 wire also
+    # at Q16 and Q32 (its top level saturates, as XLA's conversion does);
+    # the float32 wire at Q8 timed at both
     err1, timed1 = 0.0, {}
-    for wire_dtype, bits in (("float32", 8), ("int8", 8), ("int4", 4)):
+    for wire_dtype, bits in (("float32", 8), ("int8", 8), ("int4", 4),
+                             ("float32", 16), ("float32", 32)):
         for shape, r in WIRE_SHAPES.items():
             buf, words, scale, p = wire_inputs(rng, r, bits)
             got = qc.packed_wire_2d(buf, words, scale, p, bits,
@@ -845,7 +860,7 @@ def check_wire_kernels(seed: int) -> tuple:
                                         wire_dtype)
             err1 = max(err1, check(f"packed_wire_2d {wire_dtype} Q{bits} "
                                    f"{shape} [{r}, 256]", got, want))
-            if wire_dtype == "float32":
+            if wire_dtype == "float32" and bits == 8:
                 timed1[(r, 256)] = _timed(
                     lambda *a: qc.packed_wire_2d(*a, 8),
                     lambda *a: qref.packed_wire_ref(*a, 8),
@@ -857,13 +872,16 @@ def check_wire_kernels(seed: int) -> tuple:
                      **timed1[(WIRE_SHAPES["fl_upload"], 256)],
                      by_shape=_by_shape(timed1)))
 
-    # K2: 3 users of 360 rows, weights 1/3
+    # K2: 3 users of 360 rows, weights 1/3, at Q32 and (timed) Q8
     n, r = 3, WIRE_SHAPES["fl_upload"] // 3
-    buf, words, scale, p = wire_inputs(rng, n * r, 8)
     w = torch.full((n * r, 1), 1.0 / 3.0, device="cuda")
-    got = qc.packed_wire_mean_2d(buf, words, scale, p, w, 8, n)
-    want = qref.packed_wire_mean_ref(buf, words, scale, p, w, 8, n)
-    err2 = check("packed_wire_mean_2d Q8 3 users [1080, 256]", got, want)
+    err2 = 0.0
+    for bits in (32, 8):
+        buf, words, scale, p = wire_inputs(rng, n * r, bits)
+        got = qc.packed_wire_mean_2d(buf, words, scale, p, w, bits, n)
+        want = qref.packed_wire_mean_ref(buf, words, scale, p, w, bits, n)
+        err2 = max(err2, check(f"packed_wire_mean_2d Q{bits} 3 users "
+                               f"[1080, 256]", got, want))
     rows.append(dict(
         name="packed_wire_mean_2d", route="cuda", source=QC_SRC,
         replaces=f"{QC}:207", launches=None, max_abs_err=err2,
@@ -888,9 +906,10 @@ def check_wire_kernels(seed: int) -> tuple:
     w5 = qc.words_u32(Key(seed, 6).draws().words("flip", (256, 512)),
                       "cuda")
     p5 = torch.tensor([0.02], device="cuda")
-    err5 = max(err5, check("quant_channel_2d Q8 [256, 512]",
-                           qc.quant_channel_2d(x2, w5, p5, 8),
-                           qref.quant_channel_ref(x2, w5, p5, 8)))
+    for bits in (8, 32):
+        err5 = max(err5, check(f"quant_channel_2d Q{bits} [256, 512]",
+                               qc.quant_channel_2d(x2, w5, p5, bits),
+                               qref.quant_channel_ref(x2, w5, p5, bits)))
     row5 = dict(
         name="quant_channel_2d", route="cuda", source=QC_SRC,
         replaces=f"{QC}:244", launches=None, max_abs_err=err5,
@@ -909,9 +928,14 @@ def check_wire_kernels(seed: int) -> tuple:
     zero = torch.zeros((r, 256), device="cuda")
     one = torch.ones((r, 1), device="cuda")
     pk = torch.full((r, 1), K6_P, device="cuda")
+    b32, _, s32, p32 = wire_inputs(rng, r, 32)
+    err6 = check("packed_wire_2d_philox Q32 [1080, 256] vs plain Philox",
+                 qc.packed_wire_2d_philox(b32, s32, p32, 32, seed=4321),
+                 qref.packed_wire_philox_ref(b32, s32, p32, 32, 4321))
     got = qc.packed_wire_2d_philox(zero, one, pk, 8, seed=1234)
-    err6 = check("packed_wire_2d_philox Q8 [1080, 256] vs plain Philox",
-                 got, qref.packed_wire_philox_ref(zero, one, pk, 8, 1234))
+    err6 = max(err6, check("packed_wire_2d_philox Q8 [1080, 256] vs plain "
+                           "Philox", got, qref.packed_wire_philox_ref(
+                               zero, one, pk, 8, 1234)))
     share = float((got != 0).float().mean())
     want_share = 1.0 - (1.0 - K6_P) ** 8
     host = qc.packed_wire_2d(zero, qc.words_u32(
@@ -1998,6 +2022,111 @@ def privacy_phase(seed: int, fl_run: dict, card_name: str,
     summary["table2"] = dict(rows=dict(rows, sl_two_party_q8=tp_row),
                              cycles=cycles, claims=dict(T2.claims(rows)),
                              ratios=ratios, mean_guess_error=guess)
+    return launches, summary, failures
+
+
+# ------------------------------------------------ phase 7b: Fig. 3
+FIG3_N_TRAIN, FIG3_N_TEST = 3072, 512
+# the Fig. 3 scripts' line names at one cycle a run (3c's four SNRs below
+# 10 cycles): benchmarks/accuracy_cycles.py:42-47, quant_sweep.py:36-41,
+# snr_sweep.py:53-62, fading.py:46-54
+FIG3_SERIES = {"a": ("cl", "fl_q8", "fl_q32", "sl"),
+               "b": ("q4", "q8", "q16", "q32"),
+               "d": ("cl_clean", "cl_fading", "fl_q8_fading", "sl_fading")}
+FIG3_CLAIMS = {"a": ("parity_gap_max,claim<0.02",),
+               "b": ("q4_below_q8,claim", "q8_matches_q32,claim"),
+               "d": ("cl_degradation,claim>=0", "fl_robust,gap_to_clean",
+                     "sl_robust,gap_to_clean")}
+FIG3_SNR_SERIES, FIG3_SNRS = ("cl", "fl", "fl_arq", "sl"), (0, 10, 20, 30)
+
+
+def fig3_line_names() -> list:
+    """The `fig3a,...` to `fig3d,...` lines' names (all but the value)."""
+    out = []
+    for p in "abcd":
+        if p == "c":
+            out += [f"fig3c,{m},snr{snr}dB" for m in FIG3_SNR_SERIES
+                    for snr in FIG3_SNRS]
+            out += [f"fig3c,{m},plateau_20db_gap" for m in FIG3_SNR_SERIES]
+        else:
+            out += [f"fig3{p},{k},final_acc" for k in FIG3_SERIES[p]]
+            out += [f"fig3{p},{c}" for c in FIG3_CLAIMS[p]]
+    return out
+
+
+def fig3_phase(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 7b: Fig. 3's panels through `repro_torch.launch.fig3` on
+    the card, one cycle a run at FIG3_N_TRAIN / FIG3_N_TEST rows, every
+    counter set to 0 before and read after (K1's, K3's and K4's launches
+    by shape added to `shapes`); the entry point's own checks
+    (`fig3.failures`: bills, launches, finite scores), JAX's line names,
+    and FL Q32 rerun on the CPU. Returns ({kernel name: launches},
+    summary, failures)."""
+    import torch
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.kernels.lstm_cell import ops as lc
+    from repro_torch.launch import fig3 as F3
+    from repro_torch.launch import table2 as T2
+    counters = dict(_wire_counters(), conv_pool=cp.user_conv_pool,
+                    lstm_final_state=lc.lstm_final_state)
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    with launch_shapes({}) as phase_shapes:
+        f3 = F3.run(F3.PANELS, seed=seed, cycles=1, fl_cycles=1,
+                    sl_cycles=1, n_train=FIG3_N_TRAIN, n_test=FIG3_N_TEST,
+                    device="cuda")
+    card_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    failures = merge_shapes(shapes, phase_shapes, launches, "fig3")
+    failures += [f"fig3: {m}" for m in F3.failures(f3, "cuda")]
+    runs = F3.summary(f3, "cuda")
+    for p, specs in f3.specs.items():
+        for sp, r in zip(specs, runs[p]):
+            print(f"fig3 {sp.name} on the card: wall {r['s_per_cycle'][0]:.3f}"
+                  f" s (init {r['init_s']:.3f}); accuracy "
+                  f"{r['accuracy'][0]:.4f}; loss {r['loss'][0]:.4f}; bits "
+                  f"{r['bits'][0]:.0f} (init {r['init_bits']:.0f}; closed "
+                  f"form {r['want_bits'][0]:.0f}, init "
+                  f"{r['want_init_bits']:.0f}); n_tx {r['n_tx'][0]:g}; "
+                  f"(K1, K3, K4) per round {r['launches_round'][0]}, per "
+                  f"eval {r['launches_eval'][0]} (path "
+                  f"{r['want_launches']})", flush=True)
+    lines = [ln for p in F3.PANELS for ln in F3.lines(p, f3.results[p])]
+    print(f"fig3 lines ({card_name}; one cycle a run, {FIG3_N_TRAIN} / "
+          f"{FIG3_N_TEST} rows):", flush=True)
+    for ln in lines:
+        print(ln, flush=True)
+    names = [ln.rsplit(",", 1)[0] for ln in lines]
+    if names != fig3_line_names():
+        failures.append(f"fig3 line names {names} are not the JAX "
+                        f"scripts' {fig3_line_names()}")
+    # FL Q32 (3a) once more on the CPU, the same draws
+    i = [sp.series for sp in f3.specs["a"]].index("fl_q32")
+    sp, card = f3.specs["a"][i], f3.runs["a"][i]
+    t0 = time.perf_counter()
+    cpu = T2.drive(sp.wcfg, sp.cycles, sp.seed, sp.n_train, sp.n_test,
+                   torch.device("cpu"), **sp.options())
+    cpu_s = time.perf_counter() - t0
+    bills = [[(r.bits, r.n_tx, r.erased_bits, r.energy_j)
+              for r in run.reports] for run in (card, cpu)]
+    da = abs(card.result.accuracy[0] - cpu.result.accuracy[0])
+    dl = abs(card.result.loss[0] - cpu.result.loss[0])
+    print(f"fig3 FL Q32 card vs CPU: bills equal {bills[0] == bills[1]} "
+          f"({bills[0]}); |d accuracy| {da:.5f} (tol {ACC_TOL}), |d train "
+          f"loss| {dl:.2e} (tol {LOSS_TOL}); card phase {card_s:.1f} s, "
+          f"CPU run {cpu_s:.1f} s", flush=True)
+    if bills[0] != bills[1]:
+        failures.append("fig3 FL Q32: card and CPU bills differ")
+    if da > ACC_TOL or dl > LOSS_TOL:
+        failures.append(f"fig3 FL Q32 card vs CPU: accuracy {da}, loss {dl}")
+    if not all(launches[k] for k in ("packed_wire_2d", "conv_pool",
+                                     "lstm_final_state")):
+        failures.append(f"fig3: K1 / K3 / K4 not all launched: {launches}")
+    summary = dict(runs=runs, results=f3.results, lines=lines,
+                   card_s=card_s, fl_q32_cpu=dict(
+                       bills_equal=bills[0] == bills[1], abs_d_accuracy=da,
+                       abs_d_loss=dl, cpu_s=cpu_s))
     return launches, summary, failures
 
 
@@ -4712,6 +4841,12 @@ def main() -> None:
     print(f"privacy phase: {time.perf_counter() - t_priv:.1f} s; launches "
           f"on its path {priv_launches}", flush=True)
     failures += priv_failures
+    t_fig3 = time.perf_counter()
+    fig3_launches, fig3_summary, fig3_failures = fig3_phase(
+        args.seed, card, shapes)
+    print(f"Fig. 3 phase: {time.perf_counter() - t_fig3:.1f} s; launches "
+          f"on its path {fig3_launches}", flush=True)
+    failures += fig3_failures
     from repro_torch.nn import tree_leaves
     cl_model = card_runs["cl"]["exp"].final_state.train.trainable["model"]
     t_tiny = time.perf_counter()
@@ -4798,9 +4933,9 @@ def main() -> None:
             r["by_shape"] += _by_shape(extra)
         r.pop("shape", None)
         r["launches"] = sum(p.get(r["name"], 0) for p in (
-            train_launches, priv_launches, tiny_launches, opt_launches,
-            fleet_launches, qwen_launches, wide_launches, ssm_launches,
-            p14_launches, p15_launches))
+            train_launches, priv_launches, fig3_launches, tiny_launches,
+            opt_launches, fleet_launches, qwen_launches, wide_launches,
+            ssm_launches, p14_launches, p15_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
@@ -4820,6 +4955,7 @@ def main() -> None:
                                    "launch_floor_ms": floor,
                                    "launches_by_shape": shapes,
                                    "privacy": priv_summary,
+                                   "fig3": fig3_summary,
                                    "tiny_serve": tiny_serve_summary,
                                    "options": opt_summary,
                                    "fleets": fleet_summary,

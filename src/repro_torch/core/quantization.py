@@ -55,13 +55,22 @@ def stochastic_round(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return lo + (u < (x - lo)).to(x.dtype)
 
 
+def to_int32(r: torch.Tensor) -> torch.Tensor:
+    """Integral float32 levels in [-2^31, 2^31] as int32, saturating as
+    XLA's float32 -> int32 conversion does. At 32 bits qmax = 2^31 - 1
+    rounds to 2^31 in float32, so a packet's largest positive level is
+    2^31: XLA gives 2^31 - 1, torch's conversion on the CPU -2^31 (the
+    weight's sign flipped). -2^31 is an int32 and stays. Below 32 bits
+    no level reaches 2^31 and nothing changes."""
+    return r.to(torch.int32).masked_fill_(r >= 2.0 ** 31, 2 ** 31 - 1)
+
+
 def quantize(x: torch.Tensor, bits: int, scale=None, u=None):
     """-> (q int32 in [-qmax, qmax], scale). With `u` (uniform [0, 1)
     per element), rounds stochastically instead of to nearest."""
     s = scale_for(x, bits) if scale is None else scale
     r = torch.round(x / s) if u is None else stochastic_round(x / s, u)
-    q = torch.clamp(r, -qmax(bits), qmax(bits)).to(torch.int32)
-    return q, s
+    return to_int32(torch.clamp(r, -qmax(bits), qmax(bits))), s
 
 
 def dequantize(q: torch.Tensor, scale, dtype=torch.float32) -> torch.Tensor:
@@ -70,19 +79,22 @@ def dequantize(q: torch.Tensor, scale, dtype=torch.float32) -> torch.Tensor:
 
 def quantize_offset(q: torch.Tensor, bits: int) -> torch.Tensor:
     """Map signed levels to unsigned codewords [0, 2^b) for bit
-    transport (int64 holding the unsigned value)."""
+    transport (int64 holding the unsigned value): q + qmax modulo 2^32,
+    as the JAX package's int32 sum wraps at 32 bits."""
     return (q.long() + qmax(bits)) & 0xFFFFFFFF
 
 
 def unquantize_offset(u: torch.Tensor, bits: int) -> torch.Tensor:
     """Received codewords can exceed the signed range after bit errors
     (a flipped top bit gives up to 2*qmax + 1): clip. The JAX package
-    reinterprets the uint32 codeword as int32 first, which the
-    wrap-around below repeats."""
+    reinterprets the uint32 codeword as int32 and subtracts qmax in
+    int32, which wraps (at 32 bits any code below 2^31 - 1 read as
+    negative, at 31 one with planes 31 and 30 set); both wrap-arounds
+    are repeated below."""
     v = u.long() & 0xFFFFFFFF
-    v = torch.where(v >= 2 ** 31, v - 2 ** 32, v)
-    return torch.clamp(v - qmax(bits), -qmax(bits), qmax(bits)).to(
-        torch.int32)
+    v = torch.where(v >= 2 ** 31, v - 2 ** 32, v) - qmax(bits)
+    v = torch.where(v < -2 ** 31, v + 2 ** 32, v)
+    return torch.clamp(v, -qmax(bits), qmax(bits)).to(torch.int32)
 
 
 class _QuantizeSTE(torch.autograd.Function):

@@ -351,7 +351,7 @@ def wire_transform(buf: torch.Tensor, rand: torch.Tensor, scale, p,
         r = Q.stochastic_round(x.float(), u)
     else:
         r = torch.round(x)
-    q = torch.clamp(r, -qm, qm).to(torch.int32)
+    q = Q.to_int32(torch.clamp(r, -qm, qm))     # 2^31 saturates at Q32
     flips = bit_flip_mask(rand, bits, p)
     iqm = int(qm)
     if nibble_packed:

@@ -17,7 +17,11 @@
 // plain version's bit for bit: IEEE division and products with explicit
 // round-to-nearest intrinsics (no FMA contraction; the build does not use
 // --use_fast_math), rintf (half to even, as jnp.round), the threshold as
-// the float32 product truncated to uint32.
+// the float32 product truncated to uint32. The float32 wire takes 1 to 32
+// bits, as JAX's does: qm = 2^31 - 1 at 32 bits rounds to 2^31 in the
+// float32 clip, the float -> int32 conversion saturates that level to
+// 2^31 - 1 (XLA's conversion; cvt.rzi.s32.f32 clamps), and the offset and
+// its inverse are taken in uint32, wrapping as JAX's int32 sums do.
 //
 // Per element K1 reads the float (4 B) and its 32-bit rand word (4 B) and
 // writes the float (4 B), plus two floats per row. The integer work binds,
@@ -77,7 +81,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
-constexpr int MAX_BITS = 31;
+constexpr int MAX_BITS = 32;
 
 // fmix32's first xor-shift
 __host__ __device__ constexpr uint32_t pre(uint32_t v) {
@@ -95,6 +99,11 @@ __device__ __forceinline__ uint32_t fmix32_rest(uint32_t x) {
 
 __device__ __forceinline__ uint32_t threshold(float p) {
   return __float2uint_rz(__fmul_rn(p, 4294967296.0f));
+}
+
+// qm = 2^(bits-1) - 1 for 1 <= bits <= 32, with no signed overflow at 32
+__host__ __device__ constexpr int qmax_of(int bits) {
+  return (int)((1u << (bits - 1)) - 1u);
 }
 
 // The flip masks of N words: plane b of word i is set iff
@@ -130,11 +139,14 @@ __device__ __forceinline__ float wire_elem(float x, uint32_t flips,
   const float fqm = (float)qm;
   float r = rintf(__fdiv_rn(x, scale));
   r = fminf(fmaxf(r, -fqm), fqm);
-  Code code = (Code)((int)r + qm);
+  // a saturating conversion: at 32 bits the clip lets r reach 2^31, which
+  // becomes 2^31 - 1 as in XLA; q + qm wraps in uint32 as JAX's int32 sum
+  Code code = (Code)((uint32_t)__float2int_rz(r) + (uint32_t)qm);
   code ^= (Code)flips;
   // the code as int32 minus qm, wrapping as JAX's int32 subtraction does
   // (at 31 bits a flipped code of the negative clip lies below
-  // -2^31 + qm); in uint32 the wrap is defined
+  // -2^31 + qm; at 32 bits any code below 2^31 - 1 read as negative); in
+  // uint32 the wrap is defined
   int q_hat = (int)((uint32_t)code - (uint32_t)qm);
   q_hat = min(max(q_hat, -qm), qm);
   return __fmul_rn((float)q_hat, scale);
@@ -178,7 +190,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   int row;
   size_t v;
   if (!place(rows, vec_cols, row, v)) return;
-  const int qm = (1 << (bits - 1)) - 1;
+  const int qm = qmax_of(bits);
   out[v] = wire_vec<Code>(buf[v], rand[v], scale[row], threshold(p[row]),
                           bits, qm);
 }
@@ -212,7 +224,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   int row;
   size_t v;
   if (!place(rows, vec_cols, row, v)) return;
-  const int qm = (1 << (bits - 1)) - 1;
+  const int qm = qmax_of(bits);
   const uint4 rnd = philox4x32_10(
       make_uint4((uint32_t)v, (uint32_t)(v >> 32), 0u, 0u),
       make_uint2(seed, 0u));
@@ -236,7 +248,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   int row;
   size_t v;
   if (!place(rows, vec_cols, row, v)) return;
-  const int qm = (1 << (bits - 1)) - 1;
+  const int qm = qmax_of(bits);
   const size_t n_vec = (size_t)rows * vec_cols;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int u = 0; u < n_users; ++u) {
@@ -358,7 +370,7 @@ __global__ void __launch_bounds__(QC_MAX_THREADS)
   }
   cluster_arrive();
   __syncthreads();
-  const int qm = (1 << (bits - 1)) - 1;
+  const int qm = qmax_of(bits);
   // amax times the float32 reciprocal of qm: the compiled JAX kernel's
   // rewrite of its division by the constant qm (the last ulp differs)
   const float scale = __fmul_rn(fmaxf(tile_max, 1e-12f),

@@ -139,7 +139,7 @@ def _check(what: str, bits: int, wire_dtype: str, buf, rows_vecs=(),
            words=None):
     if wire_dtype not in _CODE_BYTES:
         raise ValueError(f"{what}: unknown wire_dtype {wire_dtype!r}")
-    if not 1 <= bits <= (8 if _CODE_BYTES[wire_dtype] == 1 else 31):
+    if not 1 <= bits <= (8 if _CODE_BYTES[wire_dtype] == 1 else 32):
         raise ValueError(f"{what}: {bits} bits on a {wire_dtype} wire")
     if buf.ndim != 2 or buf.dtype != torch.float32 or buf.shape[1] % 4:
         raise ValueError(f"{what}: buf must be [R, C] float32 with C a "
@@ -251,9 +251,9 @@ def quant_channel_2d(x: torch.Tensor, rand: torch.Tensor, p: torch.Tensor,
     p = p.reshape(1).float().contiguous()
     if x.dtype != torch.float32 or not x.is_contiguous() \
             or rand.shape != x.shape or p.device != x.device \
-            or rand.device != x.device or not 1 <= bits <= 31:
+            or rand.device != x.device or not 1 <= bits <= 32:
         raise ValueError("quant_channel_2d: x [M, N] float32, rand [M, N] "
-                         "and p [1] on one device, 1 <= bits <= 31")
+                         "and p [1] on one device, 1 <= bits <= 32")
     # 16-byte loads where the tile's width and both inputs' addresses
     # allow them
     vec = 4 if bn % 4 == 0 and x.data_ptr() % 16 == 0 \

@@ -58,6 +58,7 @@ import torch
 from repro_torch.configs import WirelessConfig
 from repro_torch.core import energy as EN
 from repro_torch.core import privacy as PRIV
+from repro_torch.core import wire as W
 from repro_torch.data.sentiment import partition_users
 from repro_torch.kernels import launch_counts
 from repro_torch.nn import resolve_device
@@ -86,14 +87,14 @@ SCHEMES = {
                      dict(capture_every=CAPTURE_EVERY)),
 }
 
-# the bills in closed form (paper Table II): FL uploads 8 bits for each
-# of the 89,673 weights a user a cycle (0.72 Mbit); an SL step carries
-# 112 values a row (14 pooled positions x 32 / 4 channels) up and their
-# gradients down at 16 bits (2,580.48 Mbit = 720k rows x 112 x 16 x 2);
-# CL uploads each row once: 30 tokens of 14 bits (vocab 10,001) and one
-# label bit
-FL_BITS_PER_USER = 8 * 89_673
-SL_BITS_PER_ROW_STEP = 2 * 112 * 16
+# the bills in closed form (paper Table II): FL uploads b bits for each
+# of the 89,673 weights a user a cycle (0.72 Mbit at Q8); an SL step
+# carries 112 values a row (14 pooled positions x 32 / 4 channels) up and
+# their gradients down at b bits (2,580.48 Mbit = 720k rows x 112 x 16 x 2
+# at Q16); CL uploads each row once: 30 tokens of 14 bits (vocab 10,001)
+# and one label bit
+MODEL_WEIGHTS = 89_673
+SL_VALUES_PER_ROW = 14 * 32 // 4
 CL_BITS_PER_ROW = 30 * 14 + 1
 
 # the paper's figures the run is reported beside (not gated)
@@ -108,8 +109,9 @@ PATH_LIBRARIES = ("quant_channel", "conv_pool", "lstm_cell")
 class SchemeRun:
     """One scheme's run: its `RunResult`, round reports and init-time
     upload bits, the seconds of each cycle (round + eval, host clock,
-    the card synchronized) and of init, and the (K1, K3, K4) launches
-    of each round and each eval."""
+    the card synchronized) and of init, the (K1, K3, K4) launches of
+    each round and each eval, and the `Experiment` (its scheme and final
+    state)."""
     result: object
     reports: list
     init_bits: float
@@ -117,6 +119,7 @@ class SchemeRun:
     init_s: float
     round_launches: list
     eval_launches: list
+    exp: object = None
 
 
 @dataclasses.dataclass
@@ -139,12 +142,16 @@ def _tiny_counts() -> tuple:
     return tuple(counts[k] for k in TINY_KERNELS)
 
 
-def _drive(name: str, cycles: int, seed: int, n_train: int, n_test: int,
-           device) -> SchemeRun:
-    """One of `SCHEMES` with capture through `Experiment`, counting K1,
-    K3 and K4 inside each round and each eval."""
-    wcfg, opts = SCHEMES[name]
-    scheme = build_scheme(wcfg, capture=True, device=device, **opts)
+def drive(wcfg, cycles: int, seed: int, n_train: int, n_test: int,
+          device, *, key=None, on_init=None, **opts) -> SchemeRun:
+    """`build_scheme(wcfg, device=device, **opts)` through `Experiment`
+    (wcfg None: CL with no radio), counting K1, K3 and K4 inside each
+    round and each eval and timing each cycle. `key` and `on_init` are
+    the schemes' draw seam and `Experiment`'s initial-state hook (the
+    tests hand in the JAX package's streams and weights)."""
+    if key is not None:
+        opts["key"] = key
+    scheme = build_scheme(wcfg, device=device, **opts)
     rounds, evals, walls, clock = [], [], [], [0.0]
 
     def counted(fn, out):
@@ -161,7 +168,9 @@ def _drive(name: str, cycles: int, seed: int, n_train: int, n_test: int,
     scheme.evaluate = counted(scheme.evaluate, evals)
 
     def started(state):
+        state = on_init(state) if on_init is not None else None
         clock[0] = time.perf_counter()
+        return state
 
     def on_cycle(cyc, acc, rep):
         now = time.perf_counter()
@@ -175,7 +184,15 @@ def _drive(name: str, cycles: int, seed: int, n_train: int, n_test: int,
     init_s = time.perf_counter() - t0 - sum(walls)
     return SchemeRun(res, exp.reports, (exp.init_delivery.bits
                                         if exp.init_delivery else 0.0),
-                     walls, init_s, rounds, evals)
+                     walls, init_s, rounds, evals, exp)
+
+
+def _drive(name: str, cycles: int, seed: int, n_train: int, n_test: int,
+           device) -> SchemeRun:
+    """One of `SCHEMES` with capture (`drive`)."""
+    wcfg, opts = SCHEMES[name]
+    return drive(wcfg, cycles, seed, n_train, n_test, device, capture=True,
+                 **opts)
 
 
 def sl_pair(captures) -> tuple:
@@ -353,27 +370,81 @@ def run(cycles: int = 20, fl_cycles: int = 7, seed: int = 0, *,
                      guess)
 
 
+def closed_form_bits(wcfg, n_train: int = N_TRAIN) -> tuple:
+    """(init-time bits, bits a cycle, the users that
+    `RunResult.total_bits` divides by) of a scheme of the paper's model
+    in closed form, at the wire's width b: CL 421 bits a row once (also
+    with no radio, wcfg None: the corpus crosses a perfect link, billed
+    as the JAX package bills it), FL b x 89,673 a user a cycle, SL
+    2 x 112 x b a row a step (the fused path, compress 4). FL's bits a
+    cycle are None where its draws decide them (ARQ redraws)."""
+    if wcfg is None or wcfg.mode == "cl":
+        return float(n_train * CL_BITS_PER_ROW), 0.0, 1
+    width = W.wire_width(wcfg.wire_dtype, wcfg.quant_bits)
+    if wcfg.mode == "fl":
+        drawn = not W.fault_free(wcfg.fading, wcfg.perfect_channel,
+                                 wcfg.arq_attempts, wcfg.arq_min_f2,
+                                 wcfg.arq_max_tx, wcfg.ge_p_gb)
+        return (0.0, None if drawn else
+                float(wcfg.n_users * width * MODEL_WEIGHTS), wcfg.n_users)
+    return 0.0, float(n_train // BATCH * BATCH * 2 * SL_VALUES_PER_ROW
+                      * width), 1
+
+
 def closed_form_bills(n_train: int = N_TRAIN) -> dict:
-    """row name -> (init-time bits, bits a cycle, the users that
-    `RunResult.total_bits` divides by) in closed form."""
-    return {"central": (float(n_train * CL_BITS_PER_ROW), 0.0, 1),
-            "fl_q8": (0.0, float(N_USERS * FL_BITS_PER_USER), N_USERS),
-            "sl_early_cut": (0.0, float(n_train // BATCH * BATCH
-                                        * SL_BITS_PER_ROW_STEP), 1)}
+    """row name -> `closed_form_bits` of its scheme."""
+    return {name: closed_form_bits(wcfg, n_train)
+            for name, (wcfg, _) in SCHEMES.items()}
+
+
+def mode_launches(mode: str, n_train: int = N_TRAIN, n_test: int = N_TEST,
+                  capture: bool = False) -> tuple:
+    """((K1, K3, K4) a round, (K1, K3, K4) an eval) of a `mode` scheme
+    on the card: FL's sync is one K1; an SL step is two K1 legs, and with
+    `capture` a capture step (one in CAPTURE_EVERY) one more K1 and one
+    K3 (no grad); each eval slice is K3 + K4 once (SL's also one K1);
+    training under autograd runs no kernel."""
+    steps = n_train // BATCH
+    n_cap = -(-steps // CAPTURE_EVERY) if capture else 0
+    slices = max(1, n_test // EVAL_BATCH)
+    return {"cl": ((0, 0, 0), (0, slices, slices)),
+            "fl": ((1, 0, 0), (0, slices, slices)),
+            "sl": ((2 * steps + n_cap, n_cap, 0),
+                   (slices, slices, slices))}[mode]
 
 
 def path_launches(n_train: int = N_TRAIN, n_test: int = N_TEST) -> dict:
-    """row name -> ((K1, K3, K4) a round, (K1, K3, K4) an eval) on the
-    card: FL's sync is one K1; an SL step is two K1 legs, and a capture
-    step one more K1 and one K3 (no grad); each eval slice is K3 + K4
-    once (SL's also one K1); training under autograd runs no kernel."""
-    steps = n_train // BATCH
-    n_cap = -(-steps // CAPTURE_EVERY)
-    slices = max(1, n_test // EVAL_BATCH)
-    return {"central": ((0, 0, 0), (0, slices, slices)),
-            "fl_q8": ((1, 0, 0), (0, slices, slices)),
-            "sl_early_cut": ((2 * steps + n_cap, n_cap, 0),
-                             (slices, slices, slices))}
+    """row name -> `mode_launches` of its scheme, with capture."""
+    return {name: mode_launches(wcfg.mode, n_train, n_test, capture=True)
+            for name, (wcfg, _) in SCHEMES.items()}
+
+
+NO_LAUNCHES = ((0, 0, 0), (0, 0, 0))     # the CPU's plain versions
+
+
+def run_failures(name: str, r: SchemeRun, init: float, per: list,
+                 users: int, want: tuple) -> list:
+    """One run against its bills (init-time bits, the bits of each
+    cycle, the users `RunResult.total_bits` divides by), its (K1, K3,
+    K4) launches of each round and each eval (`want`), and finite
+    losses and accuracies."""
+    out = []
+    got = [rep.bits for rep in r.reports]
+    if r.init_bits != init or got != per or \
+            r.result.total_bits != (init + sum(per)) / users:
+        out.append(f"{name}: bills init {r.init_bits}, per cycle "
+                   f"{sorted(set(got))}, total {r.result.total_bits}; "
+                   f"closed form {init} + {sorted(set(per))} a cycle")
+    if any(x != want[0] for x in r.round_launches) or \
+            any(x != want[1] for x in r.eval_launches):
+        out.append(f"{name}: (K1, K3, K4) launches per round "
+                   f"{dict(collections.Counter(r.round_launches))}, per "
+                   f"eval {dict(collections.Counter(r.eval_launches))}; "
+                   f"want {want}")
+    if not all(math.isfinite(v) for v in
+               r.result.accuracy + r.result.loss):
+        out.append(f"{name}: a non-finite accuracy or loss")
+    return out
 
 
 def failures(t2: Table2Run, device, n_train: int = N_TRAIN,
@@ -387,23 +458,8 @@ def failures(t2: Table2Run, device, n_train: int = N_TRAIN,
     on_card = torch.device(device).type == "cuda"
     for name, r in t2.runs.items():
         init, per, users = bills[name]
-        got = [rep.bits for rep in r.reports]
-        if r.init_bits != init or got != [per] * len(got) or \
-                r.result.total_bits != (init + per * len(got)) / users:
-            out.append(f"{name}: bills init {r.init_bits}, per cycle "
-                       f"{sorted(set(got))}, total {r.result.total_bits}; "
-                       f"closed form {init} + {per} a cycle")
-        w = want[name] if on_card else ((0, 0, 0), (0, 0, 0))
-        if any(x != w[0] for x in r.round_launches) or \
-                any(x != w[1] for x in r.eval_launches):
-            out.append(f"{name}: (K1, K3, K4) launches per round "
-                       f"{dict(collections.Counter(r.round_launches))}, "
-                       f"per eval "
-                       f"{dict(collections.Counter(r.eval_launches))}; "
-                       f"want {w}")
-        if not all(math.isfinite(v) for v in
-                   r.result.accuracy + r.result.loss):
-            out.append(f"{name}: a non-finite accuracy or loss")
+        out += run_failures(name, r, init, [per] * len(r.reports), users,
+                            want[name] if on_card else NO_LAUNCHES)
     if t2.other_launches:
         out.append(f"kernels off the path launched: {t2.other_launches}")
     err_sl = t2.rows["sl_early_cut"]["recon_error"]
@@ -421,6 +477,17 @@ def card_line(device) -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0].strip()
+
+
+def open_device(name: str) -> tuple:
+    """(device, `card_line`) for `--device`: `resolve_device`, which
+    raises for cuda without a card; on the card f32 products and
+    convolutions, as the reference computes them (no TF32)."""
+    device = resolve_device(name)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device, card_line(device)
 
 
 def summary(t2: Table2Run) -> dict:
@@ -456,12 +523,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> Table2Run:
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # f32 products and convolutions, as the reference computes them
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    card = card_line(device)
+    device, card = open_device(args.device)
     print(f"table2 card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, device {device}", flush=True)
     t0 = time.perf_counter()

@@ -390,7 +390,8 @@ def _wire_case(rows, bits, seed, dev, cols=256):
 
 @pytest.mark.parametrize("wire_dtype,bits", [("float32", 8),
                                              ("float32", 16),
-                                             ("int8", 8), ("int4", 4)])
+                                             ("int8", 8), ("int4", 4),
+                                             ("float32", 32)])
 @pytest.mark.parametrize("rows", [224, 1080])
 def test_packed_wire_kernel_equals_plain(wire_dtype, bits, rows,
                                          cuda_device):
@@ -413,7 +414,7 @@ def test_packed_wire_kernel_equals_plain(wire_dtype, bits, rows,
 WIRE_ROWS = [1, 3, 225, 1081]
 WIRE_COLS = [4, 256, 260]
 WIRE_BITS = [("float32", b) for b in (1, 8, 16, 31)] + \
-    [("int8", b) for b in range(1, 9)]
+    [("int8", b) for b in range(1, 9)] + [("float32", 32)]
 
 
 @pytest.mark.parametrize("wire_dtype,bits", WIRE_BITS)
@@ -444,7 +445,7 @@ def test_packed_wire_kernels_equal_plain_at_ragged_shapes(rows, cols,
         one["buf"], one["scale"], one["p"], bits, rows + bits, wire_dtype))
 
 
-@pytest.mark.parametrize("bits", [1, 8, 16, 31])
+@pytest.mark.parametrize("bits", [1, 8, 16, 31, 32])
 @pytest.mark.parametrize("m,n", [(1, 4), (3, 260), (128, 512), (256, 1024)])
 def test_quant_channel_kernel_equals_plain_at_ragged_tiles(m, n, bits,
                                                            cuda_device):
@@ -474,7 +475,7 @@ QC_CLUSTER_SHAPES = [(1024, 2048, 0, 8), (3, 260, 0, 3), (5, 259, 0, 5),
                      (128, 37, 0, 16), (256, 512, 1, 16), (64, 512, 0, 16)]
 
 
-@pytest.mark.parametrize("bits", [1, 8, 16, 31])
+@pytest.mark.parametrize("bits", [1, 8, 16, 31, 32])
 @pytest.mark.parametrize("m,n,offset,cluster", QC_CLUSTER_SHAPES)
 def test_quant_channel_clusters_equal_plain(m, n, offset, cluster, bits,
                                             cuda_device):

@@ -65,7 +65,7 @@ def test_folded_plane_salts_give_fmix32_bit_for_bit():
         np.testing.assert_array_equal(_fmix32_rest(r ^ _pre(c)), want)
 
 
-@pytest.mark.parametrize("bits", [1, 4, 8, 16, 31])
+@pytest.mark.parametrize("bits", [1, 4, 8, 16, 31, 32])
 def test_kernel_flip_masks_equal_jax_bit_flip_mask(bits):
     """The body's plane loop gives JAX's flip mask bit for bit, at
     thresholds from 0 to 1 (p * 2^32 truncated, as both take it)."""
@@ -456,13 +456,17 @@ def test_qc_geometry_raises_outside_the_kernel():
 
 def _wire_np(x, rand, scale, thresh, bits):
     """quant_channel.cu's wire_elem with the scalar scale and threshold,
-    in numpy (uint32 codewords, the int32 wrap as the kernel takes it)."""
+    in numpy (uint32 codewords, the int32 wrap as the kernel takes it;
+    its float -> int32 conversion saturates 2^31, the 32-bit clip's
+    top level, to 2^31 - 1)."""
     qm = (1 << (bits - 1)) - 1
     fqm = np.float32(qm)
     with np.errstate(divide="ignore", invalid="ignore"):
         r = np.rint(x / scale)
     r = np.minimum(np.maximum(r, -fqm), fqm)
-    code = ((r.astype(np.int64) + qm) & 0xFFFFFFFF).astype(np.uint32)
+    with np.errstate(invalid="ignore"):
+        level = np.minimum(r.astype(np.int64), 2 ** 31 - 1)
+    code = ((level + qm) & 0xFFFFFFFF).astype(np.uint32)
     code ^= _kernel_flip_masks(rand, bits, thresh)
     q_hat = ((code.astype(np.int64) - qm) & 0xFFFFFFFF).astype(np.uint32) \
         .view(np.int32)
@@ -471,7 +475,7 @@ def _wire_np(x, rand, scale, thresh, bits):
         return q_hat.astype(np.float32) * scale
 
 
-@pytest.mark.parametrize("bits", [1, 8, 16, 31])
+@pytest.mark.parametrize("bits", [1, 8, 16, 31, 32])
 @pytest.mark.parametrize("M,N", [(1, 4), (3, 260), (128, 512), (256, 1024)])
 def test_qc_cluster_amax_matches_jax_kernel(M, N, bits):
     """K5's mirror: each CTA's amax over the elements it loads, the

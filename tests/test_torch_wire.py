@@ -111,10 +111,42 @@ def test_quantization_bit_exact():
     _eq(Q.unpack_nibbles(packed), codes)
 
 
+@pytest.mark.parametrize("bits", [31, 32])
+def test_quantization_top_bits_bit_exact(bits):
+    """`quantize`, `quantize_offset` and `unquantize_offset` at 31 and 32
+    bits against JAX. At 32 bits qmax = 2^31 - 1 rounds to 2^31 in
+    float32, so the largest positive input's level is 2^31: XLA's
+    conversion saturates it to 2^31 - 1 and the port's must too (not
+    wrap it to -2^31, the weight's sign flipped). The offset and its
+    inverse wrap as JAX's int32 sums do, for codes with any of the 32
+    planes flipped."""
+    rng = np.random.default_rng(bits)
+    x = rng.standard_normal(4096).astype(np.float32)
+    x[:4] = [5.0, -4.0, 0.0, -5.0]         # the positive max, and -max
+    u = rng.uniform(0, 1, 4096).astype(np.float32)
+    for uu in (None, u):
+        jq, js = jax.jit(JQ.quantize, static_argnums=1)(
+            jnp.asarray(x), bits, u=None if uu is None else jnp.asarray(uu))
+        q, s = Q.quantize(_t(x), bits, u=None if uu is None else _t(uu))
+        _eq(q, jq)
+        _eq(s, js)
+        assert int(q[0]) > 0 and int(q[3]) < 0
+        _eq(Q.dequantize(q, s), JQ.dequantize(jq, js))
+        code = Q.quantize_offset(q, bits)
+        _eq(code, np.asarray(JQ.quantize_offset(jq, bits)).astype(np.int64))
+        for flip in (0x8, 0x40000000, 0x80000000, 0xC0000001, 0xFFFFFFFF):
+            flipped = code ^ flip
+            _eq(Q.unquantize_offset(flipped, bits),
+                JQ.unquantize_offset(jnp.asarray(flipped.numpy())
+                                     .astype(jnp.uint32), bits))
+    if bits == 32:
+        assert int(q[0]) == 2 ** 31 - 1 and int(q[3]) == -2 ** 31
+
+
 # ------------------------------------------------------------ wire transform
 @pytest.mark.parametrize("mode,bits", [
     ("uint32", 8), ("uint32", 16), ("uint32", 3), ("uint32", 31),
-    ("uint8", 8),
+    ("uint32", 32), ("uint8", 8),
     ("uint8", 5), ("int4", 4), ("int4", 2), ("stochastic", 8),
     ("stochastic", 4)])
 def test_wire_transform_bit_exact(mode, bits):
@@ -147,6 +179,7 @@ def test_fmix_and_flip_mask_bit_exact():
 @pytest.mark.parametrize("wire_dtype,bits", [("float32", 8),
                                              ("float32", 16),
                                              ("float32", 31),
+                                             ("float32", 32),
                                              ("int8", 8), ("int4", 4)])
 def test_packed_wire_plain_matches_pallas(wire_dtype, bits):
     """K1's plain version (the wrapper's CPU path) against the Pallas
@@ -164,7 +197,8 @@ def test_packed_wire_plain_matches_pallas(wire_dtype, bits):
     _eq(got32, want)
 
 
-@pytest.mark.parametrize("wire_dtype,bits", [("float32", 8), ("int4", 4)])
+@pytest.mark.parametrize("wire_dtype,bits", [("float32", 8), ("int4", 4),
+                                             ("float32", 32)])
 def test_packed_wire_mean_plain_matches_pallas(wire_dtype, bits):
     """K2's plain version against the Pallas kernel: 3 users stacked
     along rows, one dead (weight 0)."""
