@@ -31,7 +31,20 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    for the dense layouts, `F.scaled_dot_product_attention` on the same
    inputs (beside each paged kernel: its dense twin and SDPA on the
    dense copy of its data), and computes each kernel's bound from the
-   bytes and operations the inputs need;
+   bytes and operations the inputs need. Then the long caches of the
+   registered shapes (prefill_32k / decode_32k): K7-K10 at qwen's heads
+   (16 / 1 / 64) and at 4 / 16 / 64, caches of 4,096 and 32,768, ragged
+   lengths, without and with long_500k's window of 8,192, in bf16 and
+   f32, decode on 16 rows, prefill on 4 rows of 256-token chunks and,
+   in bf16 at 32,768 with qwen's heads, at phase 16's launch (16 rows of
+   2,048): against their plain versions at the same tolerances (the
+   prefill plain version over a few chunk rows a call), twice for the
+   same bits, paged = dense bit for bit, every bf16 case timed beside
+   its bound, its plain version and (dense) SDPA held to its
+   memory-efficient kernel. And the page staging: K8 (at one split) and
+   K10 (bf16, f32) launch at the longest table row one CTA's 227 KiB of
+   shared memory holds at each built head dim, agree with their plain
+   versions there, and refuse one page more before launch;
 3. serves qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
    151,936; random weights from --seed) with `ServeEngine`: 24 requests
    of 32-256 prompt and 16-64 new tokens on 8 slots over a fading 10 dB
@@ -42,10 +55,10 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    greedy tokens in every request and the same first-chunk logits, bit
    for bit; and that each request's first-chunk logits are finite and
    lie within LOGIT_TOL of the teacher-forced `forward` (plain
-   attention, no kernels). It traces 2 requests of each run (at most 8
-   new tokens each) for the device's idle share and the attention
-   kernels' share of the busy time (a kernel name that matches no
-   traced kernel fails the run);
+   attention, no kernels). It traces the first request of each run (at
+   most 2 new tokens: its prefill chunks and a decode step) for the
+   device's idle share and the attention kernels' share of the busy
+   time (a kernel name that matches no traced kernel fails the run);
 4. holds each packed-wire kernel against its plain PyTorch version on the
    card, bit for bit (`torch.equal`): K1 `packed_wire_2d` in its three
    code widths (uint32, int8, int4) at the FL upload's [1080, 256] (3
@@ -208,7 +221,9 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    prints tok/s, TTFT, the MoE's mean dropped fraction at prefill and
    decode (decode must drop none), max_memory_allocated, and a traced
    serve's idle share and busy time split into expert products, casts
-   and attention. Then qwen3-moe-235b-a22b and llama4-scout-17b-a16e at
+   and attention (the traced serve replays one request, as phase 3's).
+   Then
+   qwen3-moe-235b-a22b and llama4-scout-17b-a16e at
    `reduced()` through the scaled CL, SL and FL (K1) schemes, one cycle
    each on the card and the CPU: bills equal, losses within 2e-3,
    accuracy within 0.01, every CL / SL step's load-balance loss finite
@@ -277,11 +292,34 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    `max_memory_allocated`). Then `launch.serve --arch qwen1.5-0.5b
    --mesh test --aot-warmup` on 4 requests must give the same tokens and
    bills as the same trace without a mesh, through K8 and K10;
-16. prints one JSON line of the kernels' numbers (K1-K6, K3 and K4 with
-   their launches over phases 5 and 7-15 together, K7-K10 over phases 3,
-   12, 14 and 15; K1-K4 and K7-K10 also per timed shape, under
-   "by_shape"), the card's name and power limit, and as the last line
-   {"ok": true, "device": ...}.
+16. runs the JAX package's long shapes with qwen1.5-0.5b at full width
+   and depth (random weights from --seed), counters set to 0 before each
+   part and read after: `ServeEngine` on 16 slots serves 16 requests of
+   32,704 prompt and 64 new tokens (caches of 32,768: 48 GiB of KV),
+   chunks of up to 2,048, page 16, greedy, a fading 10 dB radio, paged
+   then dense (one layout freed before the other is built), with phase
+   3's checks: each run's two kernels once per layer for every decode
+   step and prefill chunk, paged = dense bills, tokens and last-chunk
+   logits bit for bit, and the first request's last-chunk logits finite
+   and within LOGIT_TOL of the same chunk run again on the same cache
+   through the plain attention (over 256 chunk rows a call); it prints
+   tok/s, TTFT in seconds and cycles and `max_memory_allocated`. Then
+   one CL and one SL step (split 2, compress 4, Q8, 20 dB, AdamW) at
+   seq 4,096 on 2 sequences (train_4k's 256 cut), through
+   `build_scheme` and the scheme's calls of `Experiment`'s first cycle,
+   in micro-steps of one sequence (the one-card rule): bills exact
+   (CL's corpus 2 x 4,096 x 18 bits once,
+   SL 4,096 x 256 x 8 x 2 bits a micro-step), K1 twice a micro-step and
+   once an eval slice at [4,096, 256], no K2-K10 launch, every loss
+   finite; it prints seconds a step, `max_memory_allocated` and the
+   micro-step count, and holds K1 at that shape against its plain
+   version, timed;
+17. prints the script's total seconds, one JSON line of the kernels'
+   numbers (K1-K6, K3 and K4 with their launches over phases 5, 7-15
+   and 16 together, K7-K10 over phases 3, 12, 14, 15 and 16; K1-K4 and
+   K7-K10 also per timed shape, under "by_shape", the long cases keyed
+   also by cache length and window), the card's name and power limit,
+   and as the last line {"ok": true, "device": ...}.
 
 Any failed check exits non-zero without the last line; so does a run on
 a machine without CUDA, or from a directory without src/repro_torch.
@@ -411,18 +449,24 @@ def ptxas_usage(logs: dict) -> list:
 class Case:
     """Seeded inputs of one kernel call on the card (dense and paged
     layouts of the same K/V), with the bytes and operations the call
-    needs for this data."""
+    needs for this data. Lengths, starts and page tables come from
+    `rng`; q, K and V too, or, given `gen` (a CUDA torch.Generator),
+    from `gen` on the card, which draws a long cache in milliseconds."""
 
-    def __init__(self, rng, B, Hkv, G, S, hd, page, C, window, dtype):
+    def __init__(self, rng, B, Hkv, G, S, hd, page, C, window, dtype,
+                 gen=None):
         import numpy as np
         import torch
         dev = torch.device("cuda")
         self.B, self.Hkv, self.G, self.S, self.hd = B, Hkv, G, S, hd
-        self.C, self.window, self.dtype = C, window, dtype
+        self.C, self.dtype = C, dtype
         H = Hkv * G
         qshape = (B, H, hd) if C is None else (B, C, H, hd)
 
         def randn(*shape):
+            if gen is not None:
+                return torch.randn(shape, generator=gen, device=dev).to(
+                    dtype)
             return torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev, dtype)
 
@@ -432,8 +476,10 @@ class Case:
             rows = rng.integers(1, S + 1, B)
         else:               # prefill: chunk starts on chunk boundaries
             rows = 32 * rng.integers(0, (S - C) // 32 + 1, B)
+        self.rows_np = rows
         self.rows = torch.from_numpy(rows.astype(np.int32)).to(dev)
         n_lp = S // page
+        self.page = page
         perm = rng.permutation(B * n_lp).astype(np.int32)
         self.tables = torch.from_numpy(perm.reshape(B, n_lp)).to(dev)
         tl = self.tables.long()
@@ -443,26 +489,31 @@ class Case:
         for src, dst in ((self.k, self.kp), (self.v, self.vp)):
             dst[tl.reshape(-1)] = src.reshape(B, Hkv, n_lp, page, hd) \
                 .permute(0, 2, 1, 3, 4).reshape(B * n_lp, Hkv, page, hd)
-        # what this data needs: K/V columns read, (q, k) pairs scored
-        cols, pairs = 0, 0
-        for r in rows.tolist():
-            if C is None:
-                lo = max(0, r - window) if window else 0
-                cols += r - lo
-                pairs += G * (r - lo)
-            else:
-                lo = max(0, r - window + 1) if window else 0
-                cols += r + C - lo
-                for c in range(C):
-                    qp = r + c
-                    pairs += G * (qp + 1 - (max(0, qp - window + 1)
-                                            if window else 0))
+        self.count(window)
+
+    def count(self, window: int) -> None:
+        """Set the window and what this data needs under it: K/V columns
+        read once, (q, k) pairs scored."""
+        import numpy as np
+        self.window = window
+        C, G, rows = self.C, self.G, self.rows_np.astype(np.int64)
+        if C is None:
+            lo = np.maximum(0, rows - window) if window else 0 * rows
+            cols = int((rows - lo).sum())
+            pairs = G * cols
+        else:
+            lo = np.maximum(0, rows - window + 1) if window else 0 * rows
+            cols = int((rows + C - lo).sum())
+            qp = rows[:, None] + np.arange(C)[None]
+            qlo = np.maximum(0, qp - window + 1) if window else 0 * qp
+            pairs = G * int((qp + 1 - qlo).sum())
         esz = self.q.element_size()
-        pages = sum(math.ceil((r + (C or 0)) / page) for r in rows.tolist())
-        self.nbytes = (self.q.numel() * esz + 2 * cols * Hkv * hd * esz
-                       + self.q.numel() * 4 + 4 * B)
+        pages = sum(math.ceil((r + (C or 0)) / self.page)
+                    for r in rows.tolist())
+        self.nbytes = (self.q.numel() * esz + 2 * cols * self.Hkv * self.hd
+                       * esz + self.q.numel() * 4 + 4 * self.B)
         self.nbytes_paged = self.nbytes + 4 * pages
-        self.flops = 4.0 * pairs * Hkv * hd
+        self.flops = 4.0 * pairs * self.Hkv * self.hd
 
     def kv_bytes(self) -> int:
         return 2 * self.k.numel() * self.k.element_size()
@@ -516,9 +567,12 @@ def _args(kern, case):
 
 def _sdpa(case):
     """One PyTorch call computing the dense kernel's function on the
-    same inputs (SDPA with the per-row mask), and its inputs."""
+    same inputs (SDPA with the per-row mask), and its inputs. At a long
+    cache (S > 4,096) SDPA is held to its memory-efficient kernel: its
+    math fallback would hold the [B, H, C, S] scores."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     pos = torch.arange(case.S, device=case.q.device)
     r = case.rows[:, None].long()
     if case.C is None:
@@ -538,8 +592,13 @@ def _sdpa(case):
             ok &= pos[None, None] > qp[..., None] - case.window
         mask = ok[:, None]
     q = q.contiguous()
-    return (lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m)), (q, case.k, case.v, mask)
+
+    def call(q, k, v, m):
+        if case.S <= 4_096:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+    return call, (q, case.k, case.v, mask)
 
 
 # the attention shapes (KV heads, group G, head dim) of phase 12's served
@@ -720,28 +779,235 @@ def split_sweep(case) -> dict:
     return res
 
 
-def time_case(kern, case) -> dict:
+def time_case(kern, case, reps: int = 20, plain=None,
+              plain_events: bool = False) -> dict:
     """Kernel, plain and library times and the bound of one main-path
-    case; inputs are cycled through enough copies to exceed L2."""
+    case; inputs are cycled through enough copies to exceed L2. `plain`
+    stands in for the kernel's plain version (the long prefill cases
+    run it over a few chunk rows a call); with `plain_events`, whose
+    calls take a good part of a second, it is timed with events around
+    one call after one to warm up."""
     import torch
     n = max(2, math.ceil(2 * L2_BYTES / case.kv_bytes()))
     args = _args(kern, case)
     copies = [tuple(a.clone() for a in args) for _ in range(n)]
-    w = case.window
-    res = dict(ms=device_ms(lambda *a: kern["fn"](*a, window=w), copies),
-               plain_ms=device_ms(lambda *a: kern["plain"](*a, window=w),
-                                  copies),
+    w, plain = case.window, plain or kern["plain"]
+    res = dict(ms=device_ms(lambda *a: kern["fn"](*a, window=w), copies,
+                            reps),
+               plain_ms=(_events_ms(lambda: plain(*args, window=w), 1)
+                         if plain_events else
+                         device_ms(lambda *a: plain(*a, window=w), copies,
+                                   reps)),
                library_ms=None)
     if not kern["paged"]:
         fn, largs = _sdpa(case)
         res["library_ms"] = device_ms(
-            fn, [tuple(a.clone() for a in largs) for _ in range(n)])
+            fn, [tuple(a.clone() for a in largs) for _ in range(n)], reps)
     res["bound_ms"], res["bound_by"] = bound_ms(
         case.nbytes_paged if kern["paged"] else case.nbytes, case.flops,
         case.dtype)
     del copies
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------ the kernels at long caches
+# the registered long shapes (configs/base.py's prefill_32k, decode_32k):
+# qwen1.5-0.5b's heads and a GQA head shape (KV heads, G, hd), at caches
+# of 4,096 and 32,768, without and with long_500k's window
+# (runtime/train_step.py's `window_for`); decode on phase 16's 16 slots,
+# prefill on 4 rows of 256-token chunks, and at phase 16's own prefill
+# launch, 16 rows of 2,048 at 32,768 with qwen's heads (bf16)
+LONG_HEADS = ((16, 1, 64), (4, 16, 64))
+LONG_CACHES = (4_096, 32_768)
+LONG_WINDOW = 8_192
+LONG_DECODE_ROWS = 16
+LONG_PREFILL = (4, 256)
+LONG_PATH_PREFILL = (16, 2_048)
+# graph replays a long case is timed over (each call reads its GB once)
+LONG_REPS = 5
+# the plain prefill version's f32 logits at most this many bytes a call
+PLAIN_CALL_BYTES = 1 << 30
+
+
+def plain_by_rows(plain, rows: int):
+    """The prefill plain version over `rows` chunk positions a call,
+    concatenated: each query row's softmax is its own, so this is the
+    plain version's arithmetic, with [B, rows, H, S] logits where one
+    call's [B, C, H, S] would not fit beside a long cache."""
+    import torch
+
+    def call(q, *kv_start, window: int = 0):
+        *kv, start = kv_start
+        return torch.cat([plain(q[:, c:c + rows], *kv, start + c,
+                                window=window)
+                          for c in range(0, q.shape[1], rows)], dim=1)
+    return call
+
+
+def _long_plain(kern, case):
+    if not kern["prefill"]:
+        return kern["plain"]
+    per_row = case.B * case.Hkv * case.G * case.S * 4
+    return plain_by_rows(kern["plain"],
+                         max(1, min(case.C, PLAIN_CALL_BYTES // per_row)))
+
+
+def check_long_kernels(seed: int) -> tuple:
+    """K7-K10 at LONG_HEADS x LONG_CACHES, without and with LONG_WINDOW,
+    in bf16 and f32 (K/V drawn on the card), against their plain
+    versions at TOL, twice for the same bits, each paged kernel equal to
+    its dense twin bit for bit; every bf16 case timed beside its bound,
+    its plain version and (dense) SDPA. Returns ({kernel: by_shape
+    rows}, {kernel: max_abs_err}, failures)."""
+    import numpy as np
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    table = kernel_table()
+    by_name = {k["name"]: k for k in table}
+    rows = {k["name"]: [] for k in table}
+    errs = {k["name"]: 0.0 for k in table}
+    failures, specs = [], []
+    for hkv, g, hd in LONG_HEADS:
+        for S in LONG_CACHES:
+            for dtype in (bf16, f32):
+                heads = dict(Hkv=hkv, G=g, S=S, hd=hd, dtype=dtype)
+                specs.append((dict(heads, B=LONG_DECODE_ROWS, C=None),
+                              (0, LONG_WINDOW)))
+                specs.append((dict(heads, B=LONG_PREFILL[0],
+                                   C=LONG_PREFILL[1]), (0, LONG_WINDOW)))
+    specs.append((dict(B=LONG_PATH_PREFILL[0], C=LONG_PATH_PREFILL[1],
+                       Hkv=16, G=1, S=LONG_CACHES[-1], hd=64, dtype=bf16),
+                  (0,)))
+    for i, (kw, windows) in enumerate(specs):
+        s = seed + 1000 + i
+        case = Case(np.random.default_rng(s), page=16, window=0,
+                    gen=torch.Generator(device="cuda").manual_seed(s), **kw)
+        for window in windows:
+            case.count(window)
+            for kern in table:
+                if kern["prefill"] != (case.C is not None):
+                    continue
+                twin = by_name.get(kern.get("twin"))
+                plain = _long_plain(kern, case)
+                args = _args(kern, case)
+                got = kern["fn"](*args, window=window)
+                same = bool(torch.equal(got, kern["fn"](*args,
+                                                        window=window)))
+                err = float((got - plain(*_f32(args), window=window)
+                             .float()).abs().max())
+                tol = TOL[str(case.dtype).split(".")[1]]
+                ok = bool(torch.isfinite(got).all()) and err <= tol and same
+                tag = (f"{kern['name']} long S={case.S} B={case.B} "
+                       f"C={case.C} heads {case.Hkv}/{case.G}/{case.hd} "
+                       f"window {window} {case.dtype}")
+                extra = ""
+                if twin is not None:
+                    same_twin = bool(torch.equal(got, twin["fn"](
+                        *_args(twin, case), window=window)))
+                    ok = ok and same_twin
+                    extra = f", equal to {twin['name']} bit for bit " \
+                            f"{same_twin}"
+                del got
+                print(f"  check {tag}: max_abs_err {err:.3e} (tol {tol:g})"
+                      f", same bits twice {same}{extra} "
+                      f"{'ok' if ok else 'FAILED'}", flush=True)
+                if not ok:
+                    failures.append(tag)
+                errs[kern["name"]] = max(errs[kern["name"]], err)
+                if case.dtype != bf16:
+                    continue
+                ms = time_case(kern, case, LONG_REPS, plain,
+                               plain_events=case.C is not None)
+                note = ""
+                if twin is not None:
+                    ms["twin_ms"] = device_ms(
+                        lambda *a: twin["fn"](*a, window=window),
+                        [tuple(a.clone() for a in _args(twin, case))
+                         for _ in range(2)], LONG_REPS)
+                    note = f"; dense twin {ms['twin_ms']:.4f} ms"
+                print(f"  time  {tag}: kernel {ms['ms']:.4f} ms, plain "
+                      f"{ms['plain_ms']:.4f} ms, library "
+                      f"{ms['library_ms']} ms, bound {ms['bound_ms']:.4f}"
+                      f" ms ({ms['bound_by']}){note}", flush=True)
+                rows[kern["name"]].append(dict(
+                    shape=_shape_key(kern, case), cache=case.S,
+                    window=window, launches=None, **ms))
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, errs, failures
+
+
+def check_staging_limits() -> tuple:
+    """K8 and K10 at the longest table row one CTA's shared memory can
+    stage (kernels/build.py's SMEM_LIMIT), at each built head dim: K8 at
+    one split (4 slots x 99 KV heads: 396 CTAs), K10 in bf16 and f32;
+    each launches there and agrees with its plain version on the few
+    columns its rows read, and the op refuses one page more before
+    launch. Returns (summary, failures)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.prefill_attention import ops as pre
+    kt = {k["name"]: k for k in kernel_table()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    failures, out, page = [], {}, 16
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def refused(fn, *a) -> str:
+        try:
+            fn(*a)
+        except ValueError as e:
+            return str(e) if "227 KiB" in str(e) else ""
+        return ""
+    for hd in build.HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            B, Hkv, G = 4, 99, 1
+            top = build.longest_table(lambda n: dec.decode_smem_bytes(
+                hd, G, dec.decode_splits(B, Hkv, G), page, n))
+            q = randn(B, Hkv * G, hd, dtype=dtype)
+            kp, vp = (randn(2, Hkv, page, hd, dtype=dtype) for _ in "kv")
+            tbl = torch.zeros((B, top + 1), dtype=torch.int32, device="cuda")
+            tbl[:, 1] = 1
+            lens = torch.tensor([5, 16, 20, 32], dtype=torch.int32,
+                                device="cuda")
+            got = dec.gqa_decode_paged(q, kp, vp, tbl[:, :top], lens)
+            want = kt["paged_decode_attention"]["plain"](
+                *_f32((q, kp, vp, tbl[:, :2], lens))).float()
+            err_d = float((got - want).abs().max())
+            msg_d = refused(dec.gqa_decode_paged, q, kp, vp, tbl, lens)
+            C = 16
+            top_p = build.longest_table(
+                lambda n: pre.prefill_smem_bytes(hd, dtype, n))
+            qp = randn(1, C, 2 * 2, hd, dtype=dtype)
+            kq, vq = (randn(1, 2, page, hd, dtype=dtype) for _ in "kv")
+            tp = torch.zeros((1, top_p + 1), dtype=torch.int32,
+                             device="cuda")
+            st = torch.zeros(1, dtype=torch.int32, device="cuda")
+            got = pre.gqa_prefill_paged(qp, kq, vq, tp[:, :top_p], st)
+            want = kt["paged_prefill_attention"]["plain"](
+                *_f32((qp, kq, vq, tp[:, :1], st))).float()
+            err_p = float((got - want).abs().max())
+            msg_p = refused(pre.gqa_prefill_paged, qp, kq, vq, tp, st)
+            tol = TOL[str(dtype).split(".")[1]]
+            name = f"hd {hd} {dtype}"
+            ok = err_d <= tol and err_p <= tol and msg_d and msg_p
+            print(f"  staging limit {name}: K8 (one split) takes {top} "
+                  f"pages ({top * page} columns at page {page}): "
+                  f"max_abs_err {err_d:.3e}; K10 {top_p} pages "
+                  f"({top_p * page} columns): max_abs_err {err_p:.3e}; "
+                  f"one page more refused: {bool(msg_d)} / {bool(msg_p)} "
+                  f"{'ok' if ok else 'FAILED'}", flush=True)
+            if not ok:
+                failures.append(f"staging limit {name}")
+            out[name] = dict(decode_pages=top, prefill_pages=top_p,
+                             page=page, decode_err=err_d,
+                             prefill_err=err_p, refusal=msg_p)
+    torch.cuda.empty_cache()
+    return out, failures
 
 
 # ------------------------------------------------- packed-wire kernels
@@ -1190,13 +1456,14 @@ def check_tiny_kernels(seed: int) -> tuple:
 # -------------------------------------------------------- the main path
 SERVE_PATH = {"paged": ("paged_decode_attention", "paged_prefill_attention"),
               "dense": ("decode_attention", "prefill_attention")}
-# the traced serves (phases 3 and 12) serve the trace's first 2
-# requests, each cut to at most 8 new tokens: the profiler's own
-# processing of a trace grows with its device events, which grow with
-# the decode steps and the layers (on an H100: 8 whole requests of
-# qwen1.5-0.5b, 177,590 device events, most of phase 3's 279 s; 4
-# requests of stablelm-12b's 40 layers, 62,103 events, 40 s of phase 12)
-PROFILED, PROFILED_TOKENS = 2, 8
+# the traced serves (phases 3 and 12) serve the trace's first request,
+# cut to 2 new tokens: its prefill chunks and one decode step, so both
+# kernels of the layout and the decode merge still run. The profiler's
+# own processing of a trace, ~0.58 ms a device event on an H100's host,
+# grows with the decode steps and the layers: 2 requests of 8 tokens
+# were 35,286 events (21.6 s) for chatglm3-6b's 28 layers and 47,537
+# (29.5 s) for stablelm-12b's 40, and ~40 s of phase 3
+PROFILED, PROFILED_TOKENS = 1, 2
 
 
 def traced_sample(trace):
@@ -1218,18 +1485,30 @@ def _attention_counters() -> dict:
             "paged_prefill_attention": pre.gqa_prefill_paged}
 
 
-def serve_once(cfg, params, trace, kv: str, keep_chunks: bool = False):
-    """Serve `trace` with `ServeEngine` on 8 slots, greedy, chunk 32,
-    page 16, over a fading 10 dB radio, with K7-K10's launch counters
-    set to 0 just before `serve` and read just after. Returns (engine,
-    report, first chunks [(chunk tokens, logits)], step calls, launches,
-    kept chunks, warmup s). With `keep_chunks`, every prefill call that
-    holds a first chunk is kept for a later reference run: the cache as
-    it was before the call, the call's inputs, the expert choices of its
-    MoE layers (`RouteTape`) and its first-chunk rows."""
+def first_chunk_rows(st, nv):
+    """The rows of a prefill call that hold a request's first chunk."""
+    return (st == 0) & (nv > 0)
+
+
+def serve_once(cfg, params, trace, kv: str, keep_chunks: bool = False,
+               n_slots: int = 8, chunk_size: int = 32,
+               rows_of=first_chunk_rows, record=None):
+    """Serve `trace` with `ServeEngine` on `n_slots` slots, greedy, chunk
+    `chunk_size`, page 16, over a fading 10 dB radio, with K7-K10's
+    launch counters set to 0 just before `serve` and read just after.
+    Returns (engine, report, kept chunks [(chunk tokens, logits)] of the
+    rows `rows_of(start, n_valid)` picks in each prefill call (by default
+    each request's first chunk), step calls, launches, kept snapshots,
+    warmup s). With `keep_chunks`, every prefill call that holds a kept
+    chunk is kept for a later reference run: the cache as it was before
+    the call, the call's inputs, the expert choices of its MoE layers
+    (`RouteTape`) and its kept rows. A `record` dict gets, without any
+    copy of the cache, the cache itself ("cache") and each kept row's
+    inputs ("inputs": (row, tokens, start, n_valid, table row))."""
     from repro_torch.schemes.radio import Radio
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, params, n_slots=8, greedy=True, kv=kv,
+    eng = ServeEngine(cfg, params, n_slots=n_slots, greedy=True, kv=kv,
+                      chunk_size=chunk_size,
                       radio=Radio(snr_db=10.0, fading=True), device="cuda")
     warm = eng.warmup_compile(trace.max_seq_len())
     built = eng.build(max(8, trace.max_seq_len()))
@@ -1244,7 +1523,7 @@ def serve_once(cfg, params, trace, kv: str, keep_chunks: bool = False):
 
     def prefill(cache, toks, st, nv, tbl, _f=orig["prefill"]):
         calls["prefill"] += 1
-        rows = ((st == 0) & (nv > 0)).nonzero()[:, 0].tolist()
+        rows = rows_of(st, nv).nonzero()[:, 0].tolist()
         snap = None
         if keep_chunks and rows:
             snap = {k: v.clone() for k, v in cache.items()}
@@ -1256,6 +1535,12 @@ def serve_once(cfg, params, trace, kv: str, keep_chunks: bool = False):
                          tbl.clone(), list(routes), rows))
         for b in rows:
             firsts.append((toks[b, :int(nv[b])].clone(), lg[b].clone()))
+            if record is not None:
+                record.setdefault("inputs", []).append(
+                    (b, toks[b].clone(), st[b].clone(), nv[b].clone(),
+                     tbl[b].clone()))
+        if record is not None:
+            record["cache"] = cache
         return lg, cache
 
     built.update(decode=decode, prefill=prefill)
@@ -3920,17 +4205,23 @@ class RouteTape:
 
 
 @contextlib.contextmanager
-def plain_attention():
+def plain_attention(rows: int = 0):
     """While open, the model's attention calls run the kernels' plain
-    versions on the card (the reference runs; no counter moves)."""
+    versions on the card (the reference runs; no counter moves); with
+    `rows`, the prefill ones over that many chunk rows a call
+    (`plain_by_rows`)."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.prefill_attention import ops as pre
     from repro_torch.kernels.prefill_attention import ref as pref
+
+    def prefill(fn):
+        return plain_by_rows(fn, rows) if rows else fn
     plain = {(dec, "gqa_decode"): dref.decode_attention_ref,
              (dec, "gqa_decode_paged"): dref.paged_decode_attention_ref,
-             (pre, "gqa_prefill"): pref.prefill_attention_ref,
-             (pre, "gqa_prefill_paged"): pref.paged_prefill_attention_ref}
+             (pre, "gqa_prefill"): prefill(pref.prefill_attention_ref),
+             (pre, "gqa_prefill_paged"):
+                 prefill(pref.paged_prefill_attention_ref)}
     kept = {k: getattr(*k) for k in plain}
     for (mod, name), fn in plain.items():
         setattr(mod, name, lambda *a, _f=fn, **kw: _f(*a, **kw).float())
@@ -4750,12 +5041,281 @@ def mesh_phase(seed: int, card_name: str, dry_run: dict) -> tuple:
 
 
 # ------------------------------------------------------------------ main
+# ---------------------------------------- the long shapes (phase 16)
+# configs/base.py's prefill_32k / decode_32k and train_4k on one card,
+# qwen1.5-0.5b at full width and depth (random weights from --seed).
+# Serving: 16 requests of 32,704 prompt and 64 new tokens, so each cache
+# reaches 32,768 (96 KiB of bf16 KV a token: 3 GiB a request, 48 GiB on
+# 16 slots), chunks of up to 2,048 (buckets 4-2,048), page 16, paged
+# then dense, one layout freed before the other is built. Cut: the
+# global batch (decode_32k's 128 and prefill_32k's 32 rows to the 16
+# slots whose caches one card holds) and the new tokens. Training: one
+# CL and one SL step (split 2, compress 4, Q8, 20 dB, AdamW) at seq
+# 4,096, train_4k's 256 sequences cut to 2 (a micro-step of one
+# sequence takes 5.6-8 s, host-bound: chunked_attention's 64 blocks a
+# layer), each step in micro-steps of one sequence
+# (runtime/train_step.py's one-card rule).
+LONG_PROMPT, LONG_NEW = 32_704, 64
+LONG_SLOTS = 16
+LONG_CHUNK = 2_048
+LONG_SERVE_KEY = (LONG_SLOTS, 16, 1, 64, LONG_PROMPT + LONG_NEW, 0)
+# chunk rows a call of the plain reference (256 x 16 heads x 32,768
+# columns of f32 logits: 0.5 GiB)
+LONG_REF_ROWS = 256
+LONG_TRAIN_BATCH = 2
+LONG_SEQ = 4_096
+# a micro-step's two legs: 4,096 tokens x 1,024 / 4 values x 8 bits
+LONG_SL_MICRO_BITS = 2 * LONG_SEQ * (1024 // 4) * 8
+LONG_CL_BITS = LONG_TRAIN_BATCH * LONG_SEQ * 18     # 18-bit token ids
+
+
+def rope_gap(S: int, hd: int, theta: float) -> dict:
+    """`rope_angles` at positions 0..S-1 on the card against the same on
+    the host CPU: max |sin / cos difference| and the most float32 ulps
+    apart (the CPU tests hold the host's to JAX's)."""
+    import torch
+    from repro_torch.models.layers import rope_angles
+    pos = torch.arange(S)[None]
+    out = {}
+    for name, a, b in zip(("sin", "cos"), rope_angles(pos.cuda(), hd, theta),
+                          rope_angles(pos, hd, theta)):
+        a = a.cpu()
+        ia, ib = (x.view(torch.int32).long() for x in (a, b))
+        ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+        ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+        out[name] = dict(max_abs=float((a - b).abs().max()),
+                         max_ulps=int((ia - ib).abs().max()),
+                         share_differing=float((a != b).float().mean()))
+    return out
+
+
+def last_chunk_rows(st, nv):
+    """The rows of a prefill call that end a LONG_PROMPT prompt."""
+    return (nv > 0) & (st + nv == LONG_PROMPT)
+
+
+def long_serve(seed: int, card_name: str) -> tuple:
+    """Phase 16 (a): qwen1.5-0.5b serving 32,768-token caches, paged then
+    dense. Returns ({kernel: launches}, summary, failures)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api as M
+    from repro_torch.nn import init_params
+    from repro_torch.serve import uniform_trace
+    cfg = get_arch(QWEN)
+    params = init_params(M.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(seed), "cuda")
+    trace = uniform_trace(seed, LONG_SLOTS, LONG_PROMPT, LONG_NEW, 10.0)
+    failures, runs, launches, secs = [], {}, {}, {}
+    rope = rope_gap(LONG_PROMPT + LONG_NEW, cfg.hd, cfg.rope_theta)
+    print(f"  rope_angles at positions 0-{LONG_PROMPT + LONG_NEW - 1} (hd "
+          f"{cfg.hd}, theta {cfg.rope_theta:g}), card vs host CPU: {rope}",
+          flush=True)
+    ref, ref_row = None, None
+    for kv in ("paged", "dense"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = {}
+        eng, rep, lasts, calls, n, _, warm = serve_once(
+            cfg, params, trace, kv, n_slots=LONG_SLOTS,
+            chunk_size=LONG_CHUNK, rows_of=last_chunk_rows, record=rec)
+        d = rep.to_dict()
+        d["max_memory_allocated_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        print_serve(f"{cfg.name} at {LONG_PROMPT + LONG_NEW} kv={kv}", warm,
+                    calls, d, n)
+        print(f"  max_memory_allocated {d['max_memory_allocated_gib']:.2f}"
+              f" GiB ({card_name})", flush=True)
+        failures += launch_failures(cfg, kv, calls, n)
+        launches.update({k: n[k] for k in SERVE_PATH[kv]})
+        secs[kv] = time.perf_counter() - t0
+        if kv == "paged":
+            # the first request's last chunk again, the plain attention
+            # over this layout's cache, before the cache is freed
+            t0 = time.perf_counter()
+            b, toks, st, nv, tbl = rec["inputs"][0]
+            ref_row = b
+            pf = eng.build(max(8, trace.max_seq_len()))["prefill"]
+            with torch.inference_mode(), plain_attention(LONG_REF_ROWS):
+                ref = pf(rec["cache"], toks[None], st[None], nv[None],
+                         tbl[None])[0][0]
+            secs["reference"] = time.perf_counter() - t0
+        runs[kv] = (rep, lasts, d)
+        del eng, rec
+    (rp, lp, dp), (rd, ld, dd) = runs["paged"], runs["dense"]
+    same_tokens, f = layouts_agree(rp, rd)
+    failures += [f"long serve: {x}" for x in f]
+    equal = len(lp) == len(ld) == LONG_SLOTS and all(
+        torch.equal(a, c) and torch.equal(b, e)
+        for (a, b), (c, e) in zip(lp, ld))
+    got = lp[0][1] if lp else None
+    err = float((got - ref).abs().max()) if got is not None else math.inf
+    finite = got is not None and all(bool(torch.isfinite(x).all())
+                                     for _, x in lp + ld)
+    print(f"  last-chunk logits over {len(lp)} requests: paged == dense "
+          f"bit for bit {equal}, finite {finite}; request {ref_row}'s "
+          f"against the plain reference on the same cache (its chunk "
+          f"again, plain attention over {LONG_REF_ROWS} rows a call): max "
+          f"abs {err:.4e} (tol {LOGIT_TOL:g}), largest |logit| "
+          f"{float(ref.abs().max()) if ref is not None else math.nan:.3f}",
+          flush=True)
+    if not equal:
+        failures.append("long serve: paged and dense last chunks differ")
+    if not finite or err > LOGIT_TOL:
+        failures.append(f"long serve: last-chunk logits {err} from the "
+                        f"plain reference (tol {LOGIT_TOL})")
+    print(f"  seconds: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}"
+          , flush=True)
+    summary = dict(paged=dp, dense=dd, equal_token_requests=same_tokens,
+                   rope_card_vs_cpu=rope, last_chunk_logits_equal=equal,
+                   last_chunk_max_abs_vs_reference=err, seconds=secs)
+    del runs, lp, ld, params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary, failures
+
+
+def long_train(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 16 (b): one CL and one SL step at train_4k's sequence
+    length, counters set to 0 before and read after (K1 by shape into
+    `shapes`), then K1 at the SL leg's shape against its plain version.
+    Each run is `Experiment.run`'s first cycle (init, the cycle's
+    batches and key, one round, one eval) through the scheme's own
+    calls: the run would end with the round's FLOP count, one meta step
+    whose Python dispatch at seq 4,096 takes 51-69 s on an H100's host.
+    Returns ({kernel: launches}, {kernel: {shape: times}}, summary,
+    failures)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quant_channel import ops as qc
+    from repro_torch.kernels.quant_channel import ref as qref
+    from repro_torch.configs import SHAPES, WirelessConfig, get_arch
+    from repro_torch.runtime.train_step import auto_microbatch
+    from repro_torch.schemes import build_scheme
+    cfg = get_arch(QWEN)
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=LONG_TRAIN_BATCH)
+    micro = auto_microbatch(cfg, shape)
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    runs, failures = {}, []
+    wcfgs = {"cl": WirelessConfig(mode="cl", snr_db=20.0),
+             "sl": WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
+                                  split_layer=2, compress_factor=4)}
+    with launch_shapes({}) as phase_shapes:
+        for name, wcfg in wcfgs.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            scheme = build_scheme(wcfg, cfg=cfg, shape=shape, device="cuda",
+                                  optimizer="adamw", steps_per_cycle=1)
+            kinds, losses = [], []
+            _counted(scheme, kinds, losses)
+            t0 = time.perf_counter()
+            (xtr, ytr), (xte, yte) = scheme.default_data(
+                LONG_TRAIN_BATCH, 1, seed)
+            state, dlv = scheme.init(seed, xtr, ytr)
+            batch = scheme.cycle_batches(state, np.random.default_rng(
+                seed + 1), 0)
+            state, rep = scheme.round(state, batch,
+                                      scheme.round_key(seed, 0),
+                                      scheme.default_lr_schedule(0))
+            acc = scheme.evaluate(state, xte, yte)
+            r = dict(wall_s=time.perf_counter() - t0,
+                     round_s=[s for k, _, s in kinds if k == "round"],
+                     eval_s=[s for k, _, s in kinds if k == "eval"],
+                     rounds=[c for k, c, _ in kinds if k == "round"],
+                     evals=[c for k, c, _ in kinds if k == "eval"],
+                     bits=[rep.bits], init_bits=dlv.bits if dlv else None,
+                     step_losses=losses, loss=[rep.loss], accuracy=acc,
+                     max_memory_gib=torch.cuda.max_memory_allocated()
+                     / 2 ** 30, micro_steps=micro)
+            runs[name] = r
+            print(f"long train {name} at seq {LONG_SEQ} x "
+                  f"{LONG_TRAIN_BATCH}: {micro} micro-steps of "
+                  f"{LONG_TRAIN_BATCH // micro} sequence(s); step "
+                  f"{[round(x, 3) for x in r['round_s']]} s, eval "
+                  f"{[round(x, 3) for x in r['eval_s']]} s (with init "
+                  f"{r['wall_s']:.1f} s); bits "
+                  f"{r['bits']}, init {r['init_bits']}; loss {losses}; "
+                  f"max_memory_allocated {r['max_memory_gib']:.2f} GiB "
+                  f"({card_name})", flush=True)
+            del state, scheme
+    launches = {k: f.launches for k, f in counters.items()}
+    failures += merge_shapes(shapes, phase_shapes, launches, "long train")
+    k1 = dict(phase_shapes.get("packed_wire_2d", {}))
+    cl, sl = runs["cl"], runs["sl"]
+    want_k1 = {(LONG_SEQ * LONG_TRAIN_BATCH // micro, 256):
+               2 * micro + 1}
+    checks = [
+        (micro == LONG_TRAIN_BATCH, f"{micro} micro-steps, want one "
+         f"sequence each"),
+        (cl["init_bits"] == LONG_CL_BITS and cl["bits"] == [0.0],
+         f"CL bits {cl['init_bits']} / {cl['bits']}"),
+        (sl["bits"] == [float(micro * LONG_SL_MICRO_BITS)],
+         f"SL bits {sl['bits']}"),
+        (k1 == want_k1, f"K1 by shape {k1}, want {want_k1}"),
+        (all(math.isfinite(x) for r in runs.values()
+             for x in r["step_losses"] + [r["loss"][-1]]),
+         "a loss is not finite"),
+        (not any(c[k] for r in runs.values() for c in r["rounds"]
+                 + r["evals"] for k in ("conv_pool", "lstm_final_state",
+                                        "quant_channel_2d",
+                                        "packed_wire_2d_philox",
+                                        "packed_wire_mean_2d")
+                 + ATTN_ROWS), "K2-K10 launched")]
+    failures += [f"long train: {msg}" for ok, msg in checks if not ok]
+    print(f"long train: launches {launches}; K1 by shape {k1}", flush=True)
+    # K1 at the SL micro-step's leg, against its plain version, timed
+    rows = LONG_SEQ * LONG_TRAIN_BATCH // micro
+    args = wire_inputs(np.random.default_rng(seed + 16), rows, 8)
+    equal = bool(torch.equal(qc.packed_wire_2d(*args, 8),
+                             qref.packed_wire_ref(*args, 8)))
+    timed = {"packed_wire_2d": {(rows, 256): _timed(
+        lambda *a: qc.packed_wire_2d(*a, 8),
+        lambda *a: qref.packed_wire_ref(*a, 8), args,
+        rows * 256 * 12 + rows * 8, rows * 256 * wire_int_ops(8))}}
+    t = timed["packed_wire_2d"][(rows, 256)]
+    print(f"  check packed_wire_2d Q8 SL leg [{rows}, 256]: equal {equal}; "
+          f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.5f} ms ({t['bound_by']})", flush=True)
+    if not equal:
+        failures.append(f"K1 at [{rows}, 256] differs from its plain "
+                        f"version")
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, timed, dict(runs=runs, k1_by_shape={
+        str(list(k)): v for k, v in k1.items()}), failures
+
+
+def long_phase(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 16. Returns (serving launches, training launches, K1's timed
+    shape, summary, failures)."""
+    t0 = time.perf_counter()
+    serve_launches, serve_summary, failures = long_serve(seed, card_name)
+    t1 = time.perf_counter()
+    train_launches, timed, train_summary, f = long_train(seed, card_name,
+                                                         shapes)
+    failures += f
+    secs = dict(serve=t1 - t0, train=time.perf_counter() - t1)
+    print(f"phase 16 parts: serve {secs['serve']:.1f} s, train "
+          f"{secs['train']:.1f} s", flush=True)
+    return serve_launches, train_launches, timed, dict(
+        serve=serve_summary, train=train_summary, seconds=secs), failures
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every number as JSON to this file")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
              f"from a checkout of the repository")
@@ -4811,6 +5371,17 @@ def main() -> None:
     t_check = time.perf_counter()
     rows, failures, sweep = check_kernels(S, args.seed, S_wide)
     print(f"attention kernel checks: {time.perf_counter() - t_check:.1f} s",
+          flush=True)
+    t_long = time.perf_counter()
+    print(f"kernel checks at long caches ({LONG_CACHES}), and the longest "
+          f"table row K8 and K10 stage", flush=True)
+    long_rows, long_errs, long_failures = check_long_kernels(args.seed)
+    staging, staging_failures = check_staging_limits()
+    failures += long_failures + staging_failures
+    for r in rows:
+        r["by_shape"] += long_rows[r["name"]]
+        r["max_abs_err"] = max(r["max_abs_err"], long_errs[r["name"]])
+    print(f"long-cache kernel checks: {time.perf_counter() - t_long:.1f} s",
           flush=True)
     floor = launch_floor_ms()
     print(f"timing harness: one one-element add_ per call takes {floor:.5f}"
@@ -4903,10 +5474,22 @@ def main() -> None:
     print(f"mesh and compile phase: {time.perf_counter() - t_p15:.1f} s; "
           f"launches {p15_launches}", flush=True)
     failures += p15_failures
+    t_p16 = time.perf_counter()
+    long_launches, long_train_launches, long_timed, long_summary, \
+        p16_failures = long_phase(args.seed, card, shapes)
+    for name, per in long_timed.items():
+        qwen_timed.setdefault(name, {}).update(per)
+    print(f"long-shape phase: {time.perf_counter() - t_p16:.1f} s; "
+          f"launches {long_launches} (serving), {long_train_launches} "
+          f"(training)", flush=True)
+    failures += p16_failures
     # the serving paths' launches by (rows, KV heads, G, hd): phase 3
     # (qwen1.5-0.5b) and phase 12 on the engine's 8 slots, phase 14 on the
-    # static loop's 4 rows
+    # static loop's 4 rows; phase 16's by (rows, KV heads, G, hd, cache,
+    # window), as the long cases' by_shape rows are keyed
     attn = {k: {(8, 16, 1, 64): n} for k, n in launches.items()}
+    for k, n in long_launches.items():
+        attn[k][LONG_SERVE_KEY] = n
     for k, n in p15_launches.items():        # phase 15's 4 slots
         if k in attn:
             attn[k][(4, 16, 1, 64)] = n
@@ -4920,8 +5503,10 @@ def main() -> None:
         per = attn.get(r["name"], {})
         r["launches"] = sum(per.values())
         for s in r["by_shape"]:
-            s["launches"] = per.get((s["shape"][0],) + tuple(s["shape"][-3:]),
-                                    0)
+            key = (s["shape"][0],) + tuple(s["shape"][-3:])
+            if "cache" in s:
+                key += (s["cache"], s["window"])
+            s["launches"] = per.get(key, 0)
     # the training paths' launches: phases 5 and 7-15
     for r in wire_rows + tiny_rows:
         extra = qwen_timed.get(r["name"])
@@ -4935,13 +5520,13 @@ def main() -> None:
         r["launches"] = sum(p.get(r["name"], 0) for p in (
             train_launches, priv_launches, fig3_launches, tiny_launches,
             opt_launches, fleet_launches, qwen_launches, wide_launches,
-            ssm_launches, p14_launches, p15_launches))
+            ssm_launches, p14_launches, p15_launches, long_train_launches))
         for s in r.get("by_shape", ()):
             s["launches"] = shapes.get(r["name"], {}).get(tuple(s["shape"]),
                                                           0)
     shapes = {k: {str(list(s)): n for s, n in sorted(c.items())}
               for k, c in shapes.items()}
-    print(f"launches by shape over phases 5 and 7-14: {shapes}",
+    print(f"launches by shape over phases 5, 7-14 and 16: {shapes}",
           flush=True)
     rows += wire_rows + tiny_rows
     if args.out:
@@ -4964,8 +5549,12 @@ def main() -> None:
                                    "ssm_and_reduced_vlm": ssm_summary,
                                    "hybrid_and_audio": p14_summary,
                                    "mesh_and_compile": p15_summary,
+                                   "long_shapes": long_summary,
+                                   "staging_limits": staging,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     if failures:
         fail("; ".join(failures))
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,6 @@
-"""Importing this package populates the architecture registry (the
-configurations ported so far; ROADMAP.md lists the rest)."""
+"""Importing this package populates the architecture registry: every
+configuration of the JAX package (`get_arch` names them when asked for
+an unknown one)."""
 from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
                                       WirelessConfig, get_arch, list_archs)
 from repro_torch.configs import chatglm3_6b  # noqa: F401

@@ -150,9 +150,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_arch(name: str) -> ArchConfig:
     import repro_torch.configs  # noqa: F401  (populates registry)
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port has "
-                       f"{sorted(_REGISTRY)} (the rest are still to port, "
-                       f"see ROADMAP.md)")
+        raise KeyError(f"unknown arch {name!r}; the registered archs are "
+                       f"{sorted(_REGISTRY)} (ROADMAP.md lists what the "
+                       f"port runs of each)")
     return _REGISTRY[name]
 
 

@@ -160,6 +160,39 @@ def attention_args(what: str, q, k, v, hd: int) -> int:
     return code
 
 
+# shared memory one CTA may take on the H100 (sm_90's opt-in limit,
+# cudaDevAttrMaxSharedMemoryPerBlockOptin: 227 KiB)
+SMEM_LIMIT = 232_448
+
+
+def longest_table(smem_bytes) -> int:
+    """The most pages a table row may hold with `smem_bytes(pages)` (a
+    nondecreasing function of the row's length) within SMEM_LIMIT; 0 if
+    not even one page fits."""
+    lo, hi = 0, 1
+    while smem_bytes(hi) <= SMEM_LIMIT:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if smem_bytes(mid) <= SMEM_LIMIT else (lo, mid)
+    return lo
+
+
+def check_staging(what: str, smem_bytes, n_lp: int, page: int) -> None:
+    """Refuse, before launch, a paged launch whose page bases do not fit
+    one CTA's shared memory: `smem_bytes(n_lp)` is the bytes a CTA takes
+    at a table row of n_lp pages."""
+    need = smem_bytes(n_lp)
+    if need > SMEM_LIMIT:
+        top = longest_table(smem_bytes)
+        raise ValueError(
+            f"{what}: a cache of {n_lp} pages of {page} ({n_lp * page} "
+            f"columns) needs {need} bytes of shared memory a CTA, above "
+            f"the card's {SMEM_LIMIT} (227 KiB); at these shapes the "
+            f"longest cache the kernel takes is {top} pages ({top * page} "
+            f"columns)")
+
+
 def int_rows(x, B: int, device):
     """A scalar or [B] integer vector as a contiguous int32 [B] tensor on
     `device` (the per-slot lengths / starts)."""

@@ -46,7 +46,11 @@
 //     merges the partials in split order 0..n_split-1.
 //   - paged: before the loop the CTA stages the row base of each page of
 //     its split's range in shared memory (one table read per page, one
-//     barrier); the loop's loads then wait on no table read.
+//     barrier); the loop's loads then wait on no table read. That is 8
+//     bytes a page beside the merge buffer, so the longest cache a
+//     launch takes is bounded by the card's 227 KiB a CTA (at page 16
+//     and one split, some 460,000 columns): the wrapper refuses a
+//     longer one before launch (ops.check_paged_decode).
 // No float atomics anywhere: the same inputs give the same bits. What it
 // computes is the Pallas kernel's: s = (q . k) * scale in f32; running
 // (m, l, acc) in f32; p = exp(s - m); l sums the unrounded p; p rounded to
@@ -315,14 +319,30 @@ __global__ void __launch_bounds__(256)
   out[i] = a / fmaxf(lsum, 1e-30f);
 }
 
+// Static shared memory of split_decode_kernel<T, HD, GB, *>: sm_acc, sm_m
+// and sm_l (ops.decode_smem_bytes restates it).
+template <int HD, int GB>
+constexpr int static_smem() {
+  return (int)sizeof(float) * WARPS * GB * (HD + 2);
+}
+
 template <typename T, int HD, int GB, typename Cols>
 int launch_split(const void* q, const void* k, const void* v, float* out,
                  float* ws, const int* lengths, const Cols cols,
                  int smem_pages, int B, int Hkv, int G, int n_split,
                  int window, float scale, cudaStream_t st) {
   const dim3 grid(B, Hkv * ((G + GB - 1) / GB), n_split);
+  const int smem = smem_pages * (int)sizeof(long long);
+  // past the 48 KiB every launch may take, the kernel must opt in (up to
+  // the card's 227 KiB; the wrapper refuses a cache that needs more)
+  if (smem + static_smem<HD, GB>() > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        split_decode_kernel<T, HD, GB, Cols>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
   split_decode_kernel<T, HD, GB, Cols>
-      <<<grid, THREADS, smem_pages * sizeof(long long), st>>>(
+      <<<grid, THREADS, smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), out, ws, lengths, cols, Hkv, G, n_split,
           window, scale);

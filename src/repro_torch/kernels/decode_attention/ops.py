@@ -46,6 +46,32 @@ def decode_splits(B: int, Hkv: int, G: int) -> int:
     return max(1, min(-(-TARGET_CTAS // units), MAX_SPLITS))
 
 
+# warps of a decode CTA (decode_attention.cu's WARPS)
+WARPS = 4
+
+
+def decode_smem_bytes(hd: int, G: int, n_split: int, page: int,
+                      n_lp: int) -> int:
+    """Shared memory of one paged decode CTA: the warps' merge buffer
+    (WARPS x group rows x (hd + 2) floats, the kernel's static arrays)
+    and the row base, 8 bytes, of each page one split's range of a
+    table row of n_lp pages can touch (kv_cols.cuh's `max_pages`)."""
+    cols = -(-n_lp * page // n_split)
+    pages = min(-(-cols // page) + 1, n_lp)
+    return 4 * WARPS * group_rows(G) * (hd + 2) + 8 * pages
+
+
+def check_paged_decode(B: int, Hkv: int, G: int, hd: int, page: int,
+                       n_lp: int) -> None:
+    """Refuse, before launch, a table row longer than one CTA's shared
+    memory can stage at these shapes (raises ValueError naming the
+    limit and the longest cache the kernel takes)."""
+    n_split = decode_splits(B, Hkv, G)
+    build.check_staging(
+        "gqa_decode_paged",
+        lambda n: decode_smem_bytes(hd, G, n_split, page, n), n_lp, page)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("decode_attention")
@@ -95,7 +121,9 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     """q [B, H, hd]; pools [n_pages, Hkv, page, hd]; `tables` [B, n_lp]
     per-slot page tables; `length` scalar or per-row [B] valid-prefix
     counts. Returns [B, H, hd] f32. The dense kernel's split-KV body
-    over n_lp * page columns; page ids are clamped into the pool."""
+    over n_lp * page columns; page ids are clamped into the pool. A
+    table row whose pages one CTA cannot stage (`check_paged_decode`)
+    raises before launch."""
     if not q.is_cuda:
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, length,
                                           window=window).float()
@@ -109,6 +137,7 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     lengths = build.int_rows(length, B, q.device)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     G, n_lp = H // Hkv, tbl.shape[1]
+    check_paged_decode(B, Hkv, G, hd, page, n_lp)
     n_split = decode_splits(B, Hkv, G)
     ws = torch.empty((B, H, n_split, hd + 2) if n_split > 1 else (0,),
                      dtype=torch.float32, device=q.device)

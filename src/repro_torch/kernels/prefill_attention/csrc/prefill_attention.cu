@@ -23,12 +23,16 @@
 //
 // Design. One CTA of 4 warps per (b, h, block of 16 * WR rows); paged, it
 // first stages the row base of each page of its span in shared memory
-// (one table read per page, one barrier). WR warps each own 16 rows, and
-// the KS = 4 / WR warps of one row group take every KS-th tile of the
-// group's span (64 columns at head dim 64, 32 at 128: a tile is 8 KiB
-// either way; 16 at 160), so the CTA keeps its 4 warps busy even at 16
-// rows. The head dim is a template parameter, built for 64, 128 and 160;
-// a warp holds HD / 4 registers of Q fragments and HD / 2 of O
+// (one table read per page, one barrier). The C entry sizes that array
+// for the whole table row, 8 bytes a page beside the tiles, so the card's
+// 227 KiB a CTA bound the longest cache a launch takes (in bf16 12,672
+// pages at head dim 64 and 128, 18,304 at 160): the wrapper refuses a
+// longer one before launch (ops.check_paged_prefill). WR warps each own
+// 16 rows, and the KS = 4 / WR warps of one row group take every KS-th
+// tile of the group's span (64 columns at head dim 64, 32 at 128: a tile
+// is 8 KiB either way; 16 at 160), so the CTA keeps its 4 warps busy even
+// at 16 rows. The head dim is a template parameter, built for 64, 128
+// and 160; a warp holds HD / 4 registers of Q fragments and HD / 2 of O
 // accumulators (40 and 80 at 160). A warp's Q fragments stay in registers
 // for the whole loop. Each warp stages its own K/V tiles in bf16 in
 // shared memory with cp.async (16 bytes a lane), double-buffered, laid

@@ -16,6 +16,7 @@ host sync per step, not one per layer) or derived here from the mask.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -93,11 +94,23 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- RoPE
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
+    """The rotary frequencies, computed on the host in float32 (bit for
+    bit the JAX package's on the CPU) and kept on `device`. The card's
+    pow differs from the host's in the last place for some of them,
+    which moves an angle near position 30,000 by an ulp of the angle, up
+    to 1.2e-4 in its sine (an H100, positions 0-32,767, hd 64)."""
+    with torch.inference_mode(False):      # a tensor autograd may meet
+        freqs = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32)
+                                / dim)
+        return freqs.to(device)
+
+
 def rope_angles(positions: torch.Tensor, dim: int, theta: float) -> tuple:
     """positions [...,S] -> (sin, cos) each [...,S,dim/2] fp32."""
-    freqs = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
-                                         device=positions.device) / dim)
-    ang = positions.float()[..., None] * freqs
+    ang = positions.float()[..., None] * _rope_freqs(dim, float(theta),
+                                                     positions.device)
     return torch.sin(ang), torch.cos(ang)
 
 

@@ -76,15 +76,19 @@ def window_for(cfg, shape_cfg) -> int:
     return 0
 
 
-# data shards of the JAX package's production mesh (16 x 16): the live
-# steps microbatch as if on it; the dry run passes its mesh's count
-DEFAULT_DATA_SHARDS = 16
+# data shards of the one card the live steps run on: with no shape
+# override and no arch microbatch_size, a micro-step takes one sequence
+# (at train_4k, 4,096 tokens: qwen1.5-0.5b's f32 logits alone are 2.5
+# GB a sequence). The JAX package's live default is its production
+# mesh's 16; the dry run passes its mesh's count
+LIVE_DATA_SHARDS = 1
 
 
 def auto_microbatch(cfg, shape_cfg,
-                    n_data_shards: int = DEFAULT_DATA_SHARDS) -> int:
+                    n_data_shards: int = LIVE_DATA_SHARDS) -> int:
     """Number of grad-accumulation microbatches: the shape's override,
-    then the arch's microbatch_size, then one sample per data shard."""
+    then the arch's microbatch_size, then one sample per data shard
+    (the JAX package's rule)."""
     if shape_cfg.microbatch:
         return shape_cfg.global_batch // shape_cfg.microbatch
     if cfg.microbatch_size and shape_cfg.global_batch > cfg.microbatch_size:
@@ -169,7 +173,7 @@ def trainable_axes(cfg, wcfg=None) -> dict:
 
 def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
                     lr: float = 3e-4, momentum: float = 0.9,
-                    n_data_shards: int = DEFAULT_DATA_SHARDS):
+                    n_data_shards: int = LIVE_DATA_SHARDS):
     """Returns train_step(state, batch, key[, lr]) -> (state, metrics):
     gradients summed over `auto_microbatch` microbatches in float32
     accumulators (microbatch i on key.fold_in(i)), divided by their

@@ -65,7 +65,7 @@ from repro_torch.models.encdec import src_len
 from repro_torch.nn import resolve_device, tree_leaves, tree_map
 from repro_torch.runtime.fl_runtime import SYNC_KEY_FOLD, make_fl_train_step
 from repro_torch.runtime.train_step import (Lowered, _forward,
-                                            DEFAULT_DATA_SHARDS,
+                                            LIVE_DATA_SHARDS,
                                             auto_microbatch, init_train_state,
                                             key_sds, make_local_step,
                                             make_train_step, metrics_sds,
@@ -232,7 +232,7 @@ class _ScaledScheme:
     def _step_cost_flops(self) -> float:
         """FLOPs of one round program; cached."""
         if self._cost_flops is None:
-            self._cost_flops = self._program_flops(DEFAULT_DATA_SHARDS)
+            self._cost_flops = self._program_flops(LIVE_DATA_SHARDS)
         return self._cost_flops
 
     def flops(self, steps_total: int):
@@ -325,7 +325,7 @@ class ScaledCentralizedScheme(_ScaledScheme):
         """The round's train step readied for `mesh` (launch/dryrun.py's
         input), with `n_data_shards` data shards for its microbatching
         (default the live step's)."""
-        nd = n_data_shards or DEFAULT_DATA_SHARDS
+        nd = n_data_shards or LIVE_DATA_SHARDS
         wcfg = self._step_wcfg()
         step = make_train_step(self.cfg, self.shape, wcfg,
                                optimizer=self.optimizer, n_data_shards=nd)

@@ -1,0 +1,316 @@
+"""The port at the JAX package's long shapes (configs/base.py's
+train_4k, prefill_32k, decode_32k, long_500k), on the CPU against the
+live JAX package, at small widths:
+
+* `rope_angles` / `apply_rope` at positions 0-32,767 (hd 64, theta
+  10,000). torch's CPU sin / cos and XLA's differ in the last place:
+  measured on this suite's CPU, 4.8 % of the angles' sines and cosines
+  one float32 ulp apart (at most 5.96e-8), none more; the rotated
+  values then part by at most ROPE_APPLY_TOL.
+* `ServeEngine` at the reduced qwen1.5-0.5b (2 layers, d_model 256,
+  f32) on prompts of 1,024-2,048 tokens over many pages (page 16, chunk
+  256, 129 pages a slot), paged and dense, through the fused prefill
+  (the card's path), with the JAX engine's draws: greedy tokens, cycles
+  and bills equal to the JAX engine's (which runs its scan prefill), and
+  each prompt's last-chunk logits within 2e-4 (the suite's attention
+  tolerance) of JAX's teacher-forced `forward` on the delivered prompt.
+* One CL and one SL step (Q8, 20 dB) at seq 1,024 in two micro-steps of
+  one sequence, against the JAX scheme on one data shard: bills exact,
+  the SL step 2 x 2 x 1,024 x 64 x 8 bits; losses as
+  tests/test_torch_scaled_schemes.py gates them (1e-4, Q8 SL 1e-2).
+* The one-card microbatch rule (runtime/train_step.py): the shape's
+  override, then the arch's microbatch_size, then one sequence a
+  micro-step; the dry run keeps its mesh's data shards.
+* The paged kernels' page-staging limit (kernels/build.py SMEM_LIMIT):
+  the ops' own shape check takes the longest table row one CTA stages
+  and refuses one page more, naming the limit, before any launch."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _jax_keys import JaxKey, JaxServeDraws, scaled_on_init
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import get_arch as jax_arch
+from repro.configs.base import ShapeConfig as JShape
+from repro.configs.base import WirelessConfig as JW
+from repro.models import api as JM
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro.nn import init_params as jax_init
+from repro.runtime import train_step as JTS
+from repro.schemes import Experiment as JExperiment
+from repro.schemes import build_scheme as j_build_scheme
+from repro.schemes.radio import Radio as JRadio
+from repro.serve import Request as JRequest
+from repro.serve import RequestTrace as JRequestTrace
+from repro.serve import ServeEngine as JServeEngine
+from repro_torch.configs import SHAPES, ShapeConfig, WirelessConfig, get_arch
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import ops as dec
+from repro_torch.kernels.prefill_attention import ops as pre
+from repro_torch.models import layers as L
+from repro_torch.nn import params_from_jax
+from repro_torch.runtime import train_step as TS
+from repro_torch.schemes import Experiment, build_scheme
+from repro_torch.schemes.radio import Radio
+from repro_torch.serve import Request, RequestTrace, ServeEngine
+
+JCFG = jax_arch("qwen1.5-0.5b").reduced()
+CFG = get_arch("qwen1.5-0.5b").reduced()
+LOGIT_TOL = 2e-4
+ROPE_ULPS, ROPE_APPLY_TOL = 1, 1e-6
+LOSS_TOL, SL_LOSS_TOL, ACC_TOL = 1e-4, 1e-2, 0.01
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------------ RoPE
+def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    ia, ib = (x.view(np.int32).astype(np.int64) for x in (a, b))
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return np.abs(ia - ib)
+
+
+@pytest.mark.parametrize("part", ("angles", "apply"))
+def test_rope_at_32k_positions_matches_jax(part):
+    pos = np.arange(32_768, dtype=np.int32)[None]
+    js, jc = (np.asarray(a) for a in JL.rope_angles(jnp.asarray(pos), 64,
+                                                    10_000.0))
+    ts, tc = (a.numpy() for a in L.rope_angles(torch.as_tensor(pos), 64,
+                                               10_000.0))
+    if part == "angles":
+        for j, t in ((js, ts), (jc, tc)):
+            assert _ulps(j, t).max() <= ROPE_ULPS
+            assert (j != t).mean() < 0.06
+        return
+    x = np.random.default_rng(0).standard_normal(
+        (1, 32_768, 2, 64)).astype(np.float32)
+    want = np.asarray(JL.apply_rope(jnp.asarray(x), jnp.asarray(js),
+                                    jnp.asarray(jc)))
+    got = L.apply_rope(torch.from_numpy(x), torch.from_numpy(ts),
+                       torch.from_numpy(tc)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ROPE_APPLY_TOL)
+
+
+# --------------------------------------------------------------- serving
+LINK = dict(snr_db=20.0, fading=True)
+ENGINE = dict(n_slots=3, greedy=True, chunk_size=256, page_size=16)
+
+
+def _long_trace(cls_req, cls_trace):
+    """Prompts of 1,024-2,048 tokens (whole chunks and a ragged tail),
+    arrivals staggered so prefill chunks and decode steps share cycles."""
+    return cls_trace(seed=11, requests=tuple(
+        cls_req(rid=i, arrival_cycle=[0, 0, 2, 5][i],
+                prompt_len=[2_048, 1_300, 1_024, 1_537][i],
+                max_new_tokens=[4, 6, 3, 5][i],
+                snr_db=[20.0, 12.0, 25.0, 16.0][i])
+        for i in range(4)))
+
+
+def _rows(rep):
+    return [(r.rid, r.status, r.tokens, r.prompt_len, r.admit_cycle,
+             r.first_token_cycle, r.ttft_cycles, r.complete_cycle,
+             r.latency_cycles, r.uplink_bits, r.downlink_bits, r.bits,
+             r.erased_bits, r.energy_j, r.n_tx, r.outage_s)
+            for r in rep.results]
+
+
+@pytest.fixture(scope="module")
+def served():
+    """The JAX engine (chunked, paged) on the long trace, and both
+    models' weights."""
+    jp = jax_init(jax.random.PRNGKey(0), JM.param_specs(JCFG))
+    pp = params_from_jax(jax.tree.map(np.asarray, jp), CFG, "cpu")
+    jrep = JServeEngine(JCFG, jp, radio=JRadio(**LINK), **ENGINE).serve(
+        _long_trace(JRequest, JRequestTrace))
+    return jp, pp, jrep
+
+
+def _record_prompts(eng, S: int) -> list:
+    """Wrap the engine's prefill so that each slot's prompt is rebuilt
+    chunk by chunk. Returns the list that gets, once per served prompt,
+    (its tokens, the logits after its last chunk), in full after the
+    serve: a slot's prompt ends where its next one starts (start 0)."""
+    built = eng.build(S)
+    inner, rows, done = built["prefill"], {}, []
+
+    def prefill(cache, toks, st, nv, tbl):
+        lg, cache = inner(cache, toks, st, nv, tbl)
+        for b in (nv > 0).nonzero()[:, 0].tolist():
+            if int(st[b]) == 0 and b in rows:
+                done.append(rows.pop(b))
+            seq = rows[b][0] if b in rows else []
+            rows[b] = (seq + toks[b, :int(nv[b])].tolist(), lg[b].clone())
+        return lg, cache
+
+    built["prefill"] = prefill
+    return done, rows
+
+
+@pytest.mark.parametrize("kv", ("paged", "dense"))
+def test_engine_at_long_prompts_matches_jax(served, kv):
+    jp, pp, jrep = served
+    trace = _long_trace(Request, RequestTrace)
+    eng = ServeEngine(CFG, pp, radio=Radio(**LINK), kv=kv,
+                      prefill_impl="fused", device="cpu",
+                      draws=JaxServeDraws, **ENGINE)
+    done, open_rows = _record_prompts(eng, max(8, trace.max_seq_len()))
+    rep = eng.serve(trace)
+    done += list(open_rows.values())
+    assert rep.kv == kv and rep.prefill == "chunked"
+    if kv == "paged":
+        assert rep.n_pages == jrep.n_pages == 3 * 129
+        assert rep.peak_pages == jrep.peak_pages
+    assert rep.cycles == jrep.cycles
+    assert _rows(rep) == _rows(jrep)
+    assert sorted(len(seq) for seq, _ in done) == sorted(
+        r.prompt_len for r in trace.requests)
+    for seq, got in done:
+        want = JT.forward(jp, {"tokens": jnp.asarray([seq], jnp.int32)},
+                          JCFG)[0][0, -1]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=LOGIT_TOL)
+
+
+# -------------------------------------------------------------- training
+TRAIN = {"cl_20db": dict(mode="cl", snr_db=20.0),
+         "sl_q8_20db": dict(mode="sl", quant_bits=8, snr_db=20.0,
+                            compress_factor=4)}
+SEQ, BATCH = 1_024, 2
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN))
+def test_step_at_seq_1024_in_two_micro_steps_matches_jax(name):
+    kw = TRAIN[name]
+    jshape = JShape("long", SEQ, BATCH, "train")
+    shape = ShapeConfig("long", SEQ, BATCH, "train")
+    jscheme = j_build_scheme(JW(**kw), cfg=JCFG, shape=jshape,
+                             steps_per_cycle=1, n_data_shards=1)
+    jexp = JExperiment(jscheme, cycles=1, seed=0, n_train=4, n_test=BATCH)
+    jres = jexp.run()
+    scheme = build_scheme(WirelessConfig(**kw), cfg=CFG, shape=shape,
+                          device="cpu", key=JaxKey.root, steps_per_cycle=1)
+    assert scheme._micro_count(TS.LIVE_DATA_SHARDS) == BATCH \
+        == JTS.auto_microbatch(JCFG, jshape, 1)
+    (xtr, ytr), _ = scheme.default_data(4, BATCH, 0)
+    exp = Experiment(scheme, cycles=1, seed=0, n_train=4, n_test=BATCH,
+                     on_init=scaled_on_init(j_build_scheme(
+                         JW(**kw), cfg=JCFG, shape=jshape,
+                         steps_per_cycle=1, n_data_shards=1), xtr, ytr))
+    res = exp.run()
+    (r,), (jr,) = exp.reports, jexp.reports
+    assert (r.bits, r.n_tx, r.erased_bits, r.steps) == \
+        (jr.bits, jr.n_tx, jr.erased_bits, jr.steps)
+    if kw["mode"] == "sl":
+        assert r.bits == 2 * BATCH * SEQ * (CFG.d_model // 4) * 8
+    else:
+        assert exp.init_delivery.bits == jexp.init_delivery.bits \
+            == 4 * SEQ * 10
+    np.testing.assert_allclose(res.loss, jres.loss, rtol=0,
+                               atol=SL_LOSS_TOL if kw["mode"] == "sl"
+                               else LOSS_TOL)
+    np.testing.assert_allclose(res.accuracy, jres.accuracy, rtol=0,
+                               atol=ACC_TOL)
+    assert all(np.isfinite(res.loss))
+
+
+# (global batch, shape microbatch, arch microbatch_size, data shards,
+#  micro-steps): train_4k live on one card, cut to 32 as the card runs
+#  it, with the shape's override, with an arch microbatch_size, and the
+#  dry run on the 16 x 16 mesh's data shards
+MICRO = {"train_4k": (256, 0, 0, None, 256),
+         "train_4k_cut": (32, 0, 0, None, 32),
+         "shape_override": (32, 8, 0, None, 4),
+         "arch_microbatch": (32, 0, 2, None, 16),
+         "dry_run_pod": (256, 0, 0, 16, 16)}
+
+
+@pytest.mark.parametrize("case", sorted(MICRO))
+def test_one_card_microbatch_rule_at_train_4k(case):
+    batch, mb, arch_mb, shards, want = MICRO[case]
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=batch,
+                                microbatch=mb)
+    jshape = dataclasses.replace(J_SHAPES["train_4k"], global_batch=batch,
+                                 microbatch=mb)
+    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b"),
+                              microbatch_size=arch_mb)
+    jcfg = dataclasses.replace(jax_arch("qwen1.5-0.5b"),
+                               microbatch_size=arch_mb)
+    got = TS.auto_microbatch(cfg, shape) if shards is None \
+        else TS.auto_microbatch(cfg, shape, shards)
+    assert got == want == JTS.auto_microbatch(jcfg, jshape, shards or 1)
+    if shards is None:
+        # the live SL scheme bills and crosses by the same count
+        s = build_scheme(WirelessConfig(mode="sl"), cfg=cfg, shape=shape,
+                         device="cpu")
+        assert s._n_micro == want
+
+
+# -------------------------------------------------------- page staging
+def _decode_bytes(B, Hkv, G, hd):
+    n_split = dec.decode_splits(B, Hkv, G)
+    return lambda n: dec.decode_smem_bytes(hd, G, n_split, 16, n)
+
+
+# op, shape arguments, the longest table row at page 16 (pages)
+STAGING = {
+    "decode_hd64_one_split": ("decode", (4, 99, 1, 64), 28_924),
+    "decode_hd128_g8_one_split": ("decode", (4, 99, 8, 128), 28_016),
+    "decode_hd160_g4_one_split": ("decode", (4, 99, 4, 160), 27_760),
+    "decode_32k_qwen_16_slots": ("decode", (16, 16, 1, 64), 57_846),
+    "prefill_bf16_hd64": ("prefill", (64, torch.bfloat16), 12_672),
+    "prefill_bf16_hd128": ("prefill", (128, torch.bfloat16), 12_672),
+    "prefill_bf16_hd160": ("prefill", (160, torch.bfloat16), 18_304),
+    "prefill_f32_hd64": ("prefill", (64, torch.float32), 26_192),
+    "prefill_f32_hd128": ("prefill", (128, torch.float32), 23_632),
+    "prefill_f32_hd160": ("prefill", (160, torch.float32), 25_056),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGING))
+def test_paged_ops_refuse_past_the_staging_limit(case):
+    op, shape, top = STAGING[case]
+    if op == "decode":
+        nbytes = _decode_bytes(*shape)
+
+        def check(n):
+            dec.check_paged_decode(*shape, 16, n)
+    else:
+        nbytes = (lambda hd, dt: lambda n: pre.prefill_smem_bytes(
+            hd, dt, n))(*shape)
+
+        def check(n):
+            pre.check_paged_prefill(*shape, 16, n)
+    assert build.longest_table(nbytes) == top
+    assert nbytes(top) <= build.SMEM_LIMIT < nbytes(top + 1)
+    check(top)
+    with pytest.raises(ValueError, match=r"232448 \(227 KiB\)") as e:
+        check(top + 1)
+    assert f"longest cache the kernel takes is {top} pages" in str(e.value)
+
+
+@pytest.mark.parametrize("shape", ("decode_32k", "long_500k"))
+def test_registered_shapes_against_the_staging_limit(shape):
+    """decode_32k's 2,048 pages a slot stage in both paged kernels;
+    long_500k's 32,768 stage in K8 (8 splits of one slot) but not in
+    K10, which stages a whole table row: the op refuses that prefill."""
+    n_lp = SHAPES[shape].seq_len // 16
+    B = 16 if shape == "decode_32k" else 1
+    dec.check_paged_decode(B, 16, 1, 64, 16, n_lp)
+    if shape == "decode_32k":
+        pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp)
+        return
+    with pytest.raises(ValueError, match="227 KiB"):
+        pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp)
