@@ -35,13 +35,17 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    registered shapes (prefill_32k / decode_32k): K7-K10 at qwen's heads
    (16 / 1 / 64) and at 4 / 16 / 64, caches of 4,096 and 32,768, ragged
    lengths, without and with long_500k's window of 8,192, in bf16 and
-   f32, decode on 16 rows, prefill on 4 rows of 256-token chunks and,
-   in bf16 at 32,768 with qwen's heads, at phase 16's launch (16 rows of
-   2,048): against their plain versions at the same tolerances (the
-   prefill plain version over a few chunk rows a call), twice for the
-   same bits, paged = dense bit for bit, every bf16 case timed beside
-   its bound, its plain version and (dense) SDPA held to its
-   memory-efficient kernel. And the page staging: K8 (at one split) and
+   f32, decode on 8 rows, prefill on 4 rows of 256-token chunks and,
+   in bf16 at 32,768 with qwen's heads, at phase 16's launch (8 rows of
+   2,048), and long_500k's launches at its window (one row of 524,288
+   columns, 32,768 pages: the decode at the full length, the prefill at
+   the last prompt chunk's 2,048 rows from 522,240; bf16 and f32):
+   against their plain versions at the same tolerances (the prefill
+   plain version over a few chunk rows a call), twice for the same
+   bits, paged = dense bit for bit, every bf16 case timed beside its
+   bound, its plain version and (dense) SDPA held to its
+   memory-efficient kernel; K10 at long_500k without the window is
+   refused before launch. And the page staging: K8 (at one split) and
    K10 (bf16, f32) launch at the longest table row one CTA's 227 KiB of
    shared memory holds at each built head dim, agree with their plain
    versions there, and refuse one page more before launch;
@@ -89,13 +93,13 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    and CL's accuracy and test loss within 0.01 and 2e-3. FL's first
    sync is redone on the CPU from the card's uploads (bit for bit, and
    the synced model scores the same on both); FL's first cycle is rerun
-   on the CPU with 1, 2, 4 and the default number of threads, and the
-   card must lie within 0.01 in accuracy, 2e-3 in test-set loss and 16
-   synced weights more than 1e-4 apart of the nearest of those runs
-   (the CPU runs' own spread printed beside it). It checks that every
+   on the CPU with one intra-op thread (the order nearest the card's),
+   which must bill the same, and the card must lie within 0.01 in
+   accuracy, 2e-3 in test-set loss and 16 synced weights more than 1e-4
+   apart of it. It checks that every
    eval (one slice of 2,048 test rows) launched K3 and K4 once each and
-   that no training round launched either. It traces one FL cycle for
-   the device idle share;
+   that no training round launched either. It traces one FL cycle (J
+   1) for the device idle share;
 6. holds the tiny model's kernels against their plain versions on the
    card within 2e-5 abs + rel (the JAX suite's tolerance): K3
    `user_conv_pool` at the eval slice [2048, 30, 8], a batch [512, 30,
@@ -172,7 +176,7 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    FaultPlan, 4 cycles killed at 2): accuracies, losses, total bits,
    every report and every state tensor equal to the uninterrupted run
    (`torch.equal`); then the synthetic billing plane at 10^4 (3 rounds)
-   and 10^5 (2 rounds) clients, printing seconds per round, the SL
+   and 10^5 (1 round) clients, printing seconds per round, the SL
    replay's share, n_active, bits and erased bits, with one 10^4 round
    again on the CPU, bit for bit. No attention kernel may launch;
 11. trains qwen1.5-0.5b at full width and depth (24 layers, d_model
@@ -182,18 +186,22 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    corpus over 20 dB) and SL (split 2, compress 4, Q8, 20 dB, AdamW), 2
    cycles of 5 steps; FL (3 users, J 5, Q8, 20 dB, SGD) one barrier
    cycle through K1, one through K2 (`use_kernel`) and 2 delayed cycles
-   at Q4 on the int4 wire. SL and the K2 cycle run through the training
-   CLI (`launch.train --arch qwen1.5-0.5b --mode sl|fl ...`), the others
-   through `build_scheme` + `Experiment`. It checks the bills (FL 3,711,901,696 bits a
-   user a Q8 cycle, 1,855,950,848 at int4, n_tx 42; SL 4,194,304 a step;
-   CL's corpus 1,179,648 once), K1 twice a SL step at [1024, 256] and
-   once an eval slice (counted apart), K1 once a K1 FL cycle at the
-   sync's [5,437,368, 256], K2 once a K2 cycle, no K3-K10 launch, every
+   at Q4 on the int4 wire; the K1 and int4 runs with the depth cut to 4
+   layers (206,984,192 parameters). SL and the K2 cycle run through the
+   training CLI (`launch.train --arch qwen1.5-0.5b --mode sl|fl ...`),
+   the others through `build_scheme` + `Experiment`. It checks the bills
+   (FL 3,711,901,696 bits a user a Q8 cycle at 24 layers, 1,655,873,536
+   at 4, 827,936,768 at int4 and 4 layers, n_tx 42; SL 4,194,304 a
+   step; CL's corpus 1,179,648 once), K1 twice a SL step at [1024, 256]
+   and once an eval slice (counted apart), K1 once a FL cycle at the
+   4-layer sync's [2,425,608, 256], K2 once a K2 cycle at the
+   [5,437,368, 256] of 24 layers, no K3-K10 launch, every
    loss finite and CL's and SL's last-cycle loss below their first
    step's; it prints each run's seconds per cycle, the sync's seconds
    and its host flip-word draws, the peak RSS, `max_memory_allocated`,
-   and the idle share of a traced CL step and FL cycle. Then the same
-   schemes at the reduced config on the card and the CPU (bills equal,
+   and the idle share of a traced CL step. Then the same schemes at
+   the reduced config, one cycle of 2 steps (FL: 2 local steps) on the
+   card and the CPU (bills equal,
    losses within 2e-3, accuracy within 0.01, an FL cycle's uploads
    synced through K1 and K2 bit for bit with the CPU), and K2 at one
    stacked [24, 1024, 1024] leaf of the sync (3 x 98,304 rows) and K1
@@ -206,9 +214,9 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    prompt_lens=(32, 128), new_tokens=(8, 32))`: qwen3-moe-235b-a22b (hd
    64, 128 experts top-8) at 4 of 94 layers, 16 requests;
    llama4-scout-17b-a16e (hd 128, G 5, 16 experts top-1 + shared) at 2
-   of 48, chatglm3-6b (hd 128, G 16) at its full 28,
+   of 48, chatglm3-6b (hd 128, G 16) at 4 of 28,
    command-r-plus-104b (hd 128, G 12, parallel block) at 2 of 64,
-   stablelm-12b (hd 160, G 4, layernorm) at its full 40 and
+   stablelm-12b (hd 160, G 4, layernorm) at 4 of 40 and
    internvl2-76b (hd 128, G 8; served on tokens, as the JAX engine
    serves it) at 4 of 80, 8 requests each. It checks each run's two kernels once per layer per
    decode step and prefill chunk, paged = dense bills, tokens and
@@ -224,8 +232,9 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    and attention (the traced serve replays one request, as phase 3's).
    Then
    qwen3-moe-235b-a22b and llama4-scout-17b-a16e at
-   `reduced()` through the scaled CL, SL and FL (K1) schemes, one cycle
-   each on the card and the CPU: bills equal, losses within 2e-3,
+   `reduced()` through the scaled CL, SL (2 steps) and FL (K1; 2 local
+   steps) schemes, one cycle each on the card and the CPU: bills equal,
+   losses within 2e-3,
    accuracy within 0.01, every CL / SL step's load-balance loss finite
    and > 0, K1 by shape, no K3-K10 launch. Phase 2 also holds K7-K10 at
    these configs' heads (KV heads, G, hd: 4, 16, 64; 8, 5, 128; 2, 16,
@@ -241,7 +250,8 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    in f32; the gap to it with cuBLAS's default bf16 split-K reductions is
    printed beside), the bill exactly the two crossings' token bits and
    energy, no kernel launched; then the scaled
-   CL and SL (AdamW, 2 steps, split at super-block 2) through
+   CL and SL (AdamW, 2 steps, split at super-block 2; the depth cut to
+   3 super-blocks, 18 layers) through
    `build_scheme` + `Experiment` and FL (3 users x 1 local step, the K1
    sync) through `launch.train --arch xlstm-350m --mode fl`, one cycle
    each on the training CLI's corpus (512 training rows, batch 8, seq
@@ -255,8 +265,9 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    idle share. Then internvl2-76b and xlstm-350m at `reduced()` through
    the scaled CL, SL (2 steps) and FL (K1; 2 local steps) schemes, card
    against CPU as phase 12's MoE runs;
-14. drives the hybrid and audio families at full width and depth
-   (zamba2-1.2b: 38 Mamba2 blocks, 6 super-blocks of 6 + a tail of 2,
+14. drives the hybrid and audio families at full width (serving at
+   full depth; CL and SL cut to 3 super-blocks and the tail, 20 blocks,
+   and to 6 + 6 layers) (zamba2-1.2b: 38 Mamba2 blocks, 6 super-blocks of 6 + a tail of 2,
    the shared attention + MLP block after each super-block, d_model
    2048, 32 heads at hd 64, SSM state 64; seamless-m4t-medium: 12 + 12
    layers, d_model 1024, 16 heads at hd 64, layernorm, vocab 256,256;
@@ -278,8 +289,9 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    CL, SL and FL (K1) schemes, card against CPU as phase 12's MoE runs.
    Phase 2 also holds K7 at the static loop's decode shapes (4 rows;
    KV heads / cache 32 / 48, 16 / 48, 16 / 512) and times two of them;
-15. drives the mesh and compile machinery (P16): qwen1.5-0.5b at full
-   width, SL (split 2, one step, 16 / 8 rows), through
+15. drives the mesh and compile machinery (P16): qwen1.5-0.5b at
+   `--reduced` (2 layers, d_model 256: a full-width process took 30-52
+   s), SL (split 2, one step, 16 / 8 rows), through
    `python -m repro_torch.launch.train` in two processes that share one
    fresh kernel-build cache (`REPRO_TORCH_KERNEL_CACHE_DIR`): first
    `--mesh test --aot-warmup` (cold: `nvcc` builds K1's library), then
@@ -294,8 +306,8 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    bills as the same trace without a mesh, through K8 and K10;
 16. runs the JAX package's long shapes with qwen1.5-0.5b at full width
    and depth (random weights from --seed), counters set to 0 before each
-   part and read after: `ServeEngine` on 16 slots serves 16 requests of
-   32,704 prompt and 64 new tokens (caches of 32,768: 48 GiB of KV),
+   part and read after: `ServeEngine` on 8 slots serves 8 requests of
+   32,704 prompt and 64 new tokens (caches of 32,768: 24 GiB of KV),
    chunks of up to 2,048, page 16, greedy, a fading 10 dB radio, paged
    then dense (one layout freed before the other is built), with phase
    3's checks: each run's two kernels once per layer for every decode
@@ -304,8 +316,21 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    and within LOGIT_TOL of the same chunk run again on the same cache
    through the plain attention (over 256 chunk rows a call); it prints
    tok/s, TTFT in seconds and cycles and `max_memory_allocated`. Then
+   long_500k (524,288 columns, batch 1) through the step builders at
+   `SHAPES["long_500k"]` (window 8,192; fused prefill), paged (a pool
+   of 32,768 pages through a seeded permutation) then dense: one prompt
+   of 524,224 seeded tokens in 256 chunks of 2,048, then 64 greedy
+   decode steps to position 524,287. It checks K10 / K9 6,144 launches
+   and K8 / K7 1,536, no other kernel, paged = dense bit for bit in the
+   last chunk's logits, every decode step's logits and the tokens,
+   every logit finite, and the last chunk within LOGIT_TOL of the same
+   chunk rerun through the plain attention on the paged cache (32
+   chunk rows a call); it prints the card's RoPE gap at positions
+   0-524,351, prefill seconds and tok/s, decode ms a step,
+   `max_memory_allocated` and each part's seconds. Then
    one CL and one SL step (split 2, compress 4, Q8, 20 dB, AdamW) at
-   seq 4,096 on 2 sequences (train_4k's 256 cut), through
+   seq 4,096 on 2 sequences (train_4k's 256 cut) with the depth cut to
+   LONG_TRAIN_LAYERS (8 of 24), through
    `build_scheme` and the scheme's calls of `Experiment`'s first cycle,
    in micro-steps of one sequence (the one-card rule): bills exact
    (CL's corpus 2 x 4,096 x 18 bits once,
@@ -450,11 +475,12 @@ class Case:
     """Seeded inputs of one kernel call on the card (dense and paged
     layouts of the same K/V), with the bytes and operations the call
     needs for this data. Lengths, starts and page tables come from
-    `rng`; q, K and V too, or, given `gen` (a CUDA torch.Generator),
-    from `gen` on the card, which draws a long cache in milliseconds."""
+    `rng` (the lengths / starts from `rows` where given); q, K and V
+    too, or, given `gen` (a CUDA torch.Generator), from `gen` on the
+    card, which draws a long cache in milliseconds."""
 
     def __init__(self, rng, B, Hkv, G, S, hd, page, C, window, dtype,
-                 gen=None):
+                 gen=None, rows=None):
         import numpy as np
         import torch
         dev = torch.device("cuda")
@@ -472,7 +498,9 @@ class Case:
 
         self.q = randn(*qshape)
         self.k, self.v = randn(B, Hkv, S, hd), randn(B, Hkv, S, hd)
-        if C is None:       # decode: row b attends its first len[b] cols
+        if rows is not None:
+            rows = np.asarray(rows, dtype=np.int64)
+        elif C is None:     # decode: row b attends its first len[b] cols
             rows = rng.integers(1, S + 1, B)
         else:               # prefill: chunk starts on chunk boundaries
             rows = 32 * rng.integers(0, (S - C) // 32 + 1, B)
@@ -493,7 +521,8 @@ class Case:
 
     def count(self, window: int) -> None:
         """Set the window and what this data needs under it: K/V columns
-        read once, (q, k) pairs scored."""
+        read once, (q, k) pairs scored, the table entries of the pages
+        those columns lie on."""
         import numpy as np
         self.window = window
         C, G, rows = self.C, self.G, self.rows_np.astype(np.int64)
@@ -508,8 +537,8 @@ class Case:
             qlo = np.maximum(0, qp - window + 1) if window else 0 * qp
             pairs = G * int((qp + 1 - qlo).sum())
         esz = self.q.element_size()
-        pages = sum(math.ceil((r + (C or 0)) / self.page)
-                    for r in rows.tolist())
+        pages = int(((rows + (C or 0) - 1) // self.page - lo // self.page
+                     + 1).sum())
         self.nbytes = (self.q.numel() * esz + 2 * cols * self.Hkv * self.hd
                        * esz + self.q.numel() * 4 + 4 * self.B)
         self.nbytes_paged = self.nbytes + 4 * pages
@@ -815,15 +844,28 @@ def time_case(kern, case, reps: int = 20, plain=None,
 # the registered long shapes (configs/base.py's prefill_32k, decode_32k):
 # qwen1.5-0.5b's heads and a GQA head shape (KV heads, G, hd), at caches
 # of 4,096 and 32,768, without and with long_500k's window
-# (runtime/train_step.py's `window_for`); decode on phase 16's 16 slots,
-# prefill on 4 rows of 256-token chunks, and at phase 16's own prefill
-# launch, 16 rows of 2,048 at 32,768 with qwen's heads (bf16)
+# (runtime/train_step.py's `window_for`); decode on phase 16's LONG_SLOTS
+# slots, prefill on 4 rows of 256-token chunks, and at phase 16's own
+# prefill launch, LONG_SLOTS rows of 2,048 at 32,768 with qwen's heads
+# (bf16). Then
+# long_500k's launches with qwen's heads, in bf16 and f32: one row of
+# 524,288 columns (32,768 pages of 16) at its window, the prefill at the
+# last prompt chunk's 2,048 rows from L500_LAST_START, the decode at the
+# full length; and K10 there without the window, which it refuses
 LONG_HEADS = ((16, 1, 64), (4, 16, 64))
 LONG_CACHES = (4_096, 32_768)
 LONG_WINDOW = 8_192
-LONG_DECODE_ROWS = 16
+# phase 16's serving slots (half the 16 one card holds, for time)
+LONG_SLOTS = 8
 LONG_PREFILL = (4, 256)
-LONG_PATH_PREFILL = (16, 2_048)
+LONG_PATH_PREFILL = (LONG_SLOTS, 2_048)
+L500_S = 524_288
+L500_CHUNK = 2_048
+# the prompt fills all but the decode's 64 columns: 256 chunks of 2,048,
+# the last holding 1,984 tokens from 522,240
+L500_NEW = 64
+L500_PROMPT = L500_S - L500_NEW
+L500_LAST_START = (L500_PROMPT - 1) // L500_CHUNK * L500_CHUNK
 # graph replays a long case is timed over (each call reads its GB once)
 LONG_REPS = 5
 # the plain prefill version's f32 logits at most this many bytes a call
@@ -855,11 +897,13 @@ def _long_plain(kern, case):
 
 def check_long_kernels(seed: int) -> tuple:
     """K7-K10 at LONG_HEADS x LONG_CACHES, without and with LONG_WINDOW,
-    in bf16 and f32 (K/V drawn on the card), against their plain
-    versions at TOL, twice for the same bits, each paged kernel equal to
-    its dense twin bit for bit; every bf16 case timed beside its bound,
-    its plain version and (dense) SDPA. Returns ({kernel: by_shape
-    rows}, {kernel: max_abs_err}, failures)."""
+    at phase 16's prefill launch and at long_500k's launches, in bf16
+    and f32 (K/V drawn on the card), against their plain versions at
+    TOL, twice for the same bits, each paged kernel equal to its dense
+    twin bit for bit; every bf16 case timed beside its bound, its plain
+    version and (dense) SDPA; K10 at long_500k without its window
+    refused. Returns ({kernel: by_shape rows}, {kernel: max_abs_err},
+    failures)."""
     import numpy as np
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
@@ -872,13 +916,18 @@ def check_long_kernels(seed: int) -> tuple:
         for S in LONG_CACHES:
             for dtype in (bf16, f32):
                 heads = dict(Hkv=hkv, G=g, S=S, hd=hd, dtype=dtype)
-                specs.append((dict(heads, B=LONG_DECODE_ROWS, C=None),
+                specs.append((dict(heads, B=LONG_SLOTS, C=None),
                               (0, LONG_WINDOW)))
                 specs.append((dict(heads, B=LONG_PREFILL[0],
                                    C=LONG_PREFILL[1]), (0, LONG_WINDOW)))
     specs.append((dict(B=LONG_PATH_PREFILL[0], C=LONG_PATH_PREFILL[1],
                        Hkv=16, G=1, S=LONG_CACHES[-1], hd=64, dtype=bf16),
                   (0,)))
+    for dtype in (bf16, f32):
+        heads = dict(B=1, Hkv=16, G=1, S=L500_S, hd=64, dtype=dtype)
+        specs.append((dict(heads, C=None, rows=[L500_S]), (LONG_WINDOW,)))
+        specs.append((dict(heads, C=L500_CHUNK, rows=[L500_LAST_START]),
+                      (LONG_WINDOW,)))
     for i, (kw, windows) in enumerate(specs):
         s = seed + 1000 + i
         case = Case(np.random.default_rng(s), page=16, window=0,
@@ -933,10 +982,30 @@ def check_long_kernels(seed: int) -> tuple:
                 rows[kern["name"]].append(dict(
                     shape=_shape_key(kern, case), cache=case.S,
                     window=window, launches=None, **ms))
+        if case.S == L500_S and case.C is not None:
+            msg = _refused(by_name["paged_prefill_attention"]["fn"],
+                           *_args(by_name["paged_prefill_attention"], case))
+            print(f"  check paged_prefill_attention long S={case.S} "
+                  f"without a window {case.dtype}: refused before launch "
+                  f"{bool(msg)} ({msg}) {'ok' if msg else 'FAILED'}",
+                  flush=True)
+            if not msg:
+                failures.append(f"paged_prefill_attention at {case.S} "
+                                f"without a window not refused")
         del case
         gc.collect()
         torch.cuda.empty_cache()
     return rows, errs, failures
+
+
+def _refused(fn, *a) -> str:
+    """The message of the staging refusal `fn(*a)` raises before launch,
+    or "" if it launched."""
+    try:
+        fn(*a)
+    except ValueError as e:
+        return str(e) if "227 KiB" in str(e) else ""
+    return ""
 
 
 def check_staging_limits() -> tuple:
@@ -956,13 +1025,6 @@ def check_staging_limits() -> tuple:
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
-    def refused(fn, *a) -> str:
-        try:
-            fn(*a)
-        except ValueError as e:
-            return str(e) if "227 KiB" in str(e) else ""
-        return ""
     for hd in build.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             B, Hkv, G = 4, 99, 1
@@ -978,7 +1040,7 @@ def check_staging_limits() -> tuple:
             want = kt["paged_decode_attention"]["plain"](
                 *_f32((q, kp, vp, tbl[:, :2], lens))).float()
             err_d = float((got - want).abs().max())
-            msg_d = refused(dec.gqa_decode_paged, q, kp, vp, tbl, lens)
+            msg_d = _refused(dec.gqa_decode_paged, q, kp, vp, tbl, lens)
             C = 16
             top_p = build.longest_table(
                 lambda n: pre.prefill_smem_bytes(hd, dtype, n))
@@ -991,7 +1053,7 @@ def check_staging_limits() -> tuple:
             want = kt["paged_prefill_attention"]["plain"](
                 *_f32((qp, kq, vq, tp[:, :1], st))).float()
             err_p = float((got - want).abs().max())
-            msg_p = refused(pre.gqa_prefill_paged, qp, kq, vq, tp, st)
+            msg_p = _refused(pre.gqa_prefill_paged, qp, kq, vq, tp, st)
             tol = TOL[str(dtype).split(".")[1]]
             name = f"hd {hd} {dtype}"
             ok = err_d <= tol and err_p <= tol and msg_d and msg_p
@@ -1605,7 +1667,8 @@ def serve_phase(seed: int) -> tuple:
         failures += launch_failures(cfg, kv, calls, n)
         launches.update({k: n[k] for k in SERVE_PATH[kv]})
         runs[kv] = (rep, firsts, d)
-        prof[kv] = profile_phase(eng, traced_sample(trace), kv)
+        prof[kv] = profile_phase(eng, traced_sample(trace), kv,
+                                 host_ops=False)
         if prof[kv].get("unmatched_kernel_patterns"):
             failures.append(f"kv={kv}: no traced kernel matches "
                             f"{prof[kv]['unmatched_kernel_patterns']}")
@@ -1744,16 +1807,18 @@ FL_BITS_PER_USER = 8 * 89_673          # paper Table II: 0.72 Mbit
 # bit for bit, and the synced model scored on the CPU within ACC_TOL /
 # TEST_LOSS_TOL of the card's score. FL's independent trajectory: the
 # FL cycle is rerun on the CPU with each of FL_THREADS intra-op threads
-# and the default (another summation order each; the multi-threaded
-# runs also differ from one call to the next), and the card must lie
-# within ACC_TOL / TEST_LOSS_TOL / FAR_COUNT_TOL synced weights more than
-# FAR_TOL apart of the nearest CPU run (on H100 machines the 1-thread
-# run: accuracy equal, test loss 1.6e-5, 4 weights, in two calls). The
-# CPU runs' own spread is printed beside it.
+# (another summation order each; a multi-threaded run also differs from
+# one call to the next), and the card must lie within ACC_TOL /
+# TEST_LOSS_TOL / FAR_COUNT_TOL synced weights more than FAR_TOL apart
+# of the nearest CPU run. On H100 machines the 1-thread run is the
+# nearest (accuracy equal, test loss 1.6e-5, 4 weights, in four calls,
+# against 0.03-0.12 in accuracy at 2, 4 and 8 threads), so it is the
+# one run kept: the others cost the script 30-60 s. With more than one,
+# their own spread is printed beside it.
 STEP_TOL = 2e-5
 LOSS_TOL, ACC_TOL, TEST_LOSS_TOL = 2e-3, 0.01, 2e-3
 FAR_TOL, FAR_COUNT_TOL = 1e-4, 16
-FL_THREADS = (1, 2, 4)
+FL_THREADS = (1,)
 
 
 def _wire_counters():
@@ -2086,8 +2151,7 @@ def train_phase(seed: int, shapes: dict) -> tuple:
 
     # the same draw stream on the CPU: identical bills, close training
     import torch
-    fl_cpu = fl_cpu_runs(seed, sorted(set(FL_THREADS)
-                                      | {torch.get_num_threads()}))
+    fl_cpu = fl_cpu_runs(seed, FL_THREADS)
     n_cpu = torch.get_num_threads()
 
     def bills(run):
@@ -2098,7 +2162,8 @@ def train_phase(seed: int, shapes: dict) -> tuple:
 
     for m in ("fl", "sl", "cl"):
         c = card[m]
-        h = fl_cpu[n_cpu] if m == "fl" else _train_run(m, 1, "cpu", seed)
+        h = fl_cpu[FL_THREADS[0]] if m == "fl" else \
+            _train_run(m, 1, "cpu", seed)
         same = bills(c) == bills(h)
         if m == "fl":
             same = same and all(bills(c) == bills(r)
@@ -2110,7 +2175,8 @@ def train_phase(seed: int, shapes: dict) -> tuple:
         held = "" if m == "fl" else (f", |d accuracy| {da:.5f} (tol "
                                      f"{ACC_TOL}), |d test loss| {dt:.2e} "
                                      f"(tol {TEST_LOSS_TOL})")
-        print(f"train {m} card vs CPU (cycle 0, {n_cpu} threads): bills "
+        threads = FL_THREADS[0] if m == "fl" else n_cpu
+        print(f"train {m} card vs CPU (cycle 0, {threads} threads): bills "
               f"equal {same}; |d train loss| {dl:.2e} (tol {LOSS_TOL})"
               f"{held}; CPU wall {h['walls'][0]:.2f} s", flush=True)
         summary[m].update(cpu_bills_equal=same, cpu_abs_d_accuracy=da,
@@ -2442,7 +2508,7 @@ def fl_checks(card, cpu_runs) -> tuple:
     tol = dict(accuracy=ACC_TOL, test_loss=TEST_LOSS_TOL,
                far_weights=FAR_COUNT_TOL)
     for k, t in tol.items():
-        widest = max(d[k] for d in spread.values())
+        widest = max((d[k] for d in spread.values()), default=0.0)
         nearest = min(d[k] for d in to_card.values())
         print(f"train fl {k}: card to the nearest CPU run {nearest:.6g} "
               f"(tol {t}); card to each of {threads} threads "
@@ -2480,16 +2546,17 @@ def step_gap(seed: int) -> float:
 
 
 def profile_train(seed: int) -> dict:
-    """One FL cycle (the paper's full size) under torch.profiler, device
-    activity only (its ~180,000 kernels; host op events would multiply
+    """One FL cycle (the paper's full size, one local epoch: at J 5 its
+    ~180,000 kernels took the profiler 30-55 s to process) under
+    torch.profiler, device activity only (host op events would multiply
     the trace's processing time): the share of the traced wall time in
     which no kernel ran on the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import WirelessConfig
     from repro_torch.schemes import Experiment, build_scheme
-    scheme = build_scheme(WirelessConfig(mode="fl", quant_bits=8),
-                          device="cuda")
+    scheme = build_scheme(WirelessConfig(mode="fl", quant_bits=8,
+                                         local_steps=1), device="cuda")
     exp = Experiment(scheme, cycles=1, seed=seed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2497,7 +2564,7 @@ def profile_train(seed: int) -> dict:
         exp.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return _idle_summary(prof, wall_us, "FL cycle")
+    return _idle_summary(prof, wall_us, "FL cycle, J 1")
 
 
 # device kernels of each serving attention path: a traced kernel counts
@@ -2516,19 +2583,21 @@ ATTENTION_KERNELS = {
                                            "PagedCols"),)}}
 
 
-def profile_phase(eng, trace, kv: str, kernels=None) -> dict:
+def profile_phase(eng, trace, kv: str, kernels=None,
+                  host_ops: bool = True) -> dict:
     """One serve of `trace` under torch.profiler, after the timed runs
     (tracing slows the host, so the end-to-end numbers come from the
     untraced runs): the share of the traced wall time in which a kernel
-    ran on the card, device time by kernel, host time by op, and each
-    attention kernel's share of the device's busy time (`kernels`, by
-    default ATTENTION_KERNELS[kv]). Patterns that match no traced kernel
-    are listed under "unmatched_kernel_patterns"."""
+    ran on the card, device time by kernel, host time by op (with
+    `host_ops`: op events multiply the trace's processing time), and
+    each attention kernel's share of the device's busy time (`kernels`,
+    by default ATTENTION_KERNELS[kv]). Patterns that match no traced
+    kernel are listed under "unmatched_kernel_patterns"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         t0 = time.perf_counter()
         rep = eng.serve(trace)
         torch.cuda.synchronize()
@@ -2773,7 +2842,7 @@ def tiny_serve_phase(seed: int, params: dict, shapes: dict) -> tuple:
         failures.append("tiny tokens differ between card and CPU away from "
                         "a near-tie")
     prof = profile_phase(eng, RequestTrace(trace.seed, trace.requests[:64]),
-                         "dense", kernels={})
+                         "dense", kernels={}, host_ops=False)
     summary = dict(d, serve_s=serve_s, requests_per_s=TINY_REQUESTS / serve_s,
                    warmup_s=warm, launches_in_serve=serve_launches,
                    forward_launches={k: launches[k] - serve_launches[k]
@@ -3053,7 +3122,7 @@ def options_phase(seed: int, sl_run: dict, weights: dict, card_name: str,
 FLEET_N_TRAIN, FLEET_N_TEST = 4096, 512
 MIXED4_ROUND_BITS = 717_384 + 358_692 + 2 * 1_835_008 + 2 * 917_504
 RESUME_CYCLES, KILL_AT = 4, 2
-FLEET_SCALE = ((10_000, 3), (100_000, 2))
+FLEET_SCALE = ((10_000, 3), (100_000, 1))   # a 10^5 round: 6-14 s
 TRAIN_PLANE_CYCLES = 3
 LAUNCH_FLEET = 10_000
 FLEET_BILLS = ("bits", "n_tx", "energy_j", "erased_bits", "outage_s",
@@ -3410,7 +3479,8 @@ def fleet_scale(seed: int, card_name: str) -> tuple:
                   f"{r.erased_bits}; {rec['status_counts'][c]} "
                   f"({card_name})", flush=True)
         print(f"fleet synthetic n={n}: steady {rec['steady_s']:.3f} s per "
-              f"round over rounds 1..{rounds - 1}", flush=True)
+              f"round over rounds {min(1, rounds - 1)}..{rounds - 1}",
+              flush=True)
         if any(r != (0, 0, 0) for r in run["rounds"]) or \
                 any(e != (0, 1, 1) for e in run["evals"]):
             failures.append(f"synthetic n={n}: launches per round "
@@ -3532,8 +3602,12 @@ def fleet_phase(seed: int, card_name: str, shapes: dict) -> tuple:
 # (QWEN_CLI): CL (AdamW, corpus over a 20 dB link) and SL (split 2,
 # compress 4, Q8, 20 dB, AdamW), 2 cycles of 5 steps; FL (3 users, J 5,
 # Q8, 20 dB, SGD): one barrier cycle through K1, one with use_kernel
-# through K2, 2 delayed cycles at Q4 on the int4 wire. (b) the same schemes at the reduced config (2 layers, d_model
-# 256, vocab 1,024), 2 cycles on the card and on the CPU: bills equal,
+# through K2 (through the CLI, at full depth), 2 delayed cycles at Q4 on
+# the int4 wire; the K1 and int4 runs at QWEN_LAYERS's depth (their
+# host flip-word draws grow with the parameters: 14 and 30 s at 24
+# layers). (b) the same schemes at the reduced config (2 layers, d_model
+# 256, vocab 1,024; 2 steps, 2 local steps), 1 cycle on the card and on
+# the CPU: bills equal,
 # losses within LOSS_TOL, accuracy within ACC_TOL; one more FL cycle's
 # uploads synced through K1 and K2 on the card and their plain versions
 # on the CPU, bit for bit. (c) K2 at one stacked [24, 1024, 1024] leaf of
@@ -3542,6 +3616,7 @@ def fleet_phase(seed: int, card_name: str, shapes: dict) -> tuple:
 QWEN = "qwen1.5-0.5b"
 SCALED_N_TRAIN, SCALED_N_TEST, SCALED_STEPS = 512, 128, 5
 QWEN_PARAMS = 463_987_712
+QWEN_LAYERS = {"fl_k1": 4, "fl_delayed_int4": 4}   # run -> cut depth
 QWEN_SL_STEP_BITS = 4_194_304      # 2 legs x 8 x 128 x 1024 / 4 x Q8
 QWEN_CL_BITS = 512 * 128 * 18      # 18-bit token ids (vocab 151,936)
 QWEN_LEAF_ROWS = 24 * 1024 * 1024 // 256      # one stacked attention leaf
@@ -3664,11 +3739,12 @@ def _counted(scheme, kinds: list, step_losses=None):
 
 def _qwen_run(name: str, seed: int, card_name: str, profile_one: bool):
     """One phase-11 run at full width on the card. Returns its record."""
-    import numpy as np
     import torch
-    from repro_torch.configs import get_arch
+    from repro_torch.models import api as M
+    from repro_torch.nn import count_params
     from repro_torch.schemes import Experiment, build_scheme
     wcfg, opts, cycles = _scaled_runs()[name]
+    cfg = _qwen_cfg(name)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3694,8 +3770,7 @@ def _qwen_run(name: str, seed: int, card_name: str, profile_one: bool):
         same = (scheme.wcfg == wcfg and len(exp.reports) == cycles
                 and all(getattr(scheme, k) == v for k, v in opts.items()))
     else:
-        scheme = build_scheme(wcfg, cfg=get_arch(QWEN), device="cuda",
-                              **opts)
+        scheme = build_scheme(wcfg, cfg=cfg, device="cuda", **opts)
         _counted(scheme, kinds, losses if wcfg.mode != "fl" else None)
         exp = Experiment(scheme, cycles=cycles, seed=seed,
                          n_train=SCALED_N_TRAIN, n_test=SCALED_N_TEST)
@@ -3722,15 +3797,17 @@ def _qwen_run(name: str, seed: int, card_name: str, profile_one: bool):
                / 2 ** 30, peak_rss_gib=_peak_rss_gib(),
                user_flops=res.user_flops, server_flops=res.server_flops,
                entry="launch.train" if name in QWEN_CLI else
-               "build_scheme + Experiment", settings_as_asked=same, **clock)
+               "build_scheme + Experiment", settings_as_asked=same,
+               layers=cfg.n_layers,
+               params=count_params(M.train_param_specs(cfg)), **clock)
     if profile_one:
         rec["profile"] = prof
     if name == "sl":
         rec["dry_run"] = _dry_run_bytes(scheme, exp, seed)
     del exp, scheme
     torch.cuda.empty_cache()
-    print(f"qwen {name} through {rec['entry']}: {cycles} cycles, "
-          f"{wall:.1f} s (round "
+    print(f"qwen {name} through {rec['entry']}: {cfg.n_layers} layers, "
+          f"{cycles} cycles, {wall:.1f} s (round "
           f"{[round(s, 3) for s in rec['round_s']]} s, eval "
           f"{[round(s, 3) for s in rec['eval_s']]} s); sync "
           f"{rec.get('sync_s', 0.0):.2f} s of which flip-word draws "
@@ -3767,12 +3844,22 @@ def _profile_scaled(exp, scheme, name: str, seed: int) -> dict:
                          f"{'step' if scheme.mode == 'cl' else 'cycle'}")
 
 
-def _fl_sync_rows(n_users: int) -> int:
-    """K1's rows at qwen1.5-0.5b's FL sync: n_users x the plan's rows
-    (each leaf padded to whole 256-wide rows, the total to 8)."""
+def _qwen_cfg(name: str = ""):
+    """qwen1.5-0.5b, cut to QWEN_LAYERS[name] layers where listed."""
+    import dataclasses
     from repro_torch.configs import get_arch
+    cfg = get_arch(QWEN)
+    if name in QWEN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=QWEN_LAYERS[name])
+    return cfg
+
+
+def _fl_sync_rows(n_users: int, name: str = "") -> int:
+    """K1's rows at the FL sync of phase 11's run `name` (default the
+    full depth): n_users x the plan's rows (each leaf padded to whole
+    256-wide rows, the total to 8)."""
     from repro_torch.schemes.scaled import packet_sizes
-    rows = sum(-(-int(s) // 256) for s in packet_sizes(get_arch(QWEN)))
+    rows = sum(-(-int(s) // 256) for s in packet_sizes(_qwen_cfg(name)))
     return n_users * (-(-rows // 8) * 8)
 
 
@@ -3815,8 +3902,9 @@ def _qwen_checks(runs: dict) -> list:
                              ("fl_delayed_int4", 4, k1)):
         r = runs[name]
         per_user = [b / 3 for b in r["bits"]]
-        want(name, per_user == [float(bits * QWEN_PARAMS)] * len(r["bits"]),
-             f"bits per user {per_user}")
+        want(name, per_user == [float(bits * r["params"])] * len(r["bits"])
+             and (r["params"] == QWEN_PARAMS) == (r["layers"] == 24),
+             f"bits per user {per_user} ({r['params']} parameters)")
         want(name, r["n_tx"] == [42.0] * len(r["bits"]), f"n_tx {r['n_tx']}")
         other = k2 if kern == k1 else k1
         want(name, all(c[kern] == 1 and c[other] == 0 for c in r["rounds"]),
@@ -3827,8 +3915,9 @@ def _qwen_checks(runs: dict) -> list:
 
 
 def _reduced_card_vs_cpu(seed: int, card_name: str) -> tuple:
-    """Phase 11 (b): CL, SL and FL (K1, K2) at the reduced config, 2
-    cycles on the card and on the CPU; then one FL cycle's uploads from
+    """Phase 11 (b): CL, SL (FAMILY_STEPS steps) and FL (K1, K2;
+    FAMILY_STEPS local steps) at the reduced config, one cycle on the
+    card and on the CPU; then one FL cycle's uploads from
     the card synced through K1 and K2 on both. Returns (summary,
     failures)."""
     import dataclasses
@@ -3844,10 +3933,14 @@ def _reduced_card_vs_cpu(seed: int, card_name: str) -> tuple:
     summary, failures = {}, []
     for name in ("cl", "sl", "fl_k1", "fl_k2"):
         wcfg, opts, _ = runs[name]
+        if opts:
+            opts = dict(opts, steps_per_cycle=FAMILY_STEPS)
+        else:
+            wcfg = dataclasses.replace(wcfg, local_steps=FAMILY_STEPS)
         out = {}
         for dev in ("cuda", "cpu"):
             exp = Experiment(build_scheme(wcfg, cfg=cfg, device=dev, **opts),
-                             cycles=2, seed=seed, n_train=128, n_test=32)
+                             cycles=1, seed=seed, n_train=128, n_test=32)
             out[dev] = (exp, exp.run())
         (ec, rc), (eh, rh) = out["cuda"], out["cpu"]
         bills = [(r.bits, r.n_tx, r.erased_bits) for r in ec.reports] == \
@@ -3953,8 +4046,9 @@ def _qwen_kernels(seed: int) -> tuple:
     """Phase 11 (c): K2 at one stacked [24, 1024, 1024] leaf of the qwen
     sync (3 users) and K1 at the full-width SL leg [1024, 256], each
     against its plain version bit for bit and timed beside its bound;
-    then K1 and K2 at the whole FL sync (3 x 1,812,456 rows, the shape
-    the path gives them), timed with events and held against their plain
+    then K1 and K2 at the whole FL sync of 24 layers (3 x 1,812,456
+    rows, the shape the path gives K2; K1's run is cut to 4 layers),
+    timed with events and held against their plain
     versions bit for bit slab by slab: the row geometry, K1's size_t
     element index and K2's u * rows + row at 5.4 M rows. Returns ({row
     name: {shape: times}}, {shape: times at the whole sync}, failures)."""
@@ -4063,18 +4157,21 @@ def scaled_phase(seed: int, card_name: str, shapes: dict) -> tuple:
         for name in _scaled_runs():
             t0 = time.perf_counter()
             runs[name] = _qwen_run(name, seed, card_name,
-                                   profile_one=name in ("cl", "fl_k1"))
+                                   profile_one=name == "cl")
             secs[name] = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     failures = merge_shapes(shapes, phase_shapes, launches, "qwen")
     failures += _qwen_checks(runs)
     k1_shapes = dict(phase_shapes.get("packed_wire_2d", {}))
-    sl, fl = runs["sl"], ("fl_k1", "fl_k2", "fl_delayed_int4")
+    sl = runs["sl"]
     want_k1 = {(1024, 256): sum(c["packed_wire_2d"] for c in
-                                sl["rounds"] + sl["evals"]),
-               (_fl_sync_rows(3), 256): sum(
-                   c["packed_wire_2d"] for n in fl
-                   for c in runs[n]["rounds"] + runs[n]["profiled_rounds"])}
+                                sl["rounds"] + sl["evals"])}
+    for n in ("fl_k1", "fl_k2", "fl_delayed_int4"):
+        key = (_fl_sync_rows(3, n), 256)
+        want_k1[key] = want_k1.get(key, 0) + sum(
+            c["packed_wire_2d"] for c in runs[n]["rounds"]
+            + runs[n]["profiled_rounds"])
+    want_k1 = {k: v for k, v in want_k1.items() if v}
     print(f"qwen launches {launches}; K1 by shape {k1_shapes} (want "
           f"{want_k1})", flush=True)
     if k1_shapes != want_k1:
@@ -4104,10 +4201,12 @@ def scaled_phase(seed: int, card_name: str, shapes: dict) -> tuple:
 # 64, 128 experts top-8, expert d_ff 1536, vocab 151,936) at 4 of its 94
 # layers and llama4-scout-17b-a16e (d_model 5120, 40 / 8 heads, hd 128,
 # 16 experts top-1 + a shared expert, expert d_ff 8192, vocab 202,048)
-# at 2 of 48; chatglm3-6b (28 layers, hd 128, 32 / 2 heads, half-dim
-# RoPE, QKV bias) at full depth and command-r-plus-104b (d_model 12,288,
-# 96 / 8 heads, hd 128, layernorm, parallel block) at 2 of 64. Depth is
-# cut with dataclasses.replace here, not by a flag. Each run: K8 + K10
+# at 2 of 48; chatglm3-6b (hd 128, 32 / 2 heads, half-dim RoPE, QKV
+# bias) at 4 of 28, command-r-plus-104b (d_model 12,288, 96 / 8 heads,
+# hd 128, layernorm, parallel block) at 2 of 64, stablelm-12b (hd 160,
+# layernorm) at 4 of 40 (both depths cut for the script's time) and
+# internvl2-76b at 4 of 80. Depth is cut with
+# dataclasses.replace here, not by a flag. Each run: K8 + K10
 # (paged) or K7 + K9 (dense) once per layer per decode step and prefill
 # chunk; paged = dense in bills, tokens and first-chunk logits, bit for
 # bit; first-chunk logits finite and within 8 bf16 ulps at the run's
@@ -4120,8 +4219,9 @@ def scaled_phase(seed: int, card_name: str, shapes: dict) -> tuple:
 # takes the kernel run's experts, and such a swap is accepted only where
 # the two lie within ROUTER_TIE router logits (a near-tie that a bf16 ulp
 # of the router's input can flip). (d) qwen3-moe-235b-a22b and
-# llama4-scout-17b-a16e at `reduced()` through the scaled CL, SL and FL
-# (K1 sync) schemes, one cycle each on the card and on the CPU: bills
+# llama4-scout-17b-a16e at `reduced()` through the scaled CL, SL (2
+# steps) and FL (K1 sync; 2 local steps) schemes, one cycle each on the
+# card and on the CPU: bills
 # equal, losses within LOSS_TOL, accuracy within ACC_TOL, the load-balance
 # loss of every CL / SL step finite and > 0, K1 at the SL legs and the FL
 # sync by shape, no K3-K10 launch.
@@ -4129,9 +4229,9 @@ MOE_TRACE = dict(prompt_lens=(32, 128), new_tokens=(8, 32))
 # (arch, layers served (0: all), requests, first-chunk reference)
 SERVED = (("qwen3-moe-235b-a22b", 4, 16, "prefill"),
           ("llama4-scout-17b-a16e", 2, 8, "prefill"),
-          ("chatglm3-6b", 0, 8, "forward"),
+          ("chatglm3-6b", 4, 8, "forward"),
           ("command-r-plus-104b", 2, 8, "forward"),
-          ("stablelm-12b", 0, 8, "forward"),
+          ("stablelm-12b", 4, 8, "forward"),
           ("internvl2-76b", 4, 8, "forward"))
 ROUTER_TIE = 2 ** -5
 MOE_TRAINED = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
@@ -4489,7 +4589,7 @@ def wide_phase(seed: int, card_name: str, shapes: dict) -> tuple:
                     by_shape.get(k, {}).get(shp, 0) + v
     t0 = time.perf_counter()
     train_launches, summary["training"], f = reduced_training(
-        seed, card_name, shapes)
+        seed, card_name, shapes, steps=FAMILY_STEPS)
     secs["training"] = time.perf_counter() - t0
     failures += f
     for k, v in train_launches.items():
@@ -4525,6 +4625,13 @@ STATIC_ULPS = {XLSTM: 8, HYBRID: 16, AUDIO: 8}
 # in FL, and 4 eval slices (32 held-out rows); the corpus, batch and
 # sequence are the training CLI's (512 training rows, batch 8, seq 128)
 FAMILY_STEPS, FAMILY_FL_STEPS, FAMILY_N_TEST = 2, 1, 32
+# the CL and SL runs' depth (the serve and the FL run through the CLI
+# keep the full depth): 3 of xlstm-350m's 4 super-blocks, 3 of
+# zamba2-1.2b's 6 and its tail of 2, 6 of seamless-m4t-medium's 12
+# encoder and 12 decoder layers; SL still cuts at super-block 2 or the
+# encoder output, with the server's blocks after it
+FAMILY_LAYERS = {XLSTM: dict(n_layers=18), HYBRID: dict(n_layers=20),
+                 AUDIO: dict(n_layers=6, enc_layers=6)}
 # (CL's corpus bits once: token_bits(vocab) x 512 x 128; SL's bits a
 # step: 2 legs x 8 bits x crossing_elems) at full width
 FAMILY_BILLS = {
@@ -4688,10 +4795,11 @@ def static_serve(name: str, seed: int, card_name: str) -> tuple:
 
 def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
     """One full-width cycle of `name` on the card: CL / SL through
-    `build_scheme` + `Experiment` (AdamW, FAMILY_STEPS steps; SL cut at
-    layer / super-block 2, or the encoder output), FL through the
-    training CLI (3 users x FAMILY_FL_STEPS local steps, Q8, K1 sync).
-    Returns its record."""
+    `build_scheme` + `Experiment` at FAMILY_LAYERS's depth (AdamW,
+    FAMILY_STEPS steps; SL cut at layer / super-block 2, or the encoder
+    output), FL through the training CLI at full depth (3 users x
+    FAMILY_FL_STEPS local steps, Q8, K1 sync). Returns its record."""
+    import dataclasses
     import torch
     from repro_torch.configs import WirelessConfig, get_arch
     from repro_torch.schemes import Experiment, build_scheme
@@ -4720,7 +4828,8 @@ def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
         wcfg = (WirelessConfig(mode="cl", snr_db=20.0) if mode == "cl" else
                 WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
                                split_layer=2, compress_factor=4))
-        scheme = build_scheme(wcfg, cfg=get_arch(name), device="cuda",
+        cfg = dataclasses.replace(get_arch(name), **FAMILY_LAYERS[name])
+        scheme = build_scheme(wcfg, cfg=cfg, device="cuda",
                               optimizer="adamw",
                               steps_per_cycle=FAMILY_STEPS)
         _counted(scheme, kinds, losses)
@@ -4731,7 +4840,8 @@ def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
     wall = time.perf_counter() - t0
     main, step_losses = list(kinds), list(losses)
     prof = _profile_eval(exp, seed, name) if mode == "cl" else None
-    rec = dict(bits=[r.bits for r in exp.reports],
+    rec = dict(layers=exp.scheme.cfg.n_layers,
+               bits=[r.bits for r in exp.reports],
                n_tx=[r.n_tx for r in exp.reports], loss=res.loss,
                accuracy=res.accuracy, step_losses=step_losses,
                init_bits=(exp.init_delivery.bits if exp.init_delivery
@@ -4746,7 +4856,8 @@ def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
         rec["profile"] = prof
     del exp
     torch.cuda.empty_cache()
-    print(f"{name} {mode}: 1 cycle, {wall:.1f} s (round "
+    print(f"{name} {mode}: {rec['layers']} layers, 1 cycle, {wall:.1f} s "
+          f"(round "
           f"{[round(x, 3) for x in rec['round_s']]} s, eval "
           f"{[round(x, 3) for x in rec['eval_s']]} s); sync "
           f"{rec.get('sync_s', 0.0):.2f} s of which flip-word draws "
@@ -4890,15 +5001,16 @@ def family_phase(seed: int, card_name: str, shapes: dict, served: tuple,
 
 
 # ------------------------------- the mesh and compile machinery (P16)
-# phase 15. (a) qwen1.5-0.5b at full width, SL, one step, through the
+# phase 15. (a) qwen1.5-0.5b at --reduced, SL, one step, through the
 # training CLI in two processes sharing one fresh kernel-build cache:
 # `--mesh test --aot-warmup` (cold: nvcc runs), then `--mesh none
 # --aot-warmup` (warm: the library is found); (b) phase 11's live SL
 # scheme's `lower_step(make_test_mesh())` against its bytes on the card;
 # (c) `launch.serve --mesh test --aot-warmup` on 4 requests against the
 # same trace without a mesh
-P15_TRAIN = ["--arch", QWEN, "--mode", "sl", "--steps", "1", "--cycle-steps",
-             "1", "--split-layer", "2", "--n-train", "16", "--n-test", "8",
+P15_TRAIN = ["--arch", QWEN, "--reduced", "--mode", "sl", "--steps", "1",
+             "--cycle-steps", "1", "--split-layer", "2", "--n-train", "16",
+             "--n-test", "8",
              "--aot-warmup"]
 P15_SERVE = ["--arch", QWEN, "--requests", "4", "--snr-db", "10",
              "--greedy"]
@@ -5044,25 +5156,25 @@ def mesh_phase(seed: int, card_name: str, dry_run: dict) -> tuple:
 # ---------------------------------------- the long shapes (phase 16)
 # configs/base.py's prefill_32k / decode_32k and train_4k on one card,
 # qwen1.5-0.5b at full width and depth (random weights from --seed).
-# Serving: 16 requests of 32,704 prompt and 64 new tokens, so each cache
-# reaches 32,768 (96 KiB of bf16 KV a token: 3 GiB a request, 48 GiB on
-# 16 slots), chunks of up to 2,048 (buckets 4-2,048), page 16, paged
-# then dense, one layout freed before the other is built. Cut: the
-# global batch (decode_32k's 128 and prefill_32k's 32 rows to the 16
-# slots whose caches one card holds) and the new tokens. Training: one
+# Serving: LONG_SLOTS requests of 32,704 prompt and 64 new tokens, so
+# each cache reaches 32,768 (96 KiB of bf16 KV a token: 3 GiB a request,
+# 24 GiB on 8 slots), chunks of up to 2,048 (buckets 4-2,048), page 16,
+# paged then dense, one layout freed before the other is built. Cut: the
+# global batch (decode_32k's 128 and prefill_32k's 32 rows to 8 slots,
+# half the 16 whose caches one card holds, for the script's time) and
+# the new tokens. Training: one
 # CL and one SL step (split 2, compress 4, Q8, 20 dB, AdamW) at seq
-# 4,096, train_4k's 256 sequences cut to 2 (a micro-step of one
-# sequence takes 5.6-8 s, host-bound: chunked_attention's 64 blocks a
-# layer), each step in micro-steps of one sequence
-# (runtime/train_step.py's one-card rule).
+# 4,096, train_4k's 256 sequences cut to 2 and its 24 layers to 8 (a
+# micro-step of one sequence took 5.6-9 s at 24, host-bound:
+# chunked_attention's 64 blocks a layer), each step in micro-steps of
+# one sequence (runtime/train_step.py's one-card rule).
 LONG_PROMPT, LONG_NEW = 32_704, 64
-LONG_SLOTS = 16
 LONG_CHUNK = 2_048
 LONG_SERVE_KEY = (LONG_SLOTS, 16, 1, 64, LONG_PROMPT + LONG_NEW, 0)
 # chunk rows a call of the plain reference (256 x 16 heads x 32,768
 # columns of f32 logits: 0.5 GiB)
 LONG_REF_ROWS = 256
-LONG_TRAIN_BATCH = 2
+LONG_TRAIN_BATCH, LONG_TRAIN_LAYERS = 2, 8
 LONG_SEQ = 4_096
 # a micro-step's two legs: 4,096 tokens x 1,024 / 4 values x 8 bits
 LONG_SL_MICRO_BITS = 2 * LONG_SEQ * (1024 // 4) * 8
@@ -5177,6 +5289,159 @@ def long_serve(seed: int, card_name: str) -> tuple:
     return launches, summary, failures
 
 
+# long_500k (configs/base.py: 524,288 columns, batch 1) through the step
+# builders at SHAPES["long_500k"], as the JAX package's dry run lowers
+# them: window 8,192 (`window_for`), impl auto (fused on the card), page
+# 16 from a pool of 32,768 pages through a seeded permutation; the
+# plain reference over L500_REF_ROWS chunk rows a call ([32, 16, 524,288]
+# f32 logits: 1 GiB beside the 48 GiB cache)
+L500_KEY = (1, 16, 1, 64, L500_S, LONG_WINDOW)
+L500_REF_ROWS = 32
+
+
+def long_500k(seed: int, card_name: str) -> tuple:
+    """Phase 16 (b): qwen1.5-0.5b at long_500k, paged then dense (one
+    layout freed before the other is built), counters set to 0 before
+    each and read after: a prompt of L500_PROMPT seeded tokens in chunks
+    of L500_CHUNK, then L500_NEW greedy decode steps, so the cache holds
+    exactly seq_len columns. Returns ({kernel: launches}, summary,
+    failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.models import api as M
+    from repro_torch.models import transformer as T
+    from repro_torch.nn import init_params
+    from repro_torch.runtime import serve_step as SS
+    cfg = get_arch(QWEN)
+    shape = SHAPES["long_500k"]
+    page, n_lp = 16, shape.seq_len // 16
+    window = SS.window_for(cfg, shape)
+    failures = []
+    if (shape.seq_len, shape.global_batch, window) != (L500_S, 1,
+                                                       LONG_WINDOW):
+        failures.append(f"long_500k: seq_len {shape.seq_len}, batch "
+                        f"{shape.global_batch}, window {window}")
+    params = init_params(M.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(seed), "cuda")
+    rng = np.random.default_rng(seed + 500)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, L500_PROMPT).astype(np.int32)).cuda()
+    table = torch.from_numpy(rng.permutation(n_lp).astype(np.int32)) \
+        .cuda()[None]
+    secs = {}
+    t0 = time.perf_counter()
+    rope = rope_gap(L500_S + L500_NEW, cfg.hd, cfg.rope_theta)
+    secs["rope"] = time.perf_counter() - t0
+    print(f"  rope_angles at positions 0-{L500_S + L500_NEW - 1} (hd "
+          f"{cfg.hd}, theta {cfg.rope_theta:g}), card vs host CPU: {rope}",
+          flush=True)
+    counters = _all_counters()
+    path = {"paged": ("paged_prefill_attention", "paged_decode_attention"),
+            "dense": ("prefill_attention", "decode_attention")}
+    want = (cfg.n_layers * -(-L500_PROMPT // L500_CHUNK),
+            cfg.n_layers * L500_NEW)
+    runs, launches, ref = {}, {}, None
+
+    def ints(x):
+        return torch.full((1,), x, dtype=torch.int32, device="cuda")
+    for kv in ("paged", "dense"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        paged = kv == "paged"
+        tbl = (table,) if paged else ()
+        cache = (T.init_paged_cache(cfg, n_lp, page, "cuda") if paged
+                 else T.init_cache(cfg, 1, L500_S, "cuda"))
+        prefill = (SS.make_paged_prefill_step(cfg, shape, page) if paged
+                   else SS.make_prefill_step(cfg, shape))
+        step = (SS.make_paged_decode_step(cfg, shape, page) if paged
+                else SS.make_decode_step(cfg, shape))
+        for f in counters.values():
+            f.launches = 0
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for c0 in range(0, L500_PROMPT, L500_CHUNK):
+                nv = min(L500_CHUNK, L500_PROMPT - c0)
+                toks = torch.zeros((1, L500_CHUNK), dtype=torch.int32,
+                                   device="cuda")
+                toks[0, :nv] = prompt[c0:c0 + nv]
+                chunk = (toks, ints(c0), ints(nv))
+                lg, cache = prefill(params, cache, *chunk, *tbl)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            last, tok = lg[0].clone(), lg[0].argmax()
+            tokens, dec = [int(tok)], []
+            t0 = time.perf_counter()
+            for i in range(L500_NEW):
+                act = (table, torch.ones(1, dtype=torch.bool,
+                                         device="cuda")) if paged else ()
+                out, cache = step(params, cache, tok.view(1, 1),
+                                  ints(L500_PROMPT + i), *act)
+                dec.append(out[0, 0].float())
+                tok = dec[-1].argmax()
+                tokens.append(int(tok))
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+        n = {k: f.launches for k, f in counters.items()}
+        launches.update({k: n[k] for k in path[kv]})
+        got = (n[path[kv][0]], n[path[kv][1]])
+        others = {k: v for k, v in n.items() if k not in path[kv] and v}
+        if got != want or others:
+            failures.append(f"long_500k {kv}: prefill / decode kernel "
+                            f"launches {got}, want {want}; others {others}")
+        r = dict(prefill_s=t_pre, prefill_tok_s=L500_PROMPT / t_pre,
+                 decode_ms_per_step=1e3 * t_dec / L500_NEW,
+                 max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+                 / 2 ** 30, launches=dict(zip(path[kv], got)),
+                 tokens=tokens)
+        print(f"long_500k {kv} (window {window}, {L500_PROMPT} prompt "
+              f"tokens in chunks of {L500_CHUNK}, {L500_NEW} decode steps"
+              f"): prefill {t_pre:.2f} s ({r['prefill_tok_s']:.1f} tok/s), "
+              f"decode {r['decode_ms_per_step']:.2f} ms a step; launches "
+              f"{r['launches']}; max_memory_allocated "
+              f"{r['max_memory_allocated_gib']:.2f} GiB ({card_name})",
+              flush=True)
+        secs[kv] = t_pre + t_dec
+        if paged:
+            # the last chunk again through the plain attention on this
+            # cache (the decode's later columns lie past its rows' reach)
+            t0 = time.perf_counter()
+            with torch.inference_mode(), plain_attention(L500_REF_ROWS):
+                ref = prefill(params, cache, *chunk, *tbl)[0][0]
+            secs["reference"] = time.perf_counter() - t0
+        runs[kv] = (last, torch.stack(dec), r)
+        del cache, lg, out
+    (lp, dp, rp), (ld, dd, rd) = runs["paged"], runs["dense"]
+    equal = dict(last_chunk=bool(torch.equal(lp, ld)),
+                 decode=bool(torch.equal(dp, dd)),
+                 tokens=rp["tokens"] == rd["tokens"])
+    finite = all(bool(torch.isfinite(x).all()) for x in (lp, dp, ld, dd))
+    err = float((lp - ref).abs().max())
+    print(f"  long_500k paged == dense bit for bit {equal}; finite "
+          f"{finite}; last chunk against the plain reference on the same "
+          f"cache (plain attention over {L500_REF_ROWS} rows a call): max "
+          f"abs {err:.4e} (tol {LOGIT_TOL:g}), largest |logit| "
+          f"{float(ref.abs().max()):.3f}; tokens {rp['tokens'][:8]}...",
+          flush=True)
+    if not all(equal.values()):
+        failures.append(f"long_500k: paged and dense differ {equal}")
+    if not finite or err > LOGIT_TOL:
+        failures.append(f"long_500k: logits finite {finite}, last chunk "
+                        f"{err} from the plain reference (tol {LOGIT_TOL})")
+    print(f"  long_500k seconds: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in secs.items())}",
+          flush=True)
+    summary = dict(paged=rp, dense=rd, window=window, equal=equal,
+                   finite=finite, last_chunk_max_abs_vs_reference=err,
+                   rope_card_vs_cpu=rope, seconds=secs)
+    del runs, lp, dp, ld, dd, ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary, failures
+
+
 def long_train(seed: int, card_name: str, shapes: dict) -> tuple:
     """Phase 16 (b): one CL and one SL step at train_4k's sequence
     length, counters set to 0 before and read after (K1 by shape into
@@ -5195,7 +5460,7 @@ def long_train(seed: int, card_name: str, shapes: dict) -> tuple:
     from repro_torch.configs import SHAPES, WirelessConfig, get_arch
     from repro_torch.runtime.train_step import auto_microbatch
     from repro_torch.schemes import build_scheme
-    cfg = get_arch(QWEN)
+    cfg = dataclasses.replace(get_arch(QWEN), n_layers=LONG_TRAIN_LAYERS)
     shape = dataclasses.replace(SHAPES["train_4k"],
                                 global_batch=LONG_TRAIN_BATCH)
     micro = auto_microbatch(cfg, shape)
@@ -5236,7 +5501,8 @@ def long_train(seed: int, card_name: str, shapes: dict) -> tuple:
                      / 2 ** 30, micro_steps=micro)
             runs[name] = r
             print(f"long train {name} at seq {LONG_SEQ} x "
-                  f"{LONG_TRAIN_BATCH}: {micro} micro-steps of "
+                  f"{LONG_TRAIN_BATCH}, {cfg.n_layers} layers: {micro} "
+                  f"micro-steps of "
                   f"{LONG_TRAIN_BATCH // micro} sequence(s); step "
                   f"{[round(x, 3) for x in r['round_s']]} s, eval "
                   f"{[round(x, 3) for x in r['eval_s']]} s (with init "
@@ -5294,19 +5560,25 @@ def long_train(seed: int, card_name: str, shapes: dict) -> tuple:
 
 
 def long_phase(seed: int, card_name: str, shapes: dict) -> tuple:
-    """Phase 16. Returns (serving launches, training launches, K1's timed
-    shape, summary, failures)."""
+    """Phase 16. Returns (serving launches, long_500k's launches,
+    training launches, K1's timed shape, summary, failures)."""
     t0 = time.perf_counter()
     serve_launches, serve_summary, failures = long_serve(seed, card_name)
     t1 = time.perf_counter()
+    l500_launches, l500_summary, f = long_500k(seed, card_name)
+    failures += f
+    t2 = time.perf_counter()
     train_launches, timed, train_summary, f = long_train(seed, card_name,
                                                          shapes)
     failures += f
-    secs = dict(serve=t1 - t0, train=time.perf_counter() - t1)
-    print(f"phase 16 parts: serve {secs['serve']:.1f} s, train "
-          f"{secs['train']:.1f} s", flush=True)
-    return serve_launches, train_launches, timed, dict(
-        serve=serve_summary, train=train_summary, seconds=secs), failures
+    secs = dict(serve=t1 - t0, long_500k=t2 - t1,
+                train=time.perf_counter() - t2)
+    print(f"phase 16 parts: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+          f"({card_name})", flush=True)
+    return serve_launches, l500_launches, train_launches, timed, dict(
+        serve=serve_summary, long_500k=l500_summary, train=train_summary,
+        seconds=secs), failures
 
 
 def main() -> None:
@@ -5475,13 +5747,13 @@ def main() -> None:
           f"launches {p15_launches}", flush=True)
     failures += p15_failures
     t_p16 = time.perf_counter()
-    long_launches, long_train_launches, long_timed, long_summary, \
-        p16_failures = long_phase(args.seed, card, shapes)
+    long_launches, l500_launches, long_train_launches, long_timed, \
+        long_summary, p16_failures = long_phase(args.seed, card, shapes)
     for name, per in long_timed.items():
         qwen_timed.setdefault(name, {}).update(per)
     print(f"long-shape phase: {time.perf_counter() - t_p16:.1f} s; "
-          f"launches {long_launches} (serving), {long_train_launches} "
-          f"(training)", flush=True)
+          f"launches {long_launches} (serving), {l500_launches} "
+          f"(long_500k), {long_train_launches} (training)", flush=True)
     failures += p16_failures
     # the serving paths' launches by (rows, KV heads, G, hd): phase 3
     # (qwen1.5-0.5b) and phase 12 on the engine's 8 slots, phase 14 on the
@@ -5490,6 +5762,8 @@ def main() -> None:
     attn = {k: {(8, 16, 1, 64): n} for k, n in launches.items()}
     for k, n in long_launches.items():
         attn[k][LONG_SERVE_KEY] = n
+    for k, n in l500_launches.items():
+        attn[k][L500_KEY] = n
     for k, n in p15_launches.items():        # phase 15's 4 slots
         if k in attn:
             attn[k][(4, 16, 1, 64)] = n

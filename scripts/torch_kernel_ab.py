@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's packed wire (K1), conv + pool (K3), LSTM recurrence
 (K4) and tiled quantize-channel (K5) kernels from two checkouts on one
-CUDA card, in turns, at the paper path's shapes.
+CUDA card, in turns, at the paper path's shapes; and the prefill
+attention kernels (K9 dense, K10 paged) at chip_smoke.py phase 2's
+windowed shapes, where K10 sizes its page staging by the window.
 
     python3 scripts/torch_kernel_ab.py OLD_ROOT NEW_ROOT [--rounds 2]
                                        [--out results.json]
@@ -19,8 +21,10 @@ same output bits. Both checkouts must have the same wrappers:
 `kernels.quant_channel.ops.packed_wire_2d(buf, words, scale, p, bits)`,
 `kernels.quant_channel.ops.quant_channel_2d(x, words, p, bits)`,
 `kernels.quant_channel.ops.words_u32`,
-`kernels.conv_pool.ops.user_conv_pool(x, w, b)` and
-`kernels.lstm_cell.ops.lstm_final_state(xw, wh)`.
+`kernels.conv_pool.ops.user_conv_pool(x, w, b)`,
+`kernels.lstm_cell.ops.lstm_final_state(xw, wh)` and
+`kernels.prefill_attention.ops.gqa_prefill(q, k, v, start, window=)` /
+`gqa_prefill_paged(q, k_pool, v_pool, tables, start, window=)`.
 """
 from __future__ import annotations
 
@@ -36,6 +40,13 @@ REPO = Path(__file__).resolve().parents[1]
 WIRE_ROWS = (224, 1080)            # SL leg, FL upload (256 columns, Q8)
 CONV_ROWS = (512, 2048)            # uplink batch, eval slice ([B, 30, 8])
 LSTM_ROWS = (512, 2048)            # uplink batch, eval slice ([B, 14, 128])
+# (B, C, KV heads, G, S, hd, window): chip_smoke.py phase 2's windowed
+# prefill shapes (the main path's heads at S 272, phase 12's hd 160 and
+# 128 at S 160, the long caches at 32,768), each in bf16 and f32
+PREFILL_CASES = ((8, 32, 16, 1, 272, 64, 48), (8, 32, 8, 4, 160, 160, 48),
+                 (8, 32, 8, 8, 160, 128, 48),
+                 (4, 256, 16, 1, 32_768, 64, 8_192),
+                 (4, 256, 4, 16, 32_768, 64, 8_192))
 
 
 def _digest(t) -> str:
@@ -74,6 +85,24 @@ def child(root: Path) -> None:
         ms=smoke.device_ms(lambda *a: qc.quant_channel_2d(*a, 8),
                            smoke.l2_copies(args)),
         digest=_digest(qc.quant_channel_2d(*args, 8)))
+    from repro_torch.kernels.prefill_attention import ops as pre
+    for i, (B, C, hkv, g, S, hd, w) in enumerate(PREFILL_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            case = smoke.Case(np.random.default_rng(i), B=B, Hkv=hkv, G=g,
+                              S=S, hd=hd, page=16, C=C, window=w,
+                              dtype=dtype)
+            for name, fn, args in (
+                    ("prefill_attention", pre.gqa_prefill,
+                     (case.q, case.k, case.v, case.rows)),
+                    ("paged_prefill_attention", pre.gqa_prefill_paged,
+                     (case.q, case.kp, case.vp, case.tables, case.rows))):
+                call = (lambda f: lambda *a: f(*a, window=w))(fn)
+                res[f"{name} [{B}, {C}, {hkv}, {g}, {hd}] S {S} window {w}"
+                    f" {str(dtype)[6:]}"] = dict(
+                    ms=smoke.device_ms(call, [args, tuple(
+                        a.clone() for a in args)]),
+                    digest=_digest(call(*args)))
+            del case
     print("AB " + json.dumps(res), flush=True)
 
 

@@ -43,6 +43,12 @@ constexpr int THREADS = 128;   // one CTA: 4 warps
 constexpr int ROWS = 16;       // query rows per CTA
 constexpr float NEG_INF = -1e30f;
 
+// KV columns a loop step at head dim HD
+template <int HD>
+__host__ __device__ constexpr int tile_cols() {
+  return HD > 128 ? 16 : 32;
+}
+
 // One CTA: query rows [blockIdx.z*ROWS, +ROWS) of (b, h) = (blockIdx.x,
 // blockIdx.y); R = C*G rows in all.
 template <int HD, typename Cols>
@@ -52,7 +58,7 @@ __global__ void __launch_bounds__(THREADS)
                        const float* __restrict__ v, float* __restrict__ out,
                        const int* __restrict__ start, const Cols cols,
                        int Hkv, int G, int C, int window, float scale) {
-  constexpr int TILE = HD > 128 ? 16 : 32;   // KV columns a loop step
+  constexpr int TILE = tile_cols<HD>();
   static_assert(ROWS * HD % THREADS == 0, "HD vs THREADS");
   constexpr int PER = ROWS * HD / THREADS;  // accumulators per thread
   __shared__ float qs[ROWS][HD];
@@ -173,14 +179,17 @@ __global__ void __launch_bounds__(THREADS)
 
 // Launches the f32 body at head dim HD (64, 128 or 160: at 128 its static
 // shared memory is 43,328 bytes and a thread keeps 16 accumulators, at
-// 160 (16-column tiles) 32,000 bytes and 20 accumulators);
-// `smem_pages` entries of dynamic shared memory for the mapper.
+// 160 (16-column tiles) 32,000 bytes and 20 accumulators), with the
+// mapper's page bases in dynamic shared memory: a CTA's rows sit at most
+// ROWS - 1 positions past its first and its range starts on a tile, so
+// its span under a window is at most window + ROWS - 1 + TILE - 1.
 template <int HD, typename Cols>
 int launch_prefill(const float* q, const float* k, const float* v,
-                   float* out, const int* start, const Cols cols,
-                   int smem_pages, int B, int Hkv, int G, int C, int window,
-                   float scale, cudaStream_t st) {
-  const int smem = smem_pages * (int)sizeof(long long);
+                   float* out, const int* start, const Cols cols, int B,
+                   int Hkv, int G, int C, int window, float scale,
+                   cudaStream_t st) {
+  const int pages = cols.stage_pages(window, ROWS - 1 + tile_cols<HD>() - 1);
+  const int smem = pages * (int)sizeof(long long);
   if (smem > 0) {
     const cudaError_t attr = cudaFuncSetAttribute(
         prefill_f32_kernel<HD, Cols>,

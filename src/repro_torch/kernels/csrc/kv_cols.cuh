@@ -11,15 +11,27 @@
 // A CTA calls `rows(b, h, Hkv, lo, hi, base)` once, before its column
 // loop, with the range [lo, hi) of columns it may read; every thread of
 // the CTA must make the call. The paged mapper stages the row base of each
-// page that the range touches in the shared-memory array `base` (the C
-// entry sizes it with `max_pages`) behind one CTA barrier, so no K/V load
-// in the loop waits on a page-table read: the table is read once per page
-// per CTA. The dense mapper does nothing.
+// page that the range touches in the shared-memory array `base` behind
+// one CTA barrier, so no K/V load in the loop waits on a page-table read:
+// the table is read once per page per CTA. The dense mapper does nothing.
+// The launch sizes `base` with the mapper's `stage_pages`: the pages of
+// the longest range a CTA can have, which is the whole table row, or
+// under a sliding window the window and the `reach` its later rows (and
+// any rounding of the range's start down to a tile) add, whatever the
+// cache.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace kv {
+
+// Entries of `base` a CTA needs for a range of at most `cols` columns
+// starting anywhere (one more page than the range fills when unaligned),
+// and never more than the table row holds.
+inline int max_pages(int cols, int page, int n_lp) {
+  const int n = (cols + page - 1) / page + 1;
+  return n < n_lp ? n : n_lp;
+}
 
 struct DenseCols {
   int S;
@@ -34,6 +46,7 @@ struct DenseCols {
                                        long long*) const {
     return {(long long)(b * Hkv + h) * S};
   }
+  int stage_pages(int, int) const { return 0; }   // stages nothing
 };
 
 struct PagedCols {
@@ -60,14 +73,10 @@ struct PagedCols {
     __syncthreads();
     return {base, static_cast<unsigned>(p0), static_cast<unsigned>(page)};
   }
+  // entries of `base` for a CTA's range under `window` (0: the row)
+  int stage_pages(int window, int reach) const {
+    return window > 0 ? max_pages(window + reach, page, n_lp) : n_lp;
+  }
 };
-
-// Entries of `base` a CTA needs for a range of at most `cols` columns
-// starting anywhere (one more page than the range fills when unaligned),
-// and never more than the table row holds.
-inline int max_pages(int cols, int page, int n_lp) {
-  const int n = (cols + page - 1) / page + 1;
-  return n < n_lp ? n : n_lp;
-}
 
 }  // namespace kv

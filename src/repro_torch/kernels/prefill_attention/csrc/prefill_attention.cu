@@ -23,11 +23,14 @@
 //
 // Design. One CTA of 4 warps per (b, h, block of 16 * WR rows); paged, it
 // first stages the row base of each page of its span in shared memory
-// (one table read per page, one barrier). The C entry sizes that array
-// for the whole table row, 8 bytes a page beside the tiles, so the card's
-// 227 KiB a CTA bound the longest cache a launch takes (in bf16 12,672
-// pages at head dim 64 and 128, 18,304 at 160): the wrapper refuses a
-// longer one before launch (ops.check_paged_prefill). WR warps each own
+// (one table read per page, one barrier). The launch sizes that array, 8
+// bytes a page beside the tiles, for the longest span a CTA can have
+// (kv_cols.cuh's `stage_pages`): under a sliding window, the window and
+// 63 columns more (517 pages of 16 at window 8,192) whatever the cache;
+// without one, the whole table row, so the card's 227 KiB a CTA
+// bound the longest cache such a launch takes (in bf16 12,672 pages at
+// head dim 64 and 128, 18,304 at 160): the wrapper refuses a longer one
+// before launch (ops.check_paged_prefill). WR warps each own
 // 16 rows, and the KS = 4 / WR warps of one row group take every KS-th
 // tile of the group's span (64 columns at head dim 64, 32 at 128: a tile
 // is 8 KiB either way; 16 at 160), so the CTA keeps its 4 warps busy even
@@ -390,12 +393,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// A CTA's at most 16 * WARPS rows sit at most 63 positions past its
+// first, so its span under a window is at most the window + 63 columns.
 template <int HD, int WR, typename Cols>
 int launch_mma(const void* q, const void* k, const void* v, float* out,
-               const int* start, const Cols cols, int smem_pages, int B,
-               int Hkv, int G, int C, int window, float scale,
-               cudaStream_t st) {
-  const int smem = Tile<HD>::SMEM + smem_pages * (int)sizeof(long long);
+               const int* start, const Cols cols, int B, int Hkv, int G,
+               int C, int window, float scale, cudaStream_t st) {
+  const int pages = cols.stage_pages(window, 16 * WARPS - 1);
+  const int smem = Tile<HD>::SMEM + pages * (int)sizeof(long long);
   const cudaError_t attr = cudaFuncSetAttribute(
       prefill_mma_kernel<HD, WR, Cols>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -413,14 +418,13 @@ int launch_mma(const void* q, const void* k, const void* v, float* out,
 // or 4 groups of 16 of the C*G rows); f32: the CUDA-core body.
 template <int HD, typename Cols>
 int dispatch_hd(const void* q, const void* k, const void* v, float* out,
-                const int* start, const Cols cols, int smem_pages, int B,
-                int Hkv, int G, int C, int window, float scale, int dtype,
-                cudaStream_t st) {
+                const int* start, const Cols cols, int B, int Hkv, int G,
+                int C, int window, float scale, int dtype, cudaStream_t st) {
   if (dtype == 1) {
     const int groups = (C * G + 15) / 16;
 #define GQA_MMA(WRV)                                                        \
-  launch_mma<HD, WRV>(q, k, v, out, start, cols, smem_pages, B, Hkv, G, C,  \
-                      window, scale, st)
+  launch_mma<HD, WRV>(q, k, v, out, start, cols, B, Hkv, G, C, window,     \
+                      scale, st)
     if (groups <= 1) return GQA_MMA(1);
     if (groups == 2) return GQA_MMA(2);
     return GQA_MMA(4);
@@ -430,26 +434,25 @@ int dispatch_hd(const void* q, const void* k, const void* v, float* out,
   return flash::launch_prefill<HD>(static_cast<const float*>(q),
                                    static_cast<const float*>(k),
                                    static_cast<const float*>(v), out, start,
-                                   cols, smem_pages, B, Hkv, G, C, window,
-                                   scale, st);
+                                   cols, B, Hkv, G, C, window, scale, st);
 }
 
 // the head dims the kernels are built for (build.HEAD_DIMS)
 template <typename Cols>
 int dispatch(const void* q, const void* k, const void* v, float* out,
-             const int* start, const Cols cols, int smem_pages, int B,
-             int Hkv, int G, int C, int hd, int window, float scale,
-             int dtype, void* stream) {
+             const int* start, const Cols cols, int B, int Hkv, int G,
+             int C, int hd, int window, float scale, int dtype,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return dispatch_hd<64>(q, k, v, out, start, cols, smem_pages, B, Hkv, G,
-                           C, window, scale, dtype, st);
+    return dispatch_hd<64>(q, k, v, out, start, cols, B, Hkv, G, C, window,
+                           scale, dtype, st);
   if (hd == 128)
-    return dispatch_hd<128>(q, k, v, out, start, cols, smem_pages, B, Hkv,
-                            G, C, window, scale, dtype, st);
+    return dispatch_hd<128>(q, k, v, out, start, cols, B, Hkv, G, C, window,
+                            scale, dtype, st);
   if (hd == 160)
-    return dispatch_hd<160>(q, k, v, out, start, cols, smem_pages, B, Hkv,
-                            G, C, window, scale, dtype, st);
+    return dispatch_hd<160>(q, k, v, out, start, cols, B, Hkv, G, C, window,
+                            scale, dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -460,12 +463,12 @@ extern "C" int prefill_attention(const void* q, const void* k,
                                  int B, int Hkv, int G, int C, int S, int hd,
                                  int window, float scale, int dtype,
                                  void* stream) {
-  return gqa::dispatch(q, k, v, out, start, kv::DenseCols{S}, 0, B, Hkv, G,
-                       C, hd, window, scale, dtype, stream);
+  return gqa::dispatch(q, k, v, out, start, kv::DenseCols{S}, B, Hkv, G, C,
+                       hd, window, scale, dtype, stream);
 }
 
-// The same kernels over the paged pool; a CTA stages at most the n_lp
-// pages of its slot's table row.
+// The same kernels over the paged pool; a CTA stages the pages of its
+// span: at most the n_lp of its slot's table row, fewer under a window.
 extern "C" int paged_prefill_attention(const void* q, const void* k_pool,
                                        const void* v_pool, float* out,
                                        const int* tables, const int* start,
@@ -475,6 +478,6 @@ extern "C" int paged_prefill_attention(const void* q, const void* k_pool,
                                        int dtype, void* stream) {
   if (page < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
   return gqa::dispatch(q, k_pool, v_pool, out, start,
-                       kv::PagedCols{tables, n_lp, page, n_pages}, n_lp, B,
-                       Hkv, G, C, hd, window, scale, dtype, stream);
+                       kv::PagedCols{tables, n_lp, page, n_pages}, B, Hkv,
+                       G, C, hd, window, scale, dtype, stream);
 }

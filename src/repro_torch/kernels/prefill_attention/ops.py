@@ -21,18 +21,24 @@ from repro_torch.kernels.prefill_attention.ref import (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def prefill_smem_bytes(hd: int, dtype, n_lp: int) -> int:
+def prefill_smem_bytes(hd: int, dtype, n_lp: int, page: int = 16,
+                       window: int = 0) -> int:
     """Shared memory of one paged prefill CTA at a table row of n_lp
-    pages: the row base, 8 bytes, of every page, beside the bf16
-    tensor-core body's K / V stages (4 warps x 2 stages x K and V x a
-    tile of 64 columns at hd 64, 32 at 128, 16 padded to 168 elements at
-    160, in bf16) or the f32 body's static tiles (flash_tile.cuh: Q of 16
-    rows, K padded by one, V and P of 32 columns, 16 at 160, and three
-    row vectors, in f32)."""
+    pages of `page`: the row base, 8 bytes, of every page the CTA's span
+    may touch, beside the bf16 tensor-core body's K / V stages (4 warps x 2
+    stages x K and V x a tile of 64 columns at hd 64, 32 at 128, 16
+    padded to 168 elements at 160, in bf16) or the f32 body's static
+    tiles (flash_tile.cuh: Q of 16 rows, K padded by one, V and P of 32
+    columns, 16 at 160, and three row vectors, in f32). The span is the
+    whole row, or under a window (kv_cols.cuh's `stage_pages`) window +
+    reach columns: a bf16 CTA's at most 64 rows reach 63 positions past
+    its first, an f32 CTA's 16 rows 15 and its tile-aligned start a tile
+    less one."""
     if dtype == torch.bfloat16:
         cols = 16 if hd == 160 else 8192 // (2 * hd)
         pitch = hd + 8 if hd == 160 else hd
         base = 4 * 2 * 2 * cols * pitch * 2
+        reach = 63
     else:
         tile = 16 if hd > 128 else 32
         base = 4 * (16 * hd + tile * (hd + 1) + tile * hd + 16 * tile
@@ -40,16 +46,21 @@ def prefill_smem_bytes(hd: int, dtype, n_lp: int) -> int:
         # ptxas lays these out in whole 128-byte lines (an sm_90a build:
         # 22,912, 43,392 and 32,000 bytes at hd 64, 128 and 160)
         base = -(-base // 128) * 128
-    return base + 8 * n_lp
+        reach = 15 + tile - 1
+    pages = n_lp if window <= 0 else min(
+        n_lp, -(-(window + reach) // page) + 1)
+    return base + 8 * pages
 
 
-def check_paged_prefill(hd: int, dtype, page: int, n_lp: int) -> None:
-    """Refuse, before launch, a table row longer than one CTA's shared
-    memory can stage (raises ValueError naming the limit and the
-    longest cache the kernel takes)."""
-    build.check_staging("gqa_prefill_paged",
-                        lambda n: prefill_smem_bytes(hd, dtype, n), n_lp,
-                        page)
+def check_paged_prefill(hd: int, dtype, page: int, n_lp: int,
+                        window: int = 0) -> None:
+    """Refuse, before launch, a table row whose pages one CTA's shared
+    memory cannot stage at this window (raises ValueError naming the
+    limit and the longest cache the kernel takes there)."""
+    build.check_staging(
+        "gqa_prefill_paged",
+        lambda n: prefill_smem_bytes(hd, dtype, n, page, window),
+        n_lp, page)
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,8 +106,8 @@ def gqa_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
     """q [B, C, H, hd] prompt chunks; pools [n_pages, Hkv, page, hd]
     already holding the chunk's own K/V columns; `tables` [B, n_lp]
     per-slot page tables; `start` [B]. Returns [B, C, H, hd] f32. A
-    table row whose pages one CTA cannot stage (`check_paged_prefill`)
-    raises before launch."""
+    table row whose pages one CTA cannot stage at this window
+    (`check_paged_prefill`) raises before launch."""
     if not q.is_cuda:
         return paged_prefill_attention_ref(q, k_pool, v_pool, tables, start,
                                            window=window).float()
@@ -107,7 +118,7 @@ def gqa_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(k_pool.shape)}")
     code = build.attention_args("gqa_prefill_paged", q, k_pool, v_pool, hd)
     tbl = build.int_table(tables, B, q.device)
-    check_paged_prefill(hd, q.dtype, page, tbl.shape[1])
+    check_paged_prefill(hd, q.dtype, page, tbl.shape[1], int(window))
     st_rows = build.int_rows(start, B, q.device)
     out = torch.empty((B, C, H, hd), dtype=torch.float32, device=q.device)
     st = _lib().paged_prefill_attention(

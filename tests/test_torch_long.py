@@ -21,9 +21,21 @@ live JAX package, at small widths:
 * The one-card microbatch rule (runtime/train_step.py): the shape's
   override, then the arch's microbatch_size, then one sequence a
   micro-step; the dry run keeps its mesh's data shards.
+* long_500k's steps past its window (runtime/serve_step.py's
+  `make_{,paged_}{prefill,decode}_step` at `SHAPES["long_500k"]`, whose
+  `window_for` is 8,192, with seq_len cut to 9,216) at the reduced
+  config: a seeded cache, one 128-row chunk of 100 tokens at start
+  8,960 and four decode steps, paged (a permuted table) and dense,
+  fused on both sides: logits and the whole cache within LOGIT_TOL of
+  JAX's, the port paged = dense bit for bit, and the window biting (the
+  same steps without it differ).
+* RoPE also at long_500k's positions, 0-524,351: the same ulps.
 * The paged kernels' page-staging limit (kernels/build.py SMEM_LIMIT):
   the ops' own shape check takes the longest table row one CTA stages
-  and refuses one page more, naming the limit, before any launch."""
+  and refuses one page more, naming the limit, before any launch; under
+  long_500k's window the prefill stages only the window's pages, so it
+  takes long_500k's 32,768 pages at every built head dim."""
+import contextlib
 import dataclasses
 
 import jax
@@ -41,6 +53,7 @@ from repro.models import api as JM
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.nn import init_params as jax_init
+from repro.runtime import serve_step as JSS
 from repro.runtime import train_step as JTS
 from repro.schemes import Experiment as JExperiment
 from repro.schemes import build_scheme as j_build_scheme
@@ -54,6 +67,7 @@ from repro_torch.kernels.decode_attention import ops as dec
 from repro_torch.kernels.prefill_attention import ops as pre
 from repro_torch.models import layers as L
 from repro_torch.nn import params_from_jax
+from repro_torch.runtime import serve_step as SS
 from repro_torch.runtime import train_step as TS
 from repro_torch.schemes import Experiment, build_scheme
 from repro_torch.schemes.radio import Radio
@@ -82,14 +96,20 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.abs(ia - ib)
 
 
-@pytest.mark.parametrize("part", ("angles", "apply"))
+# the positions each case covers: decode_32k's, and long_500k's with its
+# last prompt chunk's 64 padded rows
+ROPE_POSITIONS = {"angles": 32_768, "apply": 32_768,
+                  "angles_long_500k": 524_352}
+
+
+@pytest.mark.parametrize("part", sorted(ROPE_POSITIONS))
 def test_rope_at_32k_positions_matches_jax(part):
-    pos = np.arange(32_768, dtype=np.int32)[None]
+    pos = np.arange(ROPE_POSITIONS[part], dtype=np.int32)[None]
     js, jc = (np.asarray(a) for a in JL.rope_angles(jnp.asarray(pos), 64,
                                                     10_000.0))
     ts, tc = (a.numpy() for a in L.rope_angles(torch.as_tensor(pos), 64,
                                                10_000.0))
-    if part == "angles":
+    if part.startswith("angles"):
         for j, t in ((js, ts), (jc, tc)):
             assert _ulps(j, t).max() <= ROPE_ULPS
             assert (j != t).mean() < 0.06
@@ -182,6 +202,108 @@ def test_engine_at_long_prompts_matches_jax(served, kv):
                           JCFG)[0][0, -1]
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=LOGIT_TOL)
+
+
+# ------------------------------------------- long_500k past its window
+# long_500k's steps (window 8,192) with seq_len cut to 9,216: a chunk of
+# PAST_C rows, PAST_VALID of them tokens, at PAST_START reads columns
+# from 769 on, and its last positions' window starts past column 0
+PAST_S, PAST_START, PAST_C, PAST_VALID, PAST_DECODE = 9_216, 8_960, 128, \
+    100, 4
+PAGE = 16
+WINDOWS = {"long_500k": "long_500k", "none": "serve"}
+
+
+@pytest.fixture(scope="module")
+def past_window():
+    """Both packages' weights, a seeded dense cache and its paged pool
+    (a permuted table), and the chunk's and decode steps' tokens."""
+    rng = np.random.default_rng(29)
+    jp = jax_init(jax.random.PRNGKey(3), JM.param_specs(JCFG))
+    pp = params_from_jax(jax.tree.map(np.asarray, jp), CFG, "cpu")
+    shape = (CFG.n_layers, 1, CFG.n_kv_heads, PAST_S, CFG.hd)
+    dense = {k: rng.standard_normal(shape).astype(np.float32)
+             for k in ("k", "v")}
+    n_lp = PAST_S // PAGE
+    table = rng.permutation(n_lp).astype(np.int32)[None]
+    pool = {}
+    for k, x in dense.items():
+        pages = x.reshape(CFG.n_layers, CFG.n_kv_heads, n_lp, PAGE, CFG.hd)
+        pool[k] = np.empty((CFG.n_layers, n_lp, CFG.n_kv_heads, PAGE,
+                            CFG.hd), np.float32)
+        pool[k][:, table[0]] = pages.transpose(0, 2, 1, 3, 4)
+    toks = rng.integers(0, CFG.vocab_size, (1, PAST_C + PAST_DECODE),
+                        dtype=np.int32)
+    return jp, pp, dense, pool, table, toks
+
+
+def _run_steps(pkg, kv, window, past):
+    """One prefill chunk and PAST_DECODE greedy-free decode steps (the
+    tokens are given) through `pkg`'s step builders at long_500k (or, at
+    window "none", the same shape under a name with no window). Returns
+    (chunk logits, [decode logits], cache as numpy)."""
+    jp, pp, dense, pool, table, toks = past
+    shape = dataclasses.replace(
+        (J_SHAPES if pkg == "jax" else SHAPES)["long_500k"],
+        seq_len=PAST_S, name=WINDOWS[window])
+    chunk, dec_toks = toks[:, :PAST_C], toks[:, PAST_C:]
+    paged = kv == "paged"
+    if pkg == "jax":
+        P, arr, cfg, S = jp, jnp.asarray, JCFG, JSS
+        prefill = (S.make_paged_prefill_step(cfg, shape, PAGE, "fused")
+                   if paged else S.make_prefill_step(cfg, shape, "fused"))
+        step = (S.make_paged_decode_step(cfg, shape, PAGE) if paged
+                else S.make_decode_step(cfg, shape))
+    else:
+        P, arr, cfg, S = pp, torch.as_tensor, CFG, SS
+        prefill = (S.make_paged_prefill_step(cfg, shape, PAGE, "fused",
+                                             "cpu") if paged
+                   else S.make_prefill_step(cfg, shape, "fused", "cpu"))
+        step = (S.make_paged_decode_step(cfg, shape, PAGE) if paged
+                else S.make_decode_step(cfg, shape))
+    cache = {k: arr(np.array(x)) for k, x in (pool if paged else
+                                              dense).items()}
+    tbl = (arr(table),) if paged else ()
+    # JAX op by op: compiled, its layer scan fuses RoPE's sin / cos, which
+    # at these angles (up to 9,063 rad) departs from the eager sin / cos
+    # by up to 8.1e-4 in a K column (measured on this suite's CPU); the
+    # eager ones are within 1 ulp of the port's (the RoPE tests above)
+    with jax.disable_jit() if pkg == "jax" else contextlib.nullcontext():
+        lg, cache = prefill(P, cache, arr(chunk),
+                            arr(np.array([PAST_START], np.int32)),
+                            arr(np.array([PAST_VALID], np.int32)), *tbl)
+        dec = []
+        for i in range(PAST_DECODE):
+            idx = arr(np.array([PAST_START + PAST_VALID + i], np.int32))
+            extra = (*tbl, arr(np.array([True]))) if paged else ()
+            out, cache = step(P, cache, arr(dec_toks[:, i:i + 1]), idx,
+                              *extra)
+            dec.append(np.asarray(out))
+    return np.asarray(lg), dec, {k: np.asarray(x) for k, x in cache.items()}
+
+
+@pytest.mark.parametrize("kv", ("paged", "dense"))
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+def test_long_500k_steps_past_the_window_match_jax(past_window, kv,
+                                                   window):
+    want = _run_steps("jax", kv, window, past_window)
+    got = _run_steps("torch", kv, window, past_window)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=LOGIT_TOL)
+    for g, w in zip(got[1], want[1]):
+        np.testing.assert_allclose(g, w, rtol=0, atol=LOGIT_TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(got[2][k], want[2][k], rtol=0,
+                                   atol=LOGIT_TOL)
+    # the other layout gives the same bits; the other window does not
+    other = _run_steps("torch", "dense" if kv == "paged" else "paged",
+                       window, past_window)
+    np.testing.assert_array_equal(other[0], got[0])
+    for g, o in zip(got[1], other[1]):
+        np.testing.assert_array_equal(o, g)
+    unwindowed = _run_steps("torch", kv, "none" if window == "long_500k"
+                            else "long_500k", past_window)
+    assert np.abs(unwindowed[0] - got[0]).max() > 1e-2
+    assert SS.window_for(CFG, SHAPES["long_500k"]) == 8_192
 
 
 # -------------------------------------------------------------- training
@@ -301,16 +423,46 @@ def test_paged_ops_refuse_past_the_staging_limit(case):
     assert f"longest cache the kernel takes is {top} pages" in str(e.value)
 
 
+# long_500k's 32,768 pages at its window, in bf16 and f32 at each built
+# head dim: the prefill stages the pages of window + reach columns
+# (kv_cols.cuh's stage_pages), 515-517 pages of 16
+WINDOWED = {f"{dt}_hd{hd}": (hd, getattr(torch, dt))
+            for dt in ("bfloat16", "float32") for hd in build.HEAD_DIMS}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOWED))
+def test_paged_prefill_stages_only_its_window(case):
+    hd, dtype = WINDOWED[case]
+    n_lp, window = 32_768, 8_192
+    whole = pre.prefill_smem_bytes(hd, dtype, 0)
+    reach = 63 if dtype == torch.bfloat16 else 15 + (16 if hd > 128
+                                                     else 32) - 1
+    pages = -(-(window + reach) // 16) + 1
+    assert pages in (515, 516, 517)
+    assert pre.prefill_smem_bytes(hd, dtype, n_lp, 16, window) \
+        == whole + 8 * pages <= build.SMEM_LIMIT
+    pre.check_paged_prefill(hd, dtype, 16, n_lp, window)
+    # a row shorter than the span stages the row
+    assert pre.prefill_smem_bytes(hd, dtype, 100, 16, window) \
+        == pre.prefill_smem_bytes(hd, dtype, 100) == whole + 800
+
+
 @pytest.mark.parametrize("shape", ("decode_32k", "long_500k"))
 def test_registered_shapes_against_the_staging_limit(shape):
     """decode_32k's 2,048 pages a slot stage in both paged kernels;
-    long_500k's 32,768 stage in K8 (8 splits of one slot) but not in
-    K10, which stages a whole table row: the op refuses that prefill."""
+    long_500k's 32,768 stage in K8 (8 splits of one slot) and, at the
+    shape's window, in K10, which then stages only the window's pages;
+    without a window K10 stages the whole row, and the op refuses that
+    prefill."""
     n_lp = SHAPES[shape].seq_len // 16
     B = 16 if shape == "decode_32k" else 1
     dec.check_paged_decode(B, 16, 1, 64, 16, n_lp)
     if shape == "decode_32k":
         pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp)
         return
-    with pytest.raises(ValueError, match="227 KiB"):
+    window = SS.window_for(CFG, SHAPES[shape])
+    assert window == 8_192
+    pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp, window)
+    with pytest.raises(ValueError, match="227 KiB") as e:
         pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp)
+    assert "longest cache the kernel takes is 12672 pages" in str(e.value)
