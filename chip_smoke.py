@@ -37,18 +37,24 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    lengths, without and with long_500k's window of 8,192, in bf16 and
    f32, decode on 8 rows, prefill on 4 rows of 256-token chunks and,
    in bf16 at 32,768 with qwen's heads, at phase 16's launch (8 rows of
-   2,048), and long_500k's launches at its window (one row of 524,288
-   columns, 32,768 pages: the decode at the full length, the prefill at
-   the last prompt chunk's 2,048 rows from 522,240; bf16 and f32):
-   against their plain versions at the same tolerances (the prefill
-   plain version over a few chunk rows a call), twice for the same
-   bits, paged = dense bit for bit, every bf16 case timed beside its
-   bound, its plain version and (dense) SDPA held to its
-   memory-efficient kernel; K10 at long_500k without the window is
-   refused before launch. And the page staging: K8 (at one split) and
-   K10 (bf16, f32) launch at the longest table row one CTA's 227 KiB of
-   shared memory holds at each built head dim, agree with their plain
-   versions there, and refuse one page more before launch;
+   2,048), and long_500k's launches with and without its window (one
+   row of 524,288 columns, 32,768 pages: the decode at the full length,
+   the prefill at the last prompt chunk's 2,048 rows from 522,240; bf16
+   and f32). Without the window those paged rows lie past the longest
+   one a CTA once staged whole (now staged in segments of 2,048 pages),
+   as do K10's at 524,288 columns in bf16 at hd 128 (G 8) and 160 (G 4)
+   (a chunk of 256 rows) and K8's at one split (4 KV heads, G 396);
+   and K7 / K8 at zamba2-1.2b's 32 / 1 / 64 over one 524,288 row; the
+   cases past the old limit and zamba2's in bf16 and f32. All against
+   their plain versions in f32 (the prefill plain version over a few
+   chunk rows a call) at min(TOL, a bound scaled by the largest output:
+   4 bf16 ulps of it, 2^-12 of it in f32), since over a long row the
+   outputs are ~1e-2 and TOL alone would pass zeros; each case at
+   524,288 columns without a window also shows that a half-span output
+   and a zero one lie past that bound; twice for the same bits, paged =
+   dense bit for bit, every bf16 case but the hd 128 / 160 and one-split
+   ones timed beside its bound, its plain version and (dense) SDPA held
+   to its memory-efficient kernel;
 3. serves qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
    151,936; random weights from --seed) with `ServeEngine`: 24 requests
    of 32-256 prompt and 16-64 new tokens on 8 slots over a fading 10 dB
@@ -327,7 +333,27 @@ Run from the root of a checkout, on a machine with a CUDA card. It
    chunk rerun through the plain attention on the paged cache (32
    chunk rows a call); it prints the card's RoPE gap at positions
    0-524,351, prefill seconds and tok/s, decode ms a step,
-   `max_memory_allocated` and each part's seconds. Then
+   `max_memory_allocated` and each part's seconds. Then (c) what the
+   JAX package runs without a window: the engine serves one prompt of
+   212,992 seeded tokens (13,312 pages of 16, past the longest row a
+   paged CTA once staged whole) and 8 new tokens on one slot, chunks of
+   2,048, with qwen1.5-0.5b at full width cut to 2 of 24 layers, paged
+   then dense, with (a)'s checks and 104 prefill calls (208 K10 / K9
+   launches); zamba2-1.2b's long_500k at full width and depth through
+   the step builders (window 0): `init_cache` at 524,288 (25.8 GB of
+   K/V), the attention prefix [0, 524,160) and the Mamba2 states drawn
+   from the seed, 64 seeded prompt tokens through the scan prefill and
+   64 greedy decode steps to a full cache, K7 exactly 6 x 128 times and
+   no other kernel, the prompt and first decode logits within 16 bf16
+   ulps of the same steps through the plain decode attention on the same
+   cache, their tokens equal, and in that first decode step K7 beside
+   each of the 6 plain calls on its inputs, held to the plain version in
+   f32 at phase 2's long bound (the logits barely see an attention
+   averaged over the drawn prefix), RoPE to 524,288 within 2 ulps of the
+   host; and xlstm-350m's (cache bytes those of seq_len 1, 64 prompt
+   tokens and 16 decode steps from 524,224 equal bit for bit to the
+   same from index 0, no kernel launched); it prints seconds a step and
+   GiB. Then (d)
    one CL and one SL step (split 2, compress 4, Q8, 20 dB, AdamW) at
    seq 4,096 on 2 sequences (train_4k's 256 cut) with the depth cut to
    LONG_TRAIN_LAYERS (8 of 24), through
@@ -849,9 +875,14 @@ def time_case(kern, case, reps: int = 20, plain=None,
 # prefill launch, LONG_SLOTS rows of 2,048 at 32,768 with qwen's heads
 # (bf16). Then
 # long_500k's launches with qwen's heads, in bf16 and f32: one row of
-# 524,288 columns (32,768 pages of 16) at its window, the prefill at the
-# last prompt chunk's 2,048 rows from L500_LAST_START, the decode at the
-# full length; and K10 there without the window, which it refuses
+# 524,288 columns (32,768 pages of 16) at its window and without it, the
+# prefill at the last prompt chunk's 2,048 rows from L500_LAST_START, the
+# decode at the full length. Without a window these rows are past the
+# longest one a paged CTA staged whole before its staging went by
+# segments (PAST_LIMIT); so are K10's at phase 12's hd 128 and 160
+# (L500_S columns, a chunk of 256 rows) and K8's at one split
+# (ONE_SPLIT_HEADS). And K7 / K8 at zamba2-1.2b's shared attention over
+# one long_500k row (HYBRID_HEADS)
 LONG_HEADS = ((16, 1, 64), (4, 16, 64))
 LONG_CACHES = (4_096, 32_768)
 LONG_WINDOW = 8_192
@@ -870,6 +901,53 @@ L500_LAST_START = (L500_PROMPT - 1) // L500_CHUNK * L500_CHUNK
 LONG_REPS = 5
 # the plain prefill version's f32 logits at most this many bytes a call
 PLAIN_CALL_BYTES = 1 << 30
+# the longest table row (pages of 16) one paged CTA staged whole before
+# its staging went by segments (one page more was refused before
+# launch): K10 in bf16 at hd 64 / 128 / 160, in f32 at 64; K8 at one split
+PAST_LIMIT = {("prefill", "bfloat16", 64): 12_672,
+              ("prefill", "bfloat16", 128): 12_672,
+              ("prefill", "bfloat16", 160): 18_304,
+              ("prefill", "float32", 64): 26_192,
+              ("decode", "bfloat16", 64): 28_924,
+              ("decode", "float32", 64): 28_924}
+# K10's heads past the limit at hd 128 and 160 (internvl2-76b's,
+# stablelm-12b's: KV heads, G, hd); K8's one split: 4 KV heads x 99
+# blocks of 4 head-group rows (G 396) fill the 396 CTAs TARGET_CTAS asks
+WIDE_PAST_LIMIT = ((8, 8, 128), (8, 4, 160))
+ONE_SPLIT_HEADS = (4, 396, 64)
+# zamba2-1.2b's shared attention: 32 KV heads, G 1, hd 64
+HYBRID_HEADS = (32, 1, 64)
+# A long case's bound scales with its output. Over a few thousand
+# columns or more the softmax of drawn q and K is near uniform and an
+# output is ~ sqrt(e / columns) (~2e-3 at 524,288, under 1e-2 at most),
+# far below TOL's absolute 2e-2: a kernel that wrote zeros would pass
+# TOL alone. So each is held to min(TOL, LONG_ULPS bf16 ulps of the
+# largest |want| in bf16 (2^-6 to 2^-5 of it; the bf16 kernels' rounding
+# of P before P.V measured ~2e-3 of it), LONG_F32_REL of it in f32).
+# And each case at L500_S without a window shows the bound rejects a
+# wrong span: the plain version over the row's last half only (a window
+# of half the row) must lie past it, as a zero output does.
+LONG_ULPS = 4
+LONG_F32_REL = 2.0 ** -12
+
+
+def long_tol(want, dtype) -> float:
+    """min(TOL, the output-scaled bound) for a long case whose plain
+    output in f32 is `want`."""
+    import torch
+    if dtype == torch.bfloat16:
+        scaled = ulp_tol(want, LONG_ULPS)
+    else:
+        scaled = LONG_F32_REL * float(want.abs().max())
+    return min(TOL[str(dtype).split(".")[1]], scaled)
+
+
+def half_span_gap(plain, fargs, want, S: int) -> float:
+    """How far a kernel that attended only the last half of the row's
+    S columns would lie from `want`: the plain version on the same f32
+    inputs under a window of S / 2."""
+    return float((plain(*fargs, window=S // 2).float() - want)
+                 .abs().max())
 
 
 def plain_by_rows(plain, rows: int):
@@ -897,13 +975,16 @@ def _long_plain(kern, case):
 
 def check_long_kernels(seed: int) -> tuple:
     """K7-K10 at LONG_HEADS x LONG_CACHES, without and with LONG_WINDOW,
-    at phase 16's prefill launch and at long_500k's launches, in bf16
-    and f32 (K/V drawn on the card), against their plain versions at
-    TOL, twice for the same bits, each paged kernel equal to its dense
-    twin bit for bit; every bf16 case timed beside its bound, its plain
-    version and (dense) SDPA; K10 at long_500k without its window
-    refused. Returns ({kernel: by_shape rows}, {kernel: max_abs_err},
-    failures)."""
+    at phase 16's prefill launch, at long_500k's launches with and
+    without its window, past the old staging limit (PAST_LIMIT) and at
+    zamba2-1.2b's heads, in bf16 and f32 (K/V drawn on the card),
+    against their plain versions at `long_tol` (at 524,288 columns
+    without a window, with a half-span output shown to lie past it),
+    twice for the same bits, each paged kernel equal to its dense twin
+    bit for bit; every bf16 case
+    but the wide and one-split ones past the limit timed beside its
+    bound, its plain version and (dense) SDPA. Returns ({kernel: by_shape
+    rows}, {kernel: max_abs_err}, failures)."""
     import numpy as np
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
@@ -917,18 +998,37 @@ def check_long_kernels(seed: int) -> tuple:
             for dtype in (bf16, f32):
                 heads = dict(Hkv=hkv, G=g, S=S, hd=hd, dtype=dtype)
                 specs.append((dict(heads, B=LONG_SLOTS, C=None),
-                              (0, LONG_WINDOW)))
+                              (0, LONG_WINDOW), True))
                 specs.append((dict(heads, B=LONG_PREFILL[0],
-                                   C=LONG_PREFILL[1]), (0, LONG_WINDOW)))
+                                   C=LONG_PREFILL[1]), (0, LONG_WINDOW),
+                              True))
     specs.append((dict(B=LONG_PATH_PREFILL[0], C=LONG_PATH_PREFILL[1],
                        Hkv=16, G=1, S=LONG_CACHES[-1], hd=64, dtype=bf16),
-                  (0,)))
+                  (0,), True))
     for dtype in (bf16, f32):
         heads = dict(B=1, Hkv=16, G=1, S=L500_S, hd=64, dtype=dtype)
-        specs.append((dict(heads, C=None, rows=[L500_S]), (LONG_WINDOW,)))
+        specs.append((dict(heads, C=None, rows=[L500_S]),
+                      (LONG_WINDOW, 0), True))
         specs.append((dict(heads, C=L500_CHUNK, rows=[L500_LAST_START]),
-                      (LONG_WINDOW,)))
-    for i, (kw, windows) in enumerate(specs):
+                      (LONG_WINDOW, 0), True))
+    for hkv, g, hd in WIDE_PAST_LIMIT:
+        for dtype in (bf16, f32):
+            specs.append((dict(B=1, Hkv=hkv, G=g, S=L500_S, hd=hd,
+                               dtype=dtype, C=LONG_PREFILL[1],
+                               rows=[L500_S - LONG_PREFILL[1]]), (0,),
+                          False))
+    for dtype in (bf16, f32):
+        hkv, g, hd = ONE_SPLIT_HEADS
+        specs.append((dict(B=1, Hkv=hkv, G=g, S=L500_S, hd=hd, dtype=dtype,
+                           C=None, rows=[L500_S]), (0,), False))
+    hkv, g, hd = HYBRID_HEADS
+    for dtype in (bf16, f32):
+        specs.append((dict(B=1, Hkv=hkv, G=g, S=L500_S, hd=hd, dtype=dtype,
+                           C=None, rows=[L500_S]), (0,), True))
+    from repro_torch.kernels.decode_attention import ops as dec
+    if dec.decode_splits(1, *ONE_SPLIT_HEADS[:2]) != 1:
+        failures.append(f"{ONE_SPLIT_HEADS} decode at more than one split")
+    for i, (kw, windows, timed) in enumerate(specs):
         s = seed + 1000 + i
         case = Case(np.random.default_rng(s), page=16, window=0,
                     gen=torch.Generator(device="cuda").manual_seed(s), **kw)
@@ -943,13 +1043,30 @@ def check_long_kernels(seed: int) -> tuple:
                 got = kern["fn"](*args, window=window)
                 same = bool(torch.equal(got, kern["fn"](*args,
                                                         window=window)))
-                err = float((got - plain(*_f32(args), window=window)
-                             .float()).abs().max())
-                tol = TOL[str(case.dtype).split(".")[1]]
+                fargs = _f32(args)
+                want = plain(*fargs, window=window).float()
+                err = float((got - want).abs().max())
+                tol, top_want = long_tol(want, case.dtype), float(
+                    want.abs().max())
                 ok = bool(torch.isfinite(got).all()) and err <= tol and same
+                sens = ""
+                if not window and case.S == L500_S and twin is None:
+                    half = half_span_gap(plain, fargs, want, case.S)
+                    sens = (f"; the bound rejects a half-span output "
+                            f"({half:.3e}) {half > tol} and a zero one "
+                            f"({top_want:.3e}) {top_want > tol}")
+                    ok = ok and half > tol and top_want > tol
+                del fargs, want
                 tag = (f"{kern['name']} long S={case.S} B={case.B} "
                        f"C={case.C} heads {case.Hkv}/{case.G}/{case.hd} "
                        f"window {window} {case.dtype}")
+                top = PAST_LIMIT.get(("decode" if case.C is None
+                                      else "prefill", str(case.dtype)[6:],
+                                      case.hd))
+                if kern["paged"] and not window and top \
+                        and case.S // case.page > top:
+                    tag += (f" ({case.S // case.page} pages, past the old "
+                            f"limit of {top})")
                 extra = ""
                 if twin is not None:
                     same_twin = bool(torch.equal(got, twin["fn"](
@@ -958,13 +1075,14 @@ def check_long_kernels(seed: int) -> tuple:
                     extra = f", equal to {twin['name']} bit for bit " \
                             f"{same_twin}"
                 del got
-                print(f"  check {tag}: max_abs_err {err:.3e} (tol {tol:g})"
-                      f", same bits twice {same}{extra} "
-                      f"{'ok' if ok else 'FAILED'}", flush=True)
+                print(f"  check {tag}: max_abs_err {err:.3e} (tol {tol:.3e}"
+                      f", max |want| {top_want:.3e}), same bits twice "
+                      f"{same}{extra}{sens} {'ok' if ok else 'FAILED'}",
+                      flush=True)
                 if not ok:
                     failures.append(tag)
                 errs[kern["name"]] = max(errs[kern["name"]], err)
-                if case.dtype != bf16:
+                if case.dtype != bf16 or not timed:
                     continue
                 ms = time_case(kern, case, LONG_REPS, plain,
                                plain_events=case.C is not None)
@@ -982,94 +1100,10 @@ def check_long_kernels(seed: int) -> tuple:
                 rows[kern["name"]].append(dict(
                     shape=_shape_key(kern, case), cache=case.S,
                     window=window, launches=None, **ms))
-        if case.S == L500_S and case.C is not None:
-            msg = _refused(by_name["paged_prefill_attention"]["fn"],
-                           *_args(by_name["paged_prefill_attention"], case))
-            print(f"  check paged_prefill_attention long S={case.S} "
-                  f"without a window {case.dtype}: refused before launch "
-                  f"{bool(msg)} ({msg}) {'ok' if msg else 'FAILED'}",
-                  flush=True)
-            if not msg:
-                failures.append(f"paged_prefill_attention at {case.S} "
-                                f"without a window not refused")
         del case
         gc.collect()
         torch.cuda.empty_cache()
     return rows, errs, failures
-
-
-def _refused(fn, *a) -> str:
-    """The message of the staging refusal `fn(*a)` raises before launch,
-    or "" if it launched."""
-    try:
-        fn(*a)
-    except ValueError as e:
-        return str(e) if "227 KiB" in str(e) else ""
-    return ""
-
-
-def check_staging_limits() -> tuple:
-    """K8 and K10 at the longest table row one CTA's shared memory can
-    stage (kernels/build.py's SMEM_LIMIT), at each built head dim: K8 at
-    one split (4 slots x 99 KV heads: 396 CTAs), K10 in bf16 and f32;
-    each launches there and agrees with its plain version on the few
-    columns its rows read, and the op refuses one page more before
-    launch. Returns (summary, failures)."""
-    import torch
-    from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.prefill_attention import ops as pre
-    kt = {k["name"]: k for k in kernel_table()}
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    failures, out, page = [], {}, 16
-
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    for hd in build.HEAD_DIMS:
-        for dtype in (torch.bfloat16, torch.float32):
-            B, Hkv, G = 4, 99, 1
-            top = build.longest_table(lambda n: dec.decode_smem_bytes(
-                hd, G, dec.decode_splits(B, Hkv, G), page, n))
-            q = randn(B, Hkv * G, hd, dtype=dtype)
-            kp, vp = (randn(2, Hkv, page, hd, dtype=dtype) for _ in "kv")
-            tbl = torch.zeros((B, top + 1), dtype=torch.int32, device="cuda")
-            tbl[:, 1] = 1
-            lens = torch.tensor([5, 16, 20, 32], dtype=torch.int32,
-                                device="cuda")
-            got = dec.gqa_decode_paged(q, kp, vp, tbl[:, :top], lens)
-            want = kt["paged_decode_attention"]["plain"](
-                *_f32((q, kp, vp, tbl[:, :2], lens))).float()
-            err_d = float((got - want).abs().max())
-            msg_d = _refused(dec.gqa_decode_paged, q, kp, vp, tbl, lens)
-            C = 16
-            top_p = build.longest_table(
-                lambda n: pre.prefill_smem_bytes(hd, dtype, n))
-            qp = randn(1, C, 2 * 2, hd, dtype=dtype)
-            kq, vq = (randn(1, 2, page, hd, dtype=dtype) for _ in "kv")
-            tp = torch.zeros((1, top_p + 1), dtype=torch.int32,
-                             device="cuda")
-            st = torch.zeros(1, dtype=torch.int32, device="cuda")
-            got = pre.gqa_prefill_paged(qp, kq, vq, tp[:, :top_p], st)
-            want = kt["paged_prefill_attention"]["plain"](
-                *_f32((qp, kq, vq, tp[:, :1], st))).float()
-            err_p = float((got - want).abs().max())
-            msg_p = _refused(pre.gqa_prefill_paged, qp, kq, vq, tp, st)
-            tol = TOL[str(dtype).split(".")[1]]
-            name = f"hd {hd} {dtype}"
-            ok = err_d <= tol and err_p <= tol and msg_d and msg_p
-            print(f"  staging limit {name}: K8 (one split) takes {top} "
-                  f"pages ({top * page} columns at page {page}): "
-                  f"max_abs_err {err_d:.3e}; K10 {top_p} pages "
-                  f"({top_p * page} columns): max_abs_err {err_p:.3e}; "
-                  f"one page more refused: {bool(msg_d)} / {bool(msg_p)} "
-                  f"{'ok' if ok else 'FAILED'}", flush=True)
-            if not ok:
-                failures.append(f"staging limit {name}")
-            out[name] = dict(decode_pages=top, prefill_pages=top_p,
-                             page=page, decode_err=err_d,
-                             prefill_err=err_p, refusal=msg_p)
-    torch.cuda.empty_cache()
-    return out, failures
 
 
 # ------------------------------------------------- packed-wire kernels
@@ -5201,29 +5235,31 @@ def rope_gap(S: int, hd: int, theta: float) -> dict:
     return out
 
 
-def last_chunk_rows(st, nv):
-    """The rows of a prefill call that end a LONG_PROMPT prompt."""
-    return (nv > 0) & (st + nv == LONG_PROMPT)
-
-
-def long_serve(seed: int, card_name: str) -> tuple:
-    """Phase 16 (a): qwen1.5-0.5b serving 32,768-token caches, paged then
-    dense. Returns ({kernel: launches}, summary, failures)."""
+def long_serve(seed: int, card_name: str, cfg=None, n_req=LONG_SLOTS,
+               prompt=LONG_PROMPT, new=LONG_NEW,
+               tag="long serve") -> tuple:
+    """Phase 16 (a): qwen1.5-0.5b (or `cfg`) serving `n_req` requests of
+    `prompt` + `new` tokens on as many slots, chunks of LONG_CHUNK,
+    paged then dense. Returns ({kernel: launches}, summary, failures)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import api as M
     from repro_torch.nn import init_params
     from repro_torch.serve import uniform_trace
-    cfg = get_arch(QWEN)
+    cfg = cfg or get_arch(QWEN)
     params = init_params(M.param_specs(cfg), torch.Generator(
         device="cuda").manual_seed(seed), "cuda")
-    trace = uniform_trace(seed, LONG_SLOTS, LONG_PROMPT, LONG_NEW, 10.0)
+    trace = uniform_trace(seed, n_req, prompt, new, 10.0)
     failures, runs, launches, secs = [], {}, {}, {}
-    rope = rope_gap(LONG_PROMPT + LONG_NEW, cfg.hd, cfg.rope_theta)
-    print(f"  rope_angles at positions 0-{LONG_PROMPT + LONG_NEW - 1} (hd "
+    rope = rope_gap(prompt + new, cfg.hd, cfg.rope_theta)
+    print(f"  rope_angles at positions 0-{prompt + new - 1} (hd "
           f"{cfg.hd}, theta {cfg.rope_theta:g}), card vs host CPU: {rope}",
           flush=True)
-    ref, ref_row = None, None
+
+    def last_chunk_rows(st, nv):
+        """The rows of a prefill call that end a prompt."""
+        return (nv > 0) & (st + nv == prompt)
+    ref, ref_row, n_chunks = None, None, {}
     for kv in ("paged", "dense"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -5231,17 +5267,18 @@ def long_serve(seed: int, card_name: str) -> tuple:
         t0 = time.perf_counter()
         rec = {}
         eng, rep, lasts, calls, n, _, warm = serve_once(
-            cfg, params, trace, kv, n_slots=LONG_SLOTS,
+            cfg, params, trace, kv, n_slots=n_req,
             chunk_size=LONG_CHUNK, rows_of=last_chunk_rows, record=rec)
         d = rep.to_dict()
         d["max_memory_allocated_gib"] = \
             torch.cuda.max_memory_allocated() / 2 ** 30
-        print_serve(f"{cfg.name} at {LONG_PROMPT + LONG_NEW} kv={kv}", warm,
-                    calls, d, n)
+        print_serve(f"{cfg.name} ({cfg.n_layers} layers) at "
+                    f"{prompt + new} kv={kv}", warm, calls, d, n)
         print(f"  max_memory_allocated {d['max_memory_allocated_gib']:.2f}"
               f" GiB ({card_name})", flush=True)
         failures += launch_failures(cfg, kv, calls, n)
         launches.update({k: n[k] for k in SERVE_PATH[kv]})
+        n_chunks[kv] = calls["prefill"]
         secs[kv] = time.perf_counter() - t0
         if kv == "paged":
             # the first request's last chunk again, the plain attention
@@ -5258,8 +5295,8 @@ def long_serve(seed: int, card_name: str) -> tuple:
         del eng, rec
     (rp, lp, dp), (rd, ld, dd) = runs["paged"], runs["dense"]
     same_tokens, f = layouts_agree(rp, rd)
-    failures += [f"long serve: {x}" for x in f]
-    equal = len(lp) == len(ld) == LONG_SLOTS and all(
+    failures += [f"{tag}: {x}" for x in f]
+    equal = len(lp) == len(ld) == n_req and all(
         torch.equal(a, c) and torch.equal(b, e)
         for (a, b), (c, e) in zip(lp, ld))
     got = lp[0][1] if lp else None
@@ -5274,15 +5311,16 @@ def long_serve(seed: int, card_name: str) -> tuple:
           f"{float(ref.abs().max()) if ref is not None else math.nan:.3f}",
           flush=True)
     if not equal:
-        failures.append("long serve: paged and dense last chunks differ")
+        failures.append(f"{tag}: paged and dense last chunks differ")
     if not finite or err > LOGIT_TOL:
-        failures.append(f"long serve: last-chunk logits {err} from the "
+        failures.append(f"{tag}: last-chunk logits {err} from the "
                         f"plain reference (tol {LOGIT_TOL})")
     print(f"  seconds: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}"
           , flush=True)
     summary = dict(paged=dp, dense=dd, equal_token_requests=same_tokens,
                    rope_card_vs_cpu=rope, last_chunk_logits_equal=equal,
-                   last_chunk_max_abs_vs_reference=err, seconds=secs)
+                   last_chunk_max_abs_vs_reference=err, seconds=secs,
+                   prefill_calls=n_chunks)
     del runs, lp, ld, params, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -5442,8 +5480,324 @@ def long_500k(seed: int, card_name: str) -> tuple:
     return launches, summary, failures
 
 
+# phase 16 (c): what the JAX package runs without a window. (1) The
+# paged engine past the longest row a CTA once staged whole: qwen1.5-0.5b
+# at full width cut to NATIVE_LAYERS of its 24 layers for the script's
+# time, one prompt of NATIVE_PROMPT seeded tokens (13,312 pages of 16,
+# 640 past the old bf16 limit of 12,672) in chunks of LONG_CHUNK (104
+# chunks: 208 K10 and 208 K9 launches) and NATIVE_NEW greedy tokens,
+# paged then dense, with (a)'s checks. (2) zamba2-1.2b's and
+# xlstm-350m's long_500k at full width and depth (`window_for` gives
+# both 0) through the step builders: the hybrid's prefill is the scan
+# (it has no fused prefill_step), too slow for 524,160 tokens, so its
+# attention prefix and Mamba2 states are drawn from the seed
+NATIVE_LAYERS, NATIVE_PROMPT, NATIVE_NEW = 2, 212_992, 8
+NATIVE_SERVE_KEY = (1, 16, 1, 64, NATIVE_PROMPT + NATIVE_NEW, 0)
+NATIVE_PROMPT_TOKENS, HYBRID_NEW, XLSTM_NEW = 64, 64, 16
+# a drawn Mamba2 state: STATE_SCALE x a standard normal (the CPU test's
+# scale, tests/test_torch_long_recurrent.py)
+STATE_SCALE = 0.1
+HYBRID_KEY = (1, 32, 1, 64, L500_S, 0)
+# the hybrid's prompt and first decode logits against the same steps with
+# the plain decode attention, in bf16 ulps at the largest |logit|: the
+# family's 5e-3 (tests/test_archs_smoke.py) is a bound for f32 on the
+# CPU, below one bf16 ulp of a logit past 0.64 (2^-7 at |x| in [1, 2));
+# the two attentions round P and the output to bf16 in other places and
+# the 38 Mamba2 blocks carry each difference on, as in phase 14, whose
+# bound for this model's decode is 16 ulps
+HYBRID_ULPS = STATIC_ULPS[HYBRID]
+
+
+def _ints(x):
+    import torch
+    return torch.full((1,), x, dtype=torch.int32, device="cuda")
+
+
+def _greedy(prefill, step, params, cache, prompt, start: int, new: int):
+    """`prompt` [P] through `prefill` at `start`, then `new` greedy
+    decode steps. Returns (prompt logits [V], [decode logits [V]], the
+    new + 1 greedy tokens those logits give, prefill s, decode s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, cache, prompt[None], _ints(start),
+                        _ints(len(prompt)))
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    last, outs = lg[0].float().clone(), []
+    tok, tokens = last.argmax(), []
+    t0 = time.perf_counter()
+    for i in range(new):
+        tokens.append(int(tok))
+        out, cache = step(params, cache, tok.view(1, 1),
+                          _ints(start + len(prompt) + i))
+        outs.append(out[0, 0].float())
+        tok = outs[-1].argmax()
+    torch.cuda.synchronize()
+    tokens.append(int(tok))
+    return last, outs, tokens, t_pre, time.perf_counter() - t0
+
+
+def k7_vs_plain(kern, q, k, v, length, window: int = 0) -> dict:
+    """K7 (`kern`, the wrapper) on one call's inputs against its plain
+    version on them in f32, at the long cases' output-scaled bound
+    (`long_tol`), with the gap a half-span output would have."""
+    import torch
+    from repro_torch.kernels.decode_attention import ref as dref
+    got = kern(q, k, v, length, window=window)
+    fargs = _f32((q, k, v, length))
+    want = dref.decode_attention_ref(*fargs, window=window).float()
+    err = float((got - want).abs().max())
+    tol = long_tol(want, q.dtype)
+    n = int(torch.as_tensor(length).max())
+    half = half_span_gap(dref.decode_attention_ref, fargs, want, n)
+    return dict(max_abs_err=err, tol=tol, half_span=half,
+                ok=bool(torch.isfinite(got).all()) and err <= tol < half)
+
+
+def _native_shape(cfg, name: str) -> tuple:
+    """long_500k's shape and the failures of its window / batch / seq."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.runtime import serve_step as SS
+    shape = SHAPES["long_500k"]
+    window = SS.window_for(cfg, shape)
+    bad = [] if (window, shape.global_batch, shape.seq_len) == (
+        0, 1, L500_S) else [f"{name} long_500k: window {window}, batch "
+                            f"{shape.global_batch}, seq {shape.seq_len}"]
+    return shape, bad
+
+
+def hybrid_long_500k(seed: int, card_name: str) -> tuple:
+    """zamba2-1.2b at long_500k (full width and depth): `init_cache` at
+    524,288, the attention slots' prefix [0, 524,160) and the Mamba2
+    states drawn from the seed, NATIVE_PROMPT_TOKENS seeded prompt tokens
+    through the scan prefill at 524,160, HYBRID_NEW greedy decode steps
+    to a full cache; counters set to 0 before and read after (K7 6 a
+    step, no other kernel). First the prompt and one decode step with
+    the plain decode attention on the same cache (its states restored
+    after): the kernel run's prompt logits and first decode step within
+    HYBRID_ULPS of it, their tokens equal. The attention over the drawn
+    prefix is near uniform, so the logits barely see it; that decode
+    step also runs K7 beside each of its 6 plain calls, on the same
+    inputs, held to the plain version in f32 at the long cases' bound
+    (`k7_vs_plain`). Returns ({kernel: launches}, summary, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.models import api as M
+    from repro_torch.nn import init_tree
+    from repro_torch.runtime import serve_step as SS
+    cfg = get_arch(HYBRID)
+    shape, failures = _native_shape(cfg, HYBRID)
+    model = M.get_model(cfg)
+    impl = SS.resolve_prefill_impl(model, "auto", "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_tree(M.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(seed), "cuda")
+    cache = model.init_cache(cfg, 1, L500_S, "cuda")
+    kv_gib = sum(cache[k].numel() * cache[k].element_size()
+                 for k in ("attn_k", "attn_v")) / 2 ** 30
+    start = L500_S - NATIVE_PROMPT_TOKENS - HYBRID_NEW
+    gen = torch.Generator(device="cuda").manual_seed(seed + 700)
+    for k in ("attn_k", "attn_v"):
+        for slot in cache[k]:                # one application's slot
+            slot[..., :start, :].normal_(generator=gen)
+    for k in ("ssm", "conv"):
+        cache[k].normal_(std=STATE_SCALE, generator=gen)
+    prompt = torch.from_numpy(np.random.default_rng(seed + 701).integers(
+        0, cfg.vocab_size, NATIVE_PROMPT_TOKENS).astype(np.int32)).cuda()
+    prefill = SS.make_prefill_step(cfg, shape)
+    step = SS.make_decode_step(cfg, shape)
+    secs = dict(build=time.perf_counter() - t0)
+    rope = rope_gap(L500_S + 1, cfg.hd, cfg.rope_theta)
+    states = {k: cache[k].clone() for k in ("ssm", "conv")}
+    kern, taps, tapping = dec.gqa_decode, [], [False]
+
+    def tapped_step(*a):
+        tapping[0] = True
+        try:
+            return step(*a)
+        finally:
+            tapping[0] = False
+    t0 = time.perf_counter()
+    with torch.inference_mode(), plain_attention():
+        plain_fn = dec.gqa_decode
+
+        def tapped(q, k, v, length, window: int = 0):
+            if tapping[0]:      # the kernel counts on its own module name
+                dec.gqa_decode = kern
+                try:
+                    taps.append(k7_vs_plain(kern, q, k, v, length, window))
+                finally:
+                    dec.gqa_decode = tapped
+            return plain_fn(q, k, v, length, window=window)
+        dec.gqa_decode = tapped
+        p_last, p_outs, p_toks, _, _ = _greedy(prefill, tapped_step, params,
+                                               cache, prompt, start, 1)
+    secs["plain"] = time.perf_counter() - t0
+    for k, v in states.items():
+        cache[k].copy_(v)
+    del states
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    with torch.inference_mode():
+        last, outs, toks, t_pre, t_dec = _greedy(prefill, step, params,
+                                                 cache, prompt, start,
+                                                 HYBRID_NEW)
+    n = {k: f.launches for k, f in counters.items() if f.launches}
+    secs["kernels"] = t_pre + t_dec
+    want = {"decode_attention": 6 * (NATIVE_PROMPT_TOKENS + HYBRID_NEW)}
+    gap = [float((a - b).abs().max()) for a, b in ((last, p_last),
+                                                   (outs[0], p_outs[0]))]
+    tol = [ulp_tol(x, HYBRID_ULPS) for x in (p_last, p_outs[0])]
+    finite = all(bool(torch.isfinite(x).all()) for x in [last] + outs)
+    r = dict(impl=impl, window=SS.window_for(cfg, shape),
+             prefill_s=t_pre, decode_ms_per_step=1e3 * t_dec / HYBRID_NEW,
+             max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+             / 2 ** 30, kv_gib=kv_gib, launches=n, tokens=toks,
+             plain_tokens=p_toks, gap_vs_plain=gap, tol=tol,
+             k7_vs_plain=taps, rope_card_vs_cpu=rope, seconds=secs)
+    print(f"long_500k {HYBRID} (impl {impl}, window {r['window']}, "
+          f"{cfg.n_layers} Mamba2 blocks, 6 shared-attention slots of "
+          f"{L500_S} columns, {kv_gib:.2f} GiB of K/V): prompt of "
+          f"{NATIVE_PROMPT_TOKENS} at {start} {t_pre:.2f} s, decode "
+          f"{r['decode_ms_per_step']:.2f} ms a step over {HYBRID_NEW} "
+          f"steps; launches {n}; max_memory_allocated "
+          f"{r['max_memory_allocated_gib']:.2f} GiB ({card_name})",
+          flush=True)
+    print(f"  against the plain decode attention on the same cache: prompt"
+          f" logits {gap[0]:.4e}, first decode step {gap[1]:.4e} (tol "
+          f"{HYBRID_ULPS} bf16 ulps: {tol[0]:.4e} / {tol[1]:.4e}); tokens "
+          f"{toks[:2]} vs {p_toks}; finite {finite}; rope_angles at 0-"
+          f"{L500_S}: {rope}; seconds {secs}", flush=True)
+    def col(key):
+        return ", ".join(f"{t[key]:.3e}" for t in taps)
+    print(f"  K7 beside the plain decode attention's {len(taps)} calls of "
+          f"the first decode step, against the plain version in f32: "
+          f"max_abs_err {col('max_abs_err')} (tol {col('tol')}); a "
+          f"half-span output {col('half_span')}", flush=True)
+    checks = [
+        (impl == "scan", f"prefill impl {impl}"),
+        (n == want, f"launches {n}, want {want}"),
+        (finite, "a logit is not finite"),
+        (all(g <= t for g, t in zip(gap, tol)),
+         f"logits {gap} from the plain attention (tol {tol})"),
+        (toks[:2] == p_toks, f"tokens {toks[:2]} vs plain {p_toks}"),
+        (len(taps) == 6 and all(t["ok"] for t in taps),
+         f"K7 against its plain version at the path's inputs: {taps}"),
+        (all(v["max_ulps"] <= 2 for v in rope.values()),
+         f"RoPE on the card {rope} past 2 ulps of the host")]
+    failures += [f"{HYBRID} long_500k: {m}" for ok, m in checks if not ok]
+    del cache, params, outs, p_outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n, r, failures
+
+
+def xlstm_long_500k(seed: int, card_name: str) -> tuple:
+    """xlstm-350m at long_500k (full width and depth): `init_cache` at
+    524,288 holds the bytes of one at seq_len 1; NATIVE_PROMPT_TOKENS
+    seeded prompt tokens through the scan prefill at 524,160, then
+    XLSTM_NEW greedy decode steps at 524,224 on, and the same from index
+    0 on a fresh cache: logits equal bit for bit (the index is unused),
+    no kernel launched. Returns ({kernel: launches}, summary,
+    failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api as M
+    from repro_torch.nn import init_tree
+    from repro_torch.runtime import serve_step as SS
+    cfg = get_arch(XLSTM)
+    shape, failures = _native_shape(cfg, XLSTM)
+    model = M.get_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_tree(M.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(seed), "cuda")
+
+    def nbytes(seq):
+        c = model.init_cache(cfg, 1, seq, "cuda")
+        return sum(x.numel() * x.element_size() for x in c.values())
+    sizes = (nbytes(L500_S), nbytes(1))
+    prompt = torch.from_numpy(np.random.default_rng(seed + 702).integers(
+        0, cfg.vocab_size, NATIVE_PROMPT_TOKENS).astype(np.int32)).cuda()
+    prefill = SS.make_prefill_step(cfg, shape)
+    step = SS.make_decode_step(cfg, shape)
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    runs = {}
+    for start in (L500_S - NATIVE_PROMPT_TOKENS - HYBRID_NEW, 0):
+        cache = model.init_cache(cfg, 1, L500_S, "cuda")
+        with torch.inference_mode():
+            runs[start] = _greedy(prefill, step, params, cache, prompt,
+                                  start, XLSTM_NEW)
+        del cache
+    n = {k: f.launches for k, f in counters.items() if f.launches}
+    (l1, o1, t1, p1, d1), (l0, o0, t0_, _, _) = runs.values()
+    equal = bool(torch.equal(l1, l0)) and all(
+        torch.equal(a, b) for a, b in zip(o1, o0)) and t1 == t0_
+    finite = all(bool(torch.isfinite(x).all()) for x in [l1] + o1)
+    r = dict(cache_bytes=sizes, equal_from_0=equal, launches=n,
+             prefill_s=p1, decode_ms_per_step=1e3 * d1 / XLSTM_NEW,
+             max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+             / 2 ** 30, tokens=t1)
+    print(f"long_500k {XLSTM} (window {SS.window_for(cfg, shape)}): cache "
+          f"{sizes[0]} bytes at {L500_S}, {sizes[1]} at 1; prompt of "
+          f"{NATIVE_PROMPT_TOKENS} {p1:.2f} s, decode "
+          f"{r['decode_ms_per_step']:.2f} ms a step from "
+          f"{L500_S - HYBRID_NEW}; logits and tokens equal to the run from "
+          f"index 0 bit for bit {equal}; finite {finite}; launches {n}; "
+          f"max_memory_allocated {r['max_memory_allocated_gib']:.2f} GiB "
+          f"({card_name})", flush=True)
+    checks = [(sizes[0] == sizes[1], f"cache bytes {sizes}"),
+              (equal, "logits differ from the run from index 0"),
+              (finite, "a logit is not finite"), (not n, f"launches {n}")]
+    failures += [f"{XLSTM} long_500k: {m}" for ok, m in checks if not ok]
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n, r, failures
+
+
+def long_native(seed: int, card_name: str) -> tuple:
+    """Phase 16 (c). Returns ({kernel: {launch key: launches}}, summary,
+    failures)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(QWEN), n_layers=NATIVE_LAYERS)
+    t0 = time.perf_counter()
+    served, serve_summary, failures = long_serve(
+        seed, card_name, cfg=cfg, n_req=1, prompt=NATIVE_PROMPT,
+        new=NATIVE_NEW, tag=f"serve at {NATIVE_PROMPT}")
+    want = -(-NATIVE_PROMPT // LONG_CHUNK)
+    if serve_summary["prefill_calls"] != {"paged": want, "dense": want}:
+        failures.append(f"serve at {NATIVE_PROMPT}: prefill calls "
+                        f"{serve_summary['prefill_calls']}, want {want}")
+    t1 = time.perf_counter()
+    hyb, hyb_summary, f = hybrid_long_500k(seed, card_name)
+    failures += f
+    t2 = time.perf_counter()
+    xl, xl_summary, f = xlstm_long_500k(seed, card_name)
+    failures += f
+    secs = dict(serve=t1 - t0, hybrid=t2 - t1,
+                xlstm=time.perf_counter() - t2)
+    launches = {k: {NATIVE_SERVE_KEY: v} for k, v in served.items()}
+    for k, v in hyb.items():
+        launches.setdefault(k, {})[HYBRID_KEY] = v
+    return launches, dict(serve=serve_summary, hybrid=hyb_summary,
+                          xlstm=xl_summary, seconds=secs), failures
+
+
 def long_train(seed: int, card_name: str, shapes: dict) -> tuple:
-    """Phase 16 (b): one CL and one SL step at train_4k's sequence
+    """Phase 16 (d): one CL and one SL step at train_4k's sequence
     length, counters set to 0 before and read after (K1 by shape into
     `shapes`), then K1 at the SL leg's shape against its plain version.
     Each run is `Experiment.run`'s first cycle (init, the cycle's
@@ -5560,25 +5914,31 @@ def long_train(seed: int, card_name: str, shapes: dict) -> tuple:
 
 
 def long_phase(seed: int, card_name: str, shapes: dict) -> tuple:
-    """Phase 16. Returns (serving launches, long_500k's launches,
-    training launches, K1's timed shape, summary, failures)."""
+    """Phase 16. Returns (serving launches, long_500k's launches, the
+    windowless part's launches by key, training launches, K1's timed
+    shape, summary, failures)."""
     t0 = time.perf_counter()
     serve_launches, serve_summary, failures = long_serve(seed, card_name)
     t1 = time.perf_counter()
     l500_launches, l500_summary, f = long_500k(seed, card_name)
     failures += f
     t2 = time.perf_counter()
+    native_launches, native_summary, f = long_native(seed, card_name)
+    failures += f
+    t3 = time.perf_counter()
     train_launches, timed, train_summary, f = long_train(seed, card_name,
                                                          shapes)
     failures += f
-    secs = dict(serve=t1 - t0, long_500k=t2 - t1,
-                train=time.perf_counter() - t2)
+    secs = dict(serve=t1 - t0, long_500k=t2 - t1, windowless=t3 - t2,
+                train=time.perf_counter() - t3)
     print(f"phase 16 parts: "
           f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
           f"({card_name})", flush=True)
-    return serve_launches, l500_launches, train_launches, timed, dict(
-        serve=serve_summary, long_500k=l500_summary, train=train_summary,
-        seconds=secs), failures
+    return serve_launches, l500_launches, native_launches, \
+        train_launches, timed, dict(
+            serve=serve_summary, long_500k=l500_summary,
+            windowless=native_summary, train=train_summary,
+            seconds=secs), failures
 
 
 def main() -> None:
@@ -5645,11 +6005,10 @@ def main() -> None:
     print(f"attention kernel checks: {time.perf_counter() - t_check:.1f} s",
           flush=True)
     t_long = time.perf_counter()
-    print(f"kernel checks at long caches ({LONG_CACHES}), and the longest "
-          f"table row K8 and K10 stage", flush=True)
+    print(f"kernel checks at long caches ({LONG_CACHES}, {L500_S}), past "
+          f"the old staging limit", flush=True)
     long_rows, long_errs, long_failures = check_long_kernels(args.seed)
-    staging, staging_failures = check_staging_limits()
-    failures += long_failures + staging_failures
+    failures += long_failures
     for r in rows:
         r["by_shape"] += long_rows[r["name"]]
         r["max_abs_err"] = max(r["max_abs_err"], long_errs[r["name"]])
@@ -5747,13 +6106,15 @@ def main() -> None:
           f"launches {p15_launches}", flush=True)
     failures += p15_failures
     t_p16 = time.perf_counter()
-    long_launches, l500_launches, long_train_launches, long_timed, \
-        long_summary, p16_failures = long_phase(args.seed, card, shapes)
+    long_launches, l500_launches, native_launches, long_train_launches, \
+        long_timed, long_summary, p16_failures = long_phase(
+            args.seed, card, shapes)
     for name, per in long_timed.items():
         qwen_timed.setdefault(name, {}).update(per)
     print(f"long-shape phase: {time.perf_counter() - t_p16:.1f} s; "
           f"launches {long_launches} (serving), {l500_launches} "
-          f"(long_500k), {long_train_launches} (training)", flush=True)
+          f"(long_500k), {native_launches} (without a window), "
+          f"{long_train_launches} (training)", flush=True)
     failures += p16_failures
     # the serving paths' launches by (rows, KV heads, G, hd): phase 3
     # (qwen1.5-0.5b) and phase 12 on the engine's 8 slots, phase 14 on the
@@ -5764,6 +6125,8 @@ def main() -> None:
         attn[k][LONG_SERVE_KEY] = n
     for k, n in l500_launches.items():
         attn[k][L500_KEY] = n
+    for k, per in native_launches.items():
+        attn[k].update(per)
     for k, n in p15_launches.items():        # phase 15's 4 slots
         if k in attn:
             attn[k][(4, 16, 1, 64)] = n
@@ -5824,7 +6187,6 @@ def main() -> None:
                                    "hybrid_and_audio": p14_summary,
                                    "mesh_and_compile": p15_summary,
                                    "long_shapes": long_summary,
-                                   "staging_limits": staging,
                                    "build_s": secs,
                                    "failures": failures}, indent=1))
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s",

@@ -160,37 +160,39 @@ def attention_args(what: str, q, k, v, hd: int) -> int:
     return code
 
 
-# shared memory one CTA may take on the H100 (sm_90's opt-in limit,
-# cudaDevAttrMaxSharedMemoryPerBlockOptin: 227 KiB)
-SMEM_LIMIT = 232_448
+# page bases a paged attention CTA stages at a time, at most (8 bytes
+# each: 16 KiB). The wrappers' `stage_pages` give each launch its number,
+# which sizes the kernel's shared-memory array and cuts a longer span into
+# segments of that many pages (kernels/csrc/kv_cols.cuh), so a CTA's
+# shared memory does not grow with the table row
+STAGE_PAGES = 2048
+# the most columns one step of an attention body's column loop spans
+# (kv_cols.cuh's MAX_STEP): a segment holds at least one, and the launch
+# refuses a staging too small for that
+MAX_STEP = 64
+# columns a paged table row may address: the kernels index columns,
+# positions and lengths in int32, and sum two of them at most (a column
+# and a tile, a length and a split count), which stays below 2^31
+MAX_COLUMNS = 1 << 30
 
 
-def longest_table(smem_bytes) -> int:
-    """The most pages a table row may hold with `smem_bytes(pages)` (a
-    nondecreasing function of the row's length) within SMEM_LIMIT; 0 if
-    not even one page fits."""
-    lo, hi = 0, 1
-    while smem_bytes(hi) <= SMEM_LIMIT:
-        lo, hi = hi, 2 * hi
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if smem_bytes(mid) <= SMEM_LIMIT else (lo, mid)
-    return lo
+def stage_pages(span: int, page: int, n_lp: int) -> int:
+    """Page bases a paged CTA stages at a time for a range of at most
+    `span` columns starting anywhere (one page more than the range fills
+    when unaligned): never more than the table row of n_lp pages holds
+    nor STAGE_PAGES, never fewer than a segment of one loop step needs."""
+    need = max(-(-span // page) + 1, -(-MAX_STEP // page) + 1)
+    return min(need, n_lp, STAGE_PAGES)
 
 
-def check_staging(what: str, smem_bytes, n_lp: int, page: int) -> None:
-    """Refuse, before launch, a paged launch whose page bases do not fit
-    one CTA's shared memory: `smem_bytes(n_lp)` is the bytes a CTA takes
-    at a table row of n_lp pages."""
-    need = smem_bytes(n_lp)
-    if need > SMEM_LIMIT:
-        top = longest_table(smem_bytes)
+def check_table(what: str, n_lp: int, page: int) -> None:
+    """Refuse, before launch, a table row of n_lp pages of `page` whose
+    columns the kernels' int32 indices cannot address (MAX_COLUMNS)."""
+    if n_lp * page > MAX_COLUMNS:
         raise ValueError(
-            f"{what}: a cache of {n_lp} pages of {page} ({n_lp * page} "
-            f"columns) needs {need} bytes of shared memory a CTA, above "
-            f"the card's {SMEM_LIMIT} (227 KiB); at these shapes the "
-            f"longest cache the kernel takes is {top} pages ({top * page} "
-            f"columns)")
+            f"{what}: a table row of {n_lp} pages of {page} addresses "
+            f"{n_lp * page} columns, past the {MAX_COLUMNS} (2^30) the "
+            f"kernels' int32 column indices take")
 
 
 def int_rows(x, B: int, device):

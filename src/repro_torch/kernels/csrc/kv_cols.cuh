@@ -8,33 +8,45 @@
 //              column c is row (pid*Hkv + h)*page + c % page, with
 //              pid = tables[b, c / page] clamped into [0, n_pages).
 //
-// A CTA calls `rows(b, h, Hkv, lo, hi, base)` once, before its column
-// loop, with the range [lo, hi) of columns it may read; every thread of
-// the CTA must make the call. The paged mapper stages the row base of each
-// page that the range touches in the shared-memory array `base` behind
-// one CTA barrier, so no K/V load in the loop waits on a page-table read:
-// the table is read once per page per CTA. The dense mapper does nothing.
-// The launch sizes `base` with the mapper's `stage_pages`: the pages of
-// the longest range a CTA can have, which is the whole table row, or
-// under a sliding window the window and the `reach` its later rows (and
-// any rounding of the range's start down to a tile) add, whatever the
-// cache.
+// A CTA reads the range [lo, hi) of columns. When every CTA's range of a
+// launch fits one staging (the launch asks `cut`: no), the kernel is the
+// instance that stages once and runs one pass; else the instance that
+// walks its range in segments:
+//
+//   for (s_lo = lo; s_lo < hi; s_lo = s_hi) {
+//     s_hi = cols.seg_end(s_lo, hi, origin, step);
+//     rows = cols.rows(b, h, Hkv, s_lo, s_hi, base);   // every thread
+//     ... the loop's steps over [s_lo, s_hi), addresses from rows(c) ...
+//     barrier before the next `rows` if s_hi < hi
+//   }
+//
+// The paged mapper's `rows` stages the row base of each page the range
+// (or segment) touches in the shared-memory array `base` behind one CTA
+// barrier, so no K/V load in the loop waits on a page-table read: the
+// table is read once per page per CTA. `base` holds `stage` entries (8
+// bytes each), a number the wrapper picks (kernels/build.py's
+// STAGE_PAGES at most, fewer for a short row or a sliding window's span)
+// and the launch sizes `base` by: it is the one source of that size. A
+// range that touches more pages is cut on the loop's own grid of steps
+// (origin + k * step columns), each piece touching at most `stage`
+// pages. Every step of the loop then lies in one segment and the columns
+// are visited in the same order with the same arithmetic as in one pass:
+// the bits are those of the dense mapper, which never cuts and stages
+// nothing.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace kv {
 
-// Entries of `base` a CTA needs for a range of at most `cols` columns
-// starting anywhere (one more page than the range fills when unaligned),
-// and never more than the table row holds.
-inline int max_pages(int cols, int page, int n_lp) {
-  const int n = (cols + page - 1) / page + 1;
-  return n < n_lp ? n : n_lp;
-}
+// the most columns one step of an attention body's column loop spans (its
+// tiles and decode steps); a segment must hold one
+constexpr int MAX_STEP = 64;
 
 struct DenseCols {
   int S;
+  static constexpr int stage = 0;                  // stages nothing
+  static constexpr bool can_cut = false;
   struct Rows {
     long long base;
     __device__ __forceinline__ long long operator()(int c) const {
@@ -42,16 +54,20 @@ struct DenseCols {
     }
   };
   __device__ __forceinline__ int n_cols() const { return S; }
+  __device__ __forceinline__ int seg_end(int, int hi, int, int) const {
+    return hi;                                      // never cuts
+  }
   __device__ __forceinline__ Rows rows(int b, int h, int Hkv, int, int,
                                        long long*) const {
     return {(long long)(b * Hkv + h) * S};
   }
-  int stage_pages(int, int) const { return 0; }   // stages nothing
 };
 
 struct PagedCols {
   const int* __restrict__ tables;
   int n_lp, page, n_pages;
+  int stage;               // entries of `base` one staging holds
+  static constexpr bool can_cut = true;
   struct Rows {
     const long long* base;   // row base of pages p0, p0 + 1, ...
     unsigned p0, page;
@@ -61,6 +77,24 @@ struct PagedCols {
     }
   };
   __device__ __forceinline__ int n_cols() const { return n_lp * page; }
+  // A range of at most `span` columns may touch more pages than one
+  // staging holds (else: the whole row is staged, or such a range, which
+  // touches at most span / page + 2 pages, fits).
+  bool cut(long long span) const {
+    return stage < n_lp && (long long)(stage - 1) * page < span;
+  }
+  // The end of the segment that starts at column lo of [lo, hi): hi if
+  // [lo, hi) touches at most `stage` pages; else the last column on the
+  // grid origin + k * step (origin <= lo) at or before the first column
+  // past `stage` pages from lo's page. That is more than lo, since
+  // stage - 1 whole pages lie between, at least a step (`valid`).
+  __device__ __forceinline__ int seg_end(int lo, int hi, int origin,
+                                         int step) const {
+    const int p0 = lo / page;
+    if ((hi - 1) / page - p0 < stage) return hi;
+    const long long e = (long long)(p0 + stage) * page;
+    return origin + (int)((e - origin) / step) * step;
+  }
   __device__ __forceinline__ Rows rows(int b, int h, int Hkv, int lo, int hi,
                                        long long* base) const {
     const int p0 = lo / page;
@@ -73,9 +107,11 @@ struct PagedCols {
     __syncthreads();
     return {base, static_cast<unsigned>(p0), static_cast<unsigned>(page)};
   }
-  // entries of `base` for a CTA's range under `window` (0: the row)
-  int stage_pages(int window, int reach) const {
-    return window > 0 ? max_pages(window + reach, page, n_lp) : n_lp;
+  // a staging holds a page, and a row it does not hold whole is cut into
+  // segments of at least one step each
+  bool valid() const {
+    return page >= 1 && n_pages >= 1 && stage >= 1 &&
+           (stage >= n_lp || (long long)(stage - 1) * page >= MAX_STEP);
   }
 };
 

@@ -46,11 +46,13 @@
 //     merges the partials in split order 0..n_split-1.
 //   - paged: before the loop the CTA stages the row base of each page of
 //     its split's range in shared memory (one table read per page, one
-//     barrier); the loop's loads then wait on no table read. That is 8
-//     bytes a page beside the merge buffer, so the longest cache a
-//     launch takes is bounded by the card's 227 KiB a CTA (at page 16
-//     and one split, some 460,000 columns): the wrapper refuses a
-//     longer one before launch (ops.check_paged_decode).
+//     barrier); the loop's loads then wait on no table read. The wrapper
+//     picks how many a CTA stages at a time (`ops.stage_pages`: the
+//     split's pages, at most 2,048, 16 KiB beside the merge buffer); a
+//     range of more pages (one split of a row past 32,768 columns at page
+//     16) is staged in segments cut on the loop's grid of steps from the
+//     range's start, so each lane meets its columns in the same order as
+//     in one pass.
 // No float atomics anywhere: the same inputs give the same bits. What it
 // computes is the Pallas kernel's: s = (q . k) * scale in f32; running
 // (m, l, acc) in f32; p = exp(s - m); l sums the unrounded p; p rounded to
@@ -96,7 +98,7 @@ __device__ __forceinline__ void unpack16(const uint4& r, float (&x)[N],
 
 // One CTA: head-group rows [g0, g0 + GB) of (slot b, KV head h), columns
 // of split blockIdx.z.
-template <typename T, int HD, int GB, typename Cols>
+template <typename T, int HD, int GB, typename Cols, bool CUT>
 __global__ void __launch_bounds__(THREADS)
     split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, float* __restrict__ out,
@@ -168,71 +170,79 @@ __global__ void __launch_bounds__(THREADS)
     for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
-  const auto rows = cols.rows(b, h, Hkv, c_lo, c_hi, page_base);
-  for (int base = c_lo; base < c_hi; base += STEP) {
-    uint4 kr[U][NCH], vr[U][NCH];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int c = base + (u * WARPS + warp) * CPW + slot;
-      ok[u] = live && c < c_hi;
-#pragma unroll
-      for (int j = 0; j < NCH; ++j) {
-        kr[u][j] = vr[u][j] = make_uint4(0, 0, 0, 0);
-        if (ok[u]) {
-          const long long off = rows(c) * HD + d0 + j * LPC * VEC;
-          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k + off));
-          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v + off));
-        }
-      }
-    }
-    float s[U][GB];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kx[E];
-#pragma unroll
-      for (int j = 0; j < NCH; ++j)
-        unpack16<T>(kr[u][j], kx, j * VEC);
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) part += qv[g][e] * kx[e];
-#pragma unroll
-        for (int o = 1; o < LPW; o <<= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, o);
-        s[u][g] = part * scale;
-      }
-    }
-    float vx[U][E];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int j = 0; j < NCH; ++j)
-        unpack16<T>(vr[u][j], vx[u], j * VEC);
-#pragma unroll
-    for (int g = 0; g < GB; ++g) {
-      float m_new = m[g];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (ok[u]) m_new = fmaxf(m_new, s[u][g]);
-      const float corr = expf(m[g] - m_new);
-      float p[U], psum = 0.f;
+  // the split's range in one pass, or (CUT) in segments of at most
+  // `stage` pages cut on the grid of STEP columns from c_lo
+  static_assert(STEP <= kv::MAX_STEP, "step vs segment");
+  for (int s_lo = c_lo; s_lo < c_hi;) {
+    const int s_hi = CUT ? cols.seg_end(s_lo, c_hi, c_lo, STEP) : c_hi;
+    const auto rows = cols.rows(b, h, Hkv, s_lo, s_hi, page_base);
+    for (int base = s_lo; base < s_hi; base += STEP) {
+      uint4 kr[U][NCH], vr[U][NCH];
+      bool ok[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        p[u] = ok[u] ? expf(s[u][g] - m_new) : 0.f;
-        psum += p[u];
-      }
-      l[g] = l[g] * corr + psum;
+        const int c = base + (u * WARPS + warp) * CPW + slot;
+        ok[u] = live && c < s_hi;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float a = acc[g][e] * corr;
-#pragma unroll
-        for (int u = 0; u < U; ++u) a += round_as<T>(p[u]) * vx[u][e];
-        acc[g][e] = a;
+        for (int j = 0; j < NCH; ++j) {
+          kr[u][j] = vr[u][j] = make_uint4(0, 0, 0, 0);
+          if (ok[u]) {
+            const long long off = rows(c) * HD + d0 + j * LPC * VEC;
+            kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k + off));
+            vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v + off));
+          }
+        }
       }
-      m[g] = m_new;
+      float s[U][GB];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kx[E];
+#pragma unroll
+        for (int j = 0; j < NCH; ++j)
+          unpack16<T>(kr[u][j], kx, j * VEC);
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) part += qv[g][e] * kx[e];
+#pragma unroll
+          for (int o = 1; o < LPW; o <<= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+          s[u][g] = part * scale;
+        }
+      }
+      float vx[U][E];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < NCH; ++j)
+          unpack16<T>(vr[u][j], vx[u], j * VEC);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float m_new = m[g];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (ok[u]) m_new = fmaxf(m_new, s[u][g]);
+        const float corr = expf(m[g] - m_new);
+        float p[U], psum = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          p[u] = ok[u] ? expf(s[u][g] - m_new) : 0.f;
+          psum += p[u];
+        }
+        l[g] = l[g] * corr + psum;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          float a = acc[g][e] * corr;
+#pragma unroll
+          for (int u = 0; u < U; ++u) a += round_as<T>(p[u]) * vx[u][e];
+          acc[g][e] = a;
+        }
+        m[g] = m_new;
+      }
     }
+    s_lo = s_hi;
+    if (CUT && s_lo < c_hi) __syncthreads();   // every warp past its loads
   }
 
   // merge the CPW lane groups of the warp (butterfly over the slot bits;
@@ -320,28 +330,28 @@ __global__ void __launch_bounds__(256)
 }
 
 // Static shared memory of split_decode_kernel<T, HD, GB, *>: sm_acc, sm_m
-// and sm_l (ops.decode_smem_bytes restates it).
+// and sm_l.
 template <int HD, int GB>
 constexpr int static_smem() {
   return (int)sizeof(float) * WARPS * GB * (HD + 2);
 }
 
-template <typename T, int HD, int GB, typename Cols>
-int launch_split(const void* q, const void* k, const void* v, float* out,
-                 float* ws, const int* lengths, const Cols cols,
-                 int smem_pages, int B, int Hkv, int G, int n_split,
-                 int window, float scale, cudaStream_t st) {
+template <typename T, int HD, int GB, typename Cols, bool CUT>
+int launch_split_as(const void* q, const void* k, const void* v,
+                    float* out, float* ws, const int* lengths,
+                    const Cols cols, int B, int Hkv, int G, int n_split,
+                    int window, float scale, cudaStream_t st) {
   const dim3 grid(B, Hkv * ((G + GB - 1) / GB), n_split);
-  const int smem = smem_pages * (int)sizeof(long long);
-  // past the 48 KiB every launch may take, the kernel must opt in (up to
-  // the card's 227 KiB; the wrapper refuses a cache that needs more)
+  const int smem = cols.stage * (int)sizeof(long long);
+  // past the 48 KiB every launch may take, the kernel must opt in (a
+  // staging of 2,048 pages, 16 KiB, stays below it)
   if (smem + static_smem<HD, GB>() > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        split_decode_kernel<T, HD, GB, Cols>,
+        split_decode_kernel<T, HD, GB, Cols, CUT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return (int)attr;
   }
-  split_decode_kernel<T, HD, GB, Cols>
+  split_decode_kernel<T, HD, GB, Cols, CUT>
       <<<grid, THREADS, smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), out, ws, lengths, cols, Hkv, G, n_split,
@@ -354,15 +364,35 @@ int launch_split(const void* q, const void* k, const void* v, float* out,
   return (int)cudaGetLastError();
 }
 
+// The instance that cuts a split's range into segments only where one
+// split's share of the valid span (the row, or at most the window) may
+// touch more pages than one staging holds.
+template <typename T, int HD, int GB, typename Cols>
+int launch_split(const void* q, const void* k, const void* v, float* out,
+                 float* ws, const int* lengths, const Cols cols, int B,
+                 int Hkv, int G, int n_split, int window, float scale,
+                 cudaStream_t st) {
+  if constexpr (Cols::can_cut) {
+    const long long row = (long long)cols.n_lp * cols.page;
+    const long long valid = window > 0 && window < row ? window : row;
+    const long long span = (valid + n_split - 1) / n_split;
+    if (cols.cut(span))
+      return launch_split_as<T, HD, GB, Cols, true>(
+          q, k, v, out, ws, lengths, cols, B, Hkv, G, n_split, window, scale,
+          st);
+  }
+  return launch_split_as<T, HD, GB, Cols, false>(
+      q, k, v, out, ws, lengths, cols, B, Hkv, G, n_split, window, scale, st);
+}
+
 template <typename T, int HD, typename Cols>
 int dispatch_gb(int gb, const void* q, const void* k, const void* v,
                 float* out, float* ws, const int* lengths, const Cols cols,
-                int smem_pages, int B, int Hkv, int G, int n_split,
-                int window, float scale, cudaStream_t st) {
+                int B, int Hkv, int G, int n_split, int window, float scale,
+                cudaStream_t st) {
 #define GQA_SPLIT(GBV)                                                      \
-  launch_split<T, HD, GBV, Cols>(q, k, v, out, ws, lengths, cols,          \
-                                 smem_pages, B, Hkv, G, n_split, window,    \
-                                 scale, st)
+  launch_split<T, HD, GBV, Cols>(q, k, v, out, ws, lengths, cols, B, Hkv,  \
+                                 G, n_split, window, scale, st)
   if (gb == 1) return GQA_SPLIT(1);
   if (gb == 2) return GQA_SPLIT(2);
   if (gb == 4) return GQA_SPLIT(4);
@@ -377,38 +407,34 @@ int dispatch_gb(int gb, const void* q, const void* k, const void* v,
 template <typename T, typename Cols>
 int dispatch_hd(int hd, int gb, const void* q, const void* k, const void* v,
                 float* out, float* ws, const int* lengths, const Cols cols,
-                int smem_pages, int B, int Hkv, int G, int n_split,
-                int window, float scale, cudaStream_t st) {
+                int B, int Hkv, int G, int n_split, int window, float scale,
+                cudaStream_t st) {
   if (hd == 64)
     return dispatch_gb<T, 64>(gb, q, k, v, out, ws, lengths, cols,
-                              smem_pages, B, Hkv, G, n_split, window, scale,
-                              st);
+                              B, Hkv, G, n_split, window, scale, st);
   if (hd == 128)
     return dispatch_gb<T, 128>(gb, q, k, v, out, ws, lengths, cols,
-                               smem_pages, B, Hkv, G, n_split, window, scale,
-                               st);
+                               B, Hkv, G, n_split, window, scale, st);
   if (hd == 160)
     return dispatch_gb<T, 160>(gb, q, k, v, out, ws, lengths, cols,
-                               smem_pages, B, Hkv, G, n_split, window, scale,
-                               st);
+                               B, Hkv, G, n_split, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename Cols>
 int dispatch(int dtype, int gb, const void* q, const void* k, const void* v,
              float* out, float* ws, const int* lengths, const Cols cols,
-             int smem_pages, int B, int Hkv, int G, int hd, int n_split,
-             int window, float scale, void* stream) {
+             int B, int Hkv, int G, int hd, int n_split, int window,
+             float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_hd<float>(hd, gb, q, k, v, out, ws, lengths, cols,
-                              smem_pages, B, Hkv, G, n_split, window, scale,
-                              st);
+                              B, Hkv, G, n_split, window, scale, st);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(hd, gb, q, k, v, out, ws, lengths,
-                                      cols, smem_pages, B, Hkv, G, n_split,
-                                      window, scale, st);
+                                      cols, B, Hkv, G, n_split, window,
+                                      scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -424,23 +450,22 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int n_split, int window, float scale,
                                 int dtype, void* stream) {
   return gqa::dispatch(dtype, gb, q, k, v, out, ws, lengths, kv::DenseCols{S},
-                       0, B, Hkv, G, hd, n_split, window, scale, stream);
+                       B, Hkv, G, hd, n_split, window, scale, stream);
 }
 
-// The same kernel over the paged pool; n_split and gb from the wrapper as
-// for the dense cache, with S = n_lp * page.
+// The same kernel over the paged pool; n_split, gb and `stage` (the page
+// bases a CTA stages at a time, `ops.stage_pages`) from the wrapper, with
+// S = n_lp * page.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool,
                                       const void* v_pool, float* out,
                                       float* ws, const int* tables,
                                       const int* lengths, int B, int Hkv,
                                       int G, int n_pages, int page, int n_lp,
-                                      int hd, int gb, int n_split, int window,
-                                      float scale, int dtype, void* stream) {
-  if (page < 1 || n_split < 1 || n_pages < 1)
-    return (int)cudaErrorInvalidValue;
-  const int S = n_lp * page;
-  const int pages = kv::max_pages((S + n_split - 1) / n_split, page, n_lp);
-  return gqa::dispatch(dtype, gb, q, k_pool, v_pool, out, ws, lengths,
-                       kv::PagedCols{tables, n_lp, page, n_pages}, pages, B,
-                       Hkv, G, hd, n_split, window, scale, stream);
+                                      int stage, int hd, int gb, int n_split,
+                                      int window, float scale, int dtype,
+                                      void* stream) {
+  const kv::PagedCols cols{tables, n_lp, page, n_pages, stage};
+  if (!cols.valid()) return (int)cudaErrorInvalidValue;
+  return gqa::dispatch(dtype, gb, q, k_pool, v_pool, out, ws, lengths, cols,
+                       B, Hkv, G, hd, n_split, window, scale, stream);
 }

@@ -46,37 +46,19 @@ def decode_splits(B: int, Hkv: int, G: int) -> int:
     return max(1, min(-(-TARGET_CTAS // units), MAX_SPLITS))
 
 
-# warps of a decode CTA (decode_attention.cu's WARPS)
-WARPS = 4
-
-
-def decode_smem_bytes(hd: int, G: int, n_split: int, page: int,
-                      n_lp: int) -> int:
-    """Shared memory of one paged decode CTA: the warps' merge buffer
-    (WARPS x group rows x (hd + 2) floats, the kernel's static arrays)
-    and the row base, 8 bytes, of each page one split's range of a
-    table row of n_lp pages can touch (kv_cols.cuh's `max_pages`)."""
-    cols = -(-n_lp * page // n_split)
-    pages = min(-(-cols // page) + 1, n_lp)
-    return 4 * WARPS * group_rows(G) * (hd + 2) + 8 * pages
-
-
-def check_paged_decode(B: int, Hkv: int, G: int, hd: int, page: int,
-                       n_lp: int) -> None:
-    """Refuse, before launch, a table row longer than one CTA's shared
-    memory can stage at these shapes (raises ValueError naming the
-    limit and the longest cache the kernel takes)."""
-    n_split = decode_splits(B, Hkv, G)
-    build.check_staging(
-        "gqa_decode_paged",
-        lambda n: decode_smem_bytes(hd, G, n_split, page, n), n_lp, page)
+def stage_pages(n_lp: int, page: int, n_split: int) -> int:
+    """Page bases one paged decode CTA stages at a time (8 bytes each, in
+    shared memory beside the warps' merge buffer; `build.stage_pages`):
+    the pages one split's share of a table row of n_lp pages can touch,
+    at most build.STAGE_PAGES."""
+    return build.stage_pages(-(-n_lp * page // n_split), page, n_lp)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("decode_attention")
     lib.decode_attention.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
-    lib.paged_decode_attention.argtypes = [_P] * 7 + [_I] * 10 \
+    lib.paged_decode_attention.argtypes = [_P] * 7 + [_I] * 11 \
         + [_F, _I, _P]
     lib.decode_attention.restype = _I
     lib.paged_decode_attention.restype = _I
@@ -122,8 +104,8 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     per-slot page tables; `length` scalar or per-row [B] valid-prefix
     counts. Returns [B, H, hd] f32. The dense kernel's split-KV body
     over n_lp * page columns; page ids are clamped into the pool. A
-    table row whose pages one CTA cannot stage (`check_paged_decode`)
-    raises before launch."""
+    table row of any length launches, up to the columns the kernel's
+    int32 indices address (`build.check_table`)."""
     if not q.is_cuda:
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, length,
                                           window=window).float()
@@ -137,15 +119,15 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     lengths = build.int_rows(length, B, q.device)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     G, n_lp = H // Hkv, tbl.shape[1]
-    check_paged_decode(B, Hkv, G, hd, page, n_lp)
+    build.check_table("gqa_decode_paged", n_lp, page)
     n_split = decode_splits(B, Hkv, G)
     ws = torch.empty((B, H, n_split, hd + 2) if n_split > 1 else (0,),
                      dtype=torch.float32, device=q.device)
     st = _lib().paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         ws.data_ptr(), tbl.data_ptr(), lengths.data_ptr(), B, Hkv, G,
-        n_pages, page, n_lp, hd, group_rows(G), n_split, int(window),
-        1.0 / hd ** 0.5, code,
+        n_pages, page, n_lp, stage_pages(n_lp, page, n_split), hd,
+        group_rows(G), n_split, int(window), 1.0 / hd ** 0.5, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(st, "paged_decode_attention")
     gqa_decode_paged.launches += 1

@@ -22,15 +22,19 @@
 // rows per (slot, head), so half of such a tile would idle.
 //
 // Design. One CTA of 4 warps per (b, h, block of 16 * WR rows); paged, it
-// first stages the row base of each page of its span in shared memory
-// (one table read per page, one barrier). The launch sizes that array, 8
-// bytes a page beside the tiles, for the longest span a CTA can have
-// (kv_cols.cuh's `stage_pages`): under a sliding window, the window and
-// 63 columns more (517 pages of 16 at window 8,192) whatever the cache;
-// without one, the whole table row, so the card's 227 KiB a CTA
-// bound the longest cache such a launch takes (in bf16 12,672 pages at
-// head dim 64 and 128, 18,304 at 160): the wrapper refuses a longer one
-// before launch (ops.check_paged_prefill). WR warps each own
+// stages the row base of each page of its span in shared memory (one
+// table read per page, one barrier), `stage` pages at a time: the
+// wrapper's number (ops.stage_pages), at most 2,048 (16 KiB beside the
+// tiles), fewer for a shorter row or under a sliding window, whose span
+// is the window and 63 columns more (517 pages of 16 at window 8,192).
+// A launch whose spans fit one staging runs the instance that stages
+// once and makes one pass. Else (a table row past 2,048 pages without a
+// window) the CUT instance runs a span segment by segment, cut on the
+// tile grid: all four warps stage a segment, each runs those
+// of its tiles that lie in it, its cp.async ring drains at the segment's
+// end, and a barrier precedes the next staging; the online softmax
+// carries across, so the tiles, their order and their arithmetic are
+// those of one pass (the dense kernel's bits). WR warps each own
 // 16 rows, and the KS = 4 / WR warps of one row group take every KS-th
 // tile of the group's span (64 columns at head dim 64, 32 at 128: a tile
 // is 8 KiB either way; 16 at 160), so the CTA keeps its 4 warps busy even
@@ -148,7 +152,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&p);
 }
 
-template <int HD, int WR, typename Cols>
+template <int HD, int WR, typename Cols, bool CUT>
 __global__ void __launch_bounds__(THREADS, 1)
     prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -214,23 +218,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int rc_last = min(rc0 + 16 * WR - 1, R - 1);
   const int cta_hi = min(st + rc_last / G + 1, S);
   const int cta_lo = window > 0 ? max(st + rc0 / G - window + 1, 0) : 0;
-  const auto rows = cols.rows(
-      b, h, Hkv, cta_lo, cta_hi,
-      reinterpret_cast<long long*>(smem_raw + TL::SMEM));
-
-  // stage tile t of K and V into buffer `stage` (zero outside [lo, hi))
-  auto load_tile = [&](int t, int stage) {
-    __nv_bfloat16* ks_ = wbuf + stage * 2 * TILE_ELEMS;
-    __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
-#pragma unroll
-    for (int it = 0; it < TILE * CH / 32; ++it) {
-      const int i = it * 32 + lane, row = i / CH, ch = i % CH;
-      const int c = t * TILE + row;
-      const bool in = c >= lo && c < hi;
-      const long long off = in ? rows(c) * HD + ch * 8 : 0;
-      cp_async16(smem_u32(ks_ + TL::off(row, ch)), k + off, in ? 16 : 0);
-      cp_async16(smem_u32(vs_ + TL::off(row, ch)), v + off, in ? 16 : 0);
-    }
+  long long* page_base = reinterpret_cast<long long*>(smem_raw + TL::SMEM);
+  // the warp's tiles t_lo + ks + j * KS (j < n_my) below tile x
+  auto tiles_below = [&](int x) {
+    const int d = x - t_lo - ks;
+    return d <= 0 ? 0 : min((d + KS - 1) / KS, n_my);
   };
 
   float o[OB][4];
@@ -240,98 +232,124 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {flash::NEG_INF, flash::NEG_INF}, l[2] = {0.f, 0.f};
 
-  if (n_my > 0) load_tile(t_lo + ks, 0);
-  cp_async_commit();
-  for (int i = 0; i < n_my; ++i) {
-    const int t = t_lo + ks + i * KS;
-    if (i + 1 < n_my) load_tile(t + KS, (i + 1) & 1);
+  // One staging and one pass over the warp's tiles, j over [0, n_my);
+  // or (CUT) segments of at most `stage` pages cut on the tile grid,
+  // every warp meeting every segment's barriers, each running its tiles
+  // j0 <= j < j1 in the segment.
+  for (int s_lo = cta_lo; s_lo < cta_hi;) {
+    const int s_hi = CUT ? cols.seg_end(s_lo, cta_hi, 0, TILE) : cta_hi;
+    const auto rows = cols.rows(b, h, Hkv, s_lo, s_hi, page_base);
+    const int j0 = CUT ? tiles_below(s_lo / TILE) : 0;
+    const int j1 = CUT ? tiles_below((s_hi + TILE - 1) / TILE) : n_my;
+    // stage tile t of K and V into buffer `stage` (zero outside [lo, hi))
+    auto load_tile = [&](int t, int stage) {
+      __nv_bfloat16* ks_ = wbuf + stage * 2 * TILE_ELEMS;
+      __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
+#pragma unroll
+      for (int it = 0; it < TILE * CH / 32; ++it) {
+        const int i = it * 32 + lane, row = i / CH, ch = i % CH;
+        const int c = t * TILE + row;
+        const bool in = c >= lo && c < hi;
+        const long long off = in ? rows(c) * HD + ch * 8 : 0;
+        cp_async16(smem_u32(ks_ + TL::off(row, ch)), k + off, in ? 16 : 0);
+        cp_async16(smem_u32(vs_ + TL::off(row, ch)), v + off, in ? 16 : 0);
+      }
+    };
+    if (j0 < j1) load_tile(t_lo + ks + j0 * KS, j0 & 1);
     cp_async_commit();
-    cp_async_wait1();
-    __syncwarp();
-    const __nv_bfloat16* ks_ = wbuf + (i & 1) * 2 * TILE_ELEMS;
-    const __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
+    for (int j = j0; j < j1; ++j) {
+      const int t = t_lo + ks + j * KS;
+      if (j + 1 < j1) load_tile(t + KS, (j + 1) & 1);
+      cp_async_commit();
+      cp_async_wait1();
+      __syncwarp();
+      const __nv_bfloat16* ks_ = wbuf + (j & 1) * 2 * TILE_ELEMS;
+      const __nv_bfloat16* vs_ = ks_ + TILE_ELEMS;
 
-    // S = Q . K^T: NB column blocks of 8, QK depth steps of 16
-    float s[NB][4];
+      // S = Q . K^T: NB column blocks of 8, QK depth steps of 16
+      float s[NB][4];
 #pragma unroll
-    for (int n = 0; n < NB; ++n) {
+      for (int n = 0; n < NB; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int kp = 0; kp < QK / 2; ++kp) {
-        unsigned bk[4];
-        const int row = 8 * n + (lane & 7), ch = 4 * kp + (lane >> 3);
-        ldsm_x4(smem_u32(ks_ + TL::off(row, ch)), bk);
-        mma16816(s[n], qf[2 * kp], bk[0], bk[1]);
-        mma16816(s[n], qf[2 * kp + 1], bk[2], bk[3]);
+        for (int kp = 0; kp < QK / 2; ++kp) {
+          unsigned bk[4];
+          const int row = 8 * n + (lane & 7), ch = 4 * kp + (lane >> 3);
+          ldsm_x4(smem_u32(ks_ + TL::off(row, ch)), bk);
+          mma16816(s[n], qf[2 * kp], bk[0], bk[1]);
+          mma16816(s[n], qf[2 * kp + 1], bk[2], bk[3]);
+        }
       }
-    }
 
-    // scale, mask, online softmax for rows gid (e 0, 1) and gid + 8 (e 2, 3)
-    float mx[2] = {m[0], m[1]};
+      // scale, mask, online softmax for rows gid (e 0, 1) and gid + 8 (e 2, 3)
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < NB; ++n) {
+      for (int n = 0; n < NB; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i2 = e >> 1, c = t * TILE + 8 * n + 2 * tig + (e & 1);
-        const bool ok = qrow[i2] >= 0 && c < S && c <= qp[i2] &&
-                        (window <= 0 || c > qp[i2] - window);
-        const float x = s[n][e] * scale;
-        s[n][e] = ok ? x : -INFINITY;
-        if (ok) mx[i2] = fmaxf(mx[i2], x);
+        for (int e = 0; e < 4; ++e) {
+          const int i2 = e >> 1, c = t * TILE + 8 * n + 2 * tig + (e & 1);
+          const bool ok = qrow[i2] >= 0 && c < S && c <= qp[i2] &&
+                          (window <= 0 || c > qp[i2] - window);
+          const float x = s[n][e] * scale;
+          s[n][e] = ok ? x : -INFINITY;
+          if (ok) mx[i2] = fmaxf(mx[i2], x);
+        }
       }
-    }
-    float corr[2], rs[2] = {0.f, 0.f};
+      float corr[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i2 = 0; i2 < 2; ++i2) {
-      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 1));
-      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 2));
-      corr[i2] = expf(m[i2] - mx[i2]);
-      m[i2] = mx[i2];
-    }
-    unsigned pa[KD][4];  // P as the A operand of KD depth steps of 16
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i2 = e >> 1;
-        p[e] = s[n][e] == -INFINITY ? 0.f : expf(s[n][e] - m[i2]);
-        rs[i2] += p[e];
+      for (int i2 = 0; i2 < 2; ++i2) {
+        mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 1));
+        mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 2));
+        corr[i2] = expf(m[i2] - mx[i2]);
+        m[i2] = mx[i2];
       }
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
+      unsigned pa[KD][4];  // P as the A operand of KD depth steps of 16
 #pragma unroll
-    for (int i2 = 0; i2 < 2; ++i2) {
-      rs[i2] += __shfl_xor_sync(0xffffffffu, rs[i2], 1);
-      rs[i2] += __shfl_xor_sync(0xffffffffu, rs[i2], 2);
-      l[i2] = l[i2] * corr[i2] + rs[i2];
-    }
+      for (int n = 0; n < NB; ++n) {
+        float p[4];
 #pragma unroll
-    for (int n = 0; n < OB; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
+        for (int e = 0; e < 4; ++e) {
+          const int i2 = e >> 1;
+          p[e] = s[n][e] == -INFINITY ? 0.f : expf(s[n][e] - m[i2]);
+          rs[i2] += p[e];
+        }
+        pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2) {
+        rs[i2] += __shfl_xor_sync(0xffffffffu, rs[i2], 1);
+        rs[i2] += __shfl_xor_sync(0xffffffffu, rs[i2], 2);
+        l[i2] = l[i2] * corr[i2] + rs[i2];
+      }
+#pragma unroll
+      for (int n = 0; n < OB; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
 
-    // O += P . V: KD depth steps of 16 columns, OB blocks of 8 dims
+      // O += P . V: KD depth steps of 16 columns, OB blocks of 8 dims
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+      for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < OB / 2; ++dp) {
-        unsigned bv[4];
-        const int row = 16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7);
-        const int ch = 2 * dp + (lane >> 4);
-        ldsm_x4_t(smem_u32(vs_ + TL::off(row, ch)), bv);
-        mma16816(o[2 * dp], pa[kk], bv[0], bv[1]);
-        mma16816(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
+        for (int dp = 0; dp < OB / 2; ++dp) {
+          unsigned bv[4];
+          const int row = 16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7);
+          const int ch = 2 * dp + (lane >> 4);
+          ldsm_x4_t(smem_u32(vs_ + TL::off(row, ch)), bv);
+          mma16816(o[2 * dp], pa[kk], bv[0], bv[1]);
+          mma16816(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
+        }
       }
+      __syncwarp();
     }
-    __syncwarp();
+    cp_async_wait0();       // the ring drains at the segment's end
+    s_lo = s_hi;
+    if (CUT && s_lo < cta_hi) __syncthreads();   // every warp past its loads
   }
-  cp_async_wait0();
 
   // merge the KS warps of each row group in warp order, then write
   float* red = reinterpret_cast<float*>(smem_raw);   // reuses the stages
@@ -393,25 +411,44 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// A CTA's at most 16 * WARPS rows sit at most 63 positions past its
-// first, so its span under a window is at most the window + 63 columns.
-template <int HD, int WR, typename Cols>
-int launch_mma(const void* q, const void* k, const void* v, float* out,
-               const int* start, const Cols cols, int B, int Hkv, int G,
-               int C, int window, float scale, cudaStream_t st) {
-  const int pages = cols.stage_pages(window, 16 * WARPS - 1);
-  const int smem = Tile<HD>::SMEM + pages * (int)sizeof(long long);
+// Shared memory: the tiles' stages and, paged, the `stage` page bases
+// the wrapper picks.
+template <int HD, int WR, typename Cols, bool CUT>
+int launch_mma_as(const void* q, const void* k, const void* v, float* out,
+                  const int* start, const Cols cols, int B, int Hkv, int G,
+                  int C, int window, float scale, cudaStream_t st) {
+  const int smem = Tile<HD>::SMEM + cols.stage * (int)sizeof(long long);
   const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_mma_kernel<HD, WR, Cols>,
+      prefill_mma_kernel<HD, WR, Cols, CUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(B, Hkv, (C * G + 16 * WR - 1) / (16 * WR));
-  prefill_mma_kernel<HD, WR, Cols><<<grid, THREADS, smem, st>>>(
+  prefill_mma_kernel<HD, WR, Cols, CUT><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), out, start, cols, Hkv, G, C,
       window, scale);
   return (int)cudaGetLastError();
+}
+
+// The instance that cuts spans into segments only where a CTA's span
+// may touch more pages than one staging holds: the whole row, or under
+// a window the window + 63 columns (a CTA's at most 16 * WARPS rows sit
+// at most 63 positions past its first).
+template <int HD, int WR, typename Cols>
+int launch_mma(const void* q, const void* k, const void* v, float* out,
+               const int* start, const Cols cols, int B, int Hkv, int G,
+               int C, int window, float scale, cudaStream_t st) {
+  static_assert(Tile<HD>::COLS <= kv::MAX_STEP, "tile vs segment");
+  if constexpr (Cols::can_cut) {
+    const long long span = window > 0 ? window + 16 * WARPS - 1
+                                      : (long long)cols.n_lp * cols.page;
+    if (cols.cut(span))
+      return launch_mma_as<HD, WR, Cols, true>(q, k, v, out, start, cols, B,
+                                               Hkv, G, C, window, scale, st);
+  }
+  return launch_mma_as<HD, WR, Cols, false>(q, k, v, out, start, cols, B,
+                                            Hkv, G, C, window, scale, st);
 }
 
 // bf16: the tensor-core kernel, with WR = the row warps a CTA needs (1, 2
@@ -468,16 +505,18 @@ extern "C" int prefill_attention(const void* q, const void* k,
 }
 
 // The same kernels over the paged pool; a CTA stages the pages of its
-// span: at most the n_lp of its slot's table row, fewer under a window.
+// span `stage` at a time (the wrapper's `ops.stage_pages`), so a table
+// row of any length launches.
 extern "C" int paged_prefill_attention(const void* q, const void* k_pool,
                                        const void* v_pool, float* out,
                                        const int* tables, const int* start,
                                        int B, int Hkv, int G, int C,
                                        int n_pages, int page, int n_lp,
-                                       int hd, int window, float scale,
-                                       int dtype, void* stream) {
-  if (page < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
-  return gqa::dispatch(q, k_pool, v_pool, out, start,
-                       kv::PagedCols{tables, n_lp, page, n_pages}, B, Hkv,
-                       G, C, hd, window, scale, dtype, stream);
+                                       int stage, int hd, int window,
+                                       float scale, int dtype,
+                                       void* stream) {
+  const kv::PagedCols cols{tables, n_lp, page, n_pages, stage};
+  if (!cols.valid()) return (int)cudaErrorInvalidValue;
+  return gqa::dispatch(q, k_pool, v_pool, out, start, cols, B, Hkv, G, C,
+                       hd, window, scale, dtype, stream);
 }

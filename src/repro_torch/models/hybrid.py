@@ -115,21 +115,26 @@ def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> dict:
             cache_shapes(cfg, batch, seq_len).items()}
 
 
-def _shared_decode(params, x, cfg, cache_k, cache_v, indices, window):
-    """The shared block at one token: its KV slot written in place."""
+def _shared_decode(params, x, cfg, cache_k, cache_v, indices, window,
+                   kept=None):
+    """The shared block at one token: its KV slot written in place (the
+    `kept` writes only, when given)."""
     h = L.apply_norm(params["shared_ln"], x, cfg.norm)
     attn, _, _ = L.attention_decode_slots(params["shared_attn"], h, cfg,
-                                          cache_k, cache_v, indices, window)
+                                          cache_k, cache_v, indices, window,
+                                          kept=kept)
     x = x + attn
     h = L.apply_norm(params["shared_ln2"], x, cfg.norm)
     return x + L.apply_mlp(params["shared_mlp"], h)
 
 
 def decode_step(params, cache: dict, token: torch.Tensor, index, cfg,
-                window: int = 0) -> tuple:
+                window: int = 0, active=None) -> tuple:
     """token [B,1] int at position `index` (a scalar, or a per-row [B]
     vector) -> (logits [B,1,V], cache) with the cache updated IN
-    PLACE."""
+    PLACE. `active` [B] bool keeps the inactive rows' states and KV
+    columns (runtime/serve_step.py's scan prefill masks its padded
+    tail so, as the JAX scan masks each cache row)."""
     x = L.embed_lookup(params["embed"], token, cfg.dtype)
     B = x.shape[0]
     indices = torch.as_tensor(index, device=x.device).to(
@@ -137,10 +142,18 @@ def decode_step(params, cache: dict, token: torch.Tensor, index, cfg,
     n_super, every, tail = layout(cfg)
     ssm, conv = cache["ssm"], cache["conv"]
 
+    kept = L.kept_writes(active[:, None]) if active is not None else None
+
+    def put(leaf, new):
+        if active is not None:
+            new = torch.where(active.reshape((B,) + (1,) * (new.ndim - 1)),
+                              new, leaf)
+        leaf.copy_(new)
+
     def mamba(mp, x, l):
         x, s, c = apply_mamba_decode(mp, x, cfg, ssm[l], conv[l])
-        ssm[l].copy_(s)
-        conv[l].copy_(c)
+        put(ssm[l], s)
+        put(conv[l], c)
         return x
 
     for s in range(n_super):
@@ -148,7 +161,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, index, cfg,
         for i in range(every):
             x = mamba(tree_at(mstack, i), x, s * every + i)
         x = _shared_decode(params, x, cfg, cache["attn_k"][s],
-                           cache["attn_v"][s], indices, window)
+                           cache["attn_v"][s], indices, window, kept)
     for i in range(tail):
         x = mamba(tree_at(params["tail"], i), x, n_super * every + i)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)

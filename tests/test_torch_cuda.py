@@ -310,6 +310,53 @@ def test_paged_kernel_clamps_page_ids(c, dtype, cuda_device):
                                atol=TOL[dtype])
 
 
+# K8 and K10 where a CTA's span holds more pages than one staging
+# (build.STAGE_PAGES, kv_cols.cuh): the span is staged in segments cut on
+# the loop's grid of steps. At pages of 1 and 3 a cache of a few ten
+# thousand columns holds several segments a CTA (a decode split of the 8
+# holds 2,500 pages, a prefill span up to 20,000), with and without a
+# window that itself spans more than one staging
+SEGMENT_S = {1: 20_000, 3: 60_000}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 3_000])
+@pytest.mark.parametrize("hd,g", [(64, 1), (64, 4), (160, 4)])
+@pytest.mark.parametrize("page", sorted(SEGMENT_S))
+@pytest.mark.parametrize("c", [None, 17, 64])
+def test_paged_kernel_equals_dense_twin_across_staging_segments(
+        c, page, hd, g, window, dtype, cuda_device):
+    s, b, hkv = SEGMENT_S[page], 3, 2
+    q, k, v = attn_fixture(11, b, hkv, g, s, hd, c=c)
+    if c is None:
+        rows = np.array([s, s - 1_234, 2 * 2048 * page + 5], np.int32)
+    else:
+        rows = np.array([s - c, s // 2 + 5, 0], np.int32)
+    kp, vp, tables, spare = paged_from_dense(k, v, page, 12)
+    for bi, r in enumerate(rows.tolist()):
+        tables[bi, -(-(r + (c or 0)) // page):] = spare
+    q, k, v, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype)
+                       for a in (q, k, v, kp, vp))
+    rows, tables = (torch.from_numpy(a).to(cuda_device)
+                    for a in (rows, tables))
+    if c is None:
+        fn, twin, plain = (dec.gqa_decode_paged, dec.gqa_decode,
+                           dec_ref.paged_decode_attention_ref)
+    else:
+        fn, twin, plain = (pre.gqa_prefill_paged, pre.gqa_prefill,
+                           pre_ref.paged_prefill_attention_ref)
+    got = fn(q, kp, vp, tables, rows, window=window)
+    again = fn(q, kp, vp, tables, rows, window=window)
+    dense = twin(q, k, v, rows, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    assert torch.equal(got, again)
+    want = plain(*(a.float() if a.is_floating_point() else a
+                   for a in (q, kp, vp, tables, rows)), window=window)
+    torch.testing.assert_close(got, want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
 def test_idle_decode_row_is_zero(cuda_device):
     """A slot of length 0 attends nothing: the kernel returns 0 there
     (the engine discards the row)."""

@@ -30,11 +30,18 @@ live JAX package, at small widths:
   JAX's, the port paged = dense bit for bit, and the window biting (the
   same steps without it differ).
 * RoPE also at long_500k's positions, 0-524,351: the same ulps.
-* The paged kernels' page-staging limit (kernels/build.py SMEM_LIMIT):
-  the ops' own shape check takes the longest table row one CTA stages
-  and refuses one page more, naming the limit, before any launch; under
-  long_500k's window the prefill stages only the window's pages, so it
-  takes long_500k's 32,768 pages at every built head dim."""
+* The paged kernels' page staging (kernels/csrc/kv_cols.cuh): the
+  wrappers' `stage_pages` give each launch the page bases a CTA stages at
+  a time, the only part of its shared memory that grows with the table
+  row; it is at most build.STAGE_PAGES, the same at a row 4x the longest
+  one a CTA once staged whole (past which the ops refused) as at that
+  row, and no such row is refused; the one refusal left is a row past
+  the 2^30 columns the kernels' int32 indices address
+  (build.MAX_COLUMNS). Under long_500k's window the prefill stages only
+  the window's pages; without it K10 takes long_500k's and the engine's
+  212,992-token rows. Every staging the wrappers pick holds a loop step
+  when the span is cut into segments (the launch refuses one that does
+  not)."""
 import contextlib
 import dataclasses
 
@@ -381,12 +388,14 @@ def test_one_card_microbatch_rule_at_train_4k(case):
 
 
 # -------------------------------------------------------- page staging
-def _decode_bytes(B, Hkv, G, hd):
+def _decode_stage(B, Hkv, G, hd):
     n_split = dec.decode_splits(B, Hkv, G)
-    return lambda n: dec.decode_smem_bytes(hd, G, n_split, 16, n)
+    return lambda n: dec.stage_pages(n, 16, n_split)
 
 
-# op, shape arguments, the longest table row at page 16 (pages)
+# op, shape arguments, the longest table row at page 16 (pages) one CTA
+# staged whole before the staging went by segments (the ops refused one
+# page more)
 STAGING = {
     "decode_hd64_one_split": ("decode", (4, 99, 1, 64), 28_924),
     "decode_hd128_g8_one_split": ("decode", (4, 99, 8, 128), 28_016),
@@ -403,29 +412,31 @@ STAGING = {
 
 @pytest.mark.parametrize("case", sorted(STAGING))
 def test_paged_ops_refuse_past_the_staging_limit(case):
+    """The staging limit is gone: a row 4x the old longest row stages no
+    more page bases a CTA at a time (the launch's shared memory beside
+    the body's own) than a row at the old limit, nor does the longest row
+    the kernels address: one staging of STAGE_PAGES; none is refused.
+    What is refused is a row past MAX_COLUMNS, before any launch."""
     op, shape, top = STAGING[case]
     if op == "decode":
-        nbytes = _decode_bytes(*shape)
-
-        def check(n):
-            dec.check_paged_decode(*shape, 16, n)
+        stage = _decode_stage(*shape)
     else:
-        nbytes = (lambda hd, dt: lambda n: pre.prefill_smem_bytes(
-            hd, dt, n))(*shape)
-
-        def check(n):
-            pre.check_paged_prefill(*shape, 16, n)
-    assert build.longest_table(nbytes) == top
-    assert nbytes(top) <= build.SMEM_LIMIT < nbytes(top + 1)
-    check(top)
-    with pytest.raises(ValueError, match=r"232448 \(227 KiB\)") as e:
-        check(top + 1)
-    assert f"longest cache the kernel takes is {top} pages" in str(e.value)
+        stage = (lambda hd, dt: lambda n: pre.stage_pages(hd, dt, n))(
+            *shape)
+    longest = build.MAX_COLUMNS // 16
+    assert stage(4 * top) == stage(top) == stage(longest) \
+        == build.STAGE_PAGES
+    # a row of one page stages one
+    assert stage(1) == 1
+    build.check_table(case, 4 * top, 16)
+    build.check_table(case, longest, 16)
+    with pytest.raises(ValueError, match=r"1073741824 \(2\^30\)"):
+        build.check_table(case, longest + 1, 16)
 
 
 # long_500k's 32,768 pages at its window, in bf16 and f32 at each built
-# head dim: the prefill stages the pages of window + reach columns
-# (kv_cols.cuh's stage_pages), 515-517 pages of 16
+# head dim: the prefill stages the pages of window + reach columns, 515-517
+# pages of 16
 WINDOWED = {f"{dt}_hd{hd}": (hd, getattr(torch, dt))
             for dt in ("bfloat16", "float32") for hd in build.HEAD_DIMS}
 
@@ -434,35 +445,83 @@ WINDOWED = {f"{dt}_hd{hd}": (hd, getattr(torch, dt))
 def test_paged_prefill_stages_only_its_window(case):
     hd, dtype = WINDOWED[case]
     n_lp, window = 32_768, 8_192
-    whole = pre.prefill_smem_bytes(hd, dtype, 0)
     reach = 63 if dtype == torch.bfloat16 else 15 + (16 if hd > 128
                                                      else 32) - 1
     pages = -(-(window + reach) // 16) + 1
     assert pages in (515, 516, 517)
-    assert pre.prefill_smem_bytes(hd, dtype, n_lp, 16, window) \
-        == whole + 8 * pages <= build.SMEM_LIMIT
-    pre.check_paged_prefill(hd, dtype, 16, n_lp, window)
+    assert pre.stage_pages(hd, dtype, n_lp, 16, window) == pages \
+        < build.STAGE_PAGES
+    build.check_table("gqa_prefill_paged", n_lp, 16)
     # a row shorter than the span stages the row
-    assert pre.prefill_smem_bytes(hd, dtype, 100, 16, window) \
-        == pre.prefill_smem_bytes(hd, dtype, 100) == whole + 800
+    assert pre.stage_pages(hd, dtype, 100, 16, window) \
+        == pre.stage_pages(hd, dtype, 100) == 100
 
 
 @pytest.mark.parametrize("shape", ("decode_32k", "long_500k"))
 def test_registered_shapes_against_the_staging_limit(shape):
-    """decode_32k's 2,048 pages a slot stage in both paged kernels;
-    long_500k's 32,768 stage in K8 (8 splits of one slot) and, at the
-    shape's window, in K10, which then stages only the window's pages;
-    without a window K10 stages the whole row, and the op refuses that
-    prefill."""
+    """decode_32k's 2,048 pages a slot stage once in both paged kernels;
+    long_500k's 32,768 in K8 (8 splits of one slot) and, at the shape's
+    window, in K10, which then stages only the window's pages; without
+    a window K10 takes the row too, in segments of one staging, as it
+    takes the engine's 212,992-token prompt (13,312 pages)."""
     n_lp = SHAPES[shape].seq_len // 16
     B = 16 if shape == "decode_32k" else 1
-    dec.check_paged_decode(B, 16, 1, 64, 16, n_lp)
+    build.check_table("gqa_decode_paged", n_lp, 16)
+    build.check_table("gqa_prefill_paged", n_lp, 16)
     if shape == "decode_32k":
-        pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp)
+        assert n_lp == build.STAGE_PAGES
+        assert _decode_stage(B, 16, 1, 64)(n_lp) < build.STAGE_PAGES
+        assert pre.stage_pages(64, torch.bfloat16, n_lp) == n_lp
         return
+    # K8's 8 splits of 4,096 pages: two stagings each without a window
+    assert _decode_stage(B, 16, 1, 64)(n_lp) == build.STAGE_PAGES
     window = SS.window_for(CFG, SHAPES[shape])
     assert window == 8_192
-    pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp, window)
-    with pytest.raises(ValueError, match="227 KiB") as e:
-        pre.check_paged_prefill(64, torch.bfloat16, 16, n_lp)
-    assert "longest cache the kernel takes is 12672 pages" in str(e.value)
+    assert pre.stage_pages(64, torch.bfloat16, n_lp, 16, window) == 517
+    assert pre.stage_pages(64, torch.bfloat16, n_lp) \
+        == pre.stage_pages(64, torch.bfloat16, 212_992 // 16) \
+        == build.STAGE_PAGES
+    build.check_table("gqa_prefill_paged", 212_992 // 16, 16)
+
+
+# (page, table row in pages, window or a decode split count): short and
+# long rows at pages of 1 to 64, tiny windows and many splits, where the
+# span's own pages are fewer than one loop step (MAX_STEP columns) needs
+STAGE_FLOOR = {
+    "prefill_page1_window1": (1, 5_000, ("prefill", 1)),
+    "prefill_page3_window48": (3, 100_000, ("prefill", 48)),
+    "prefill_page16_window48": (16, 40, ("prefill", 48)),
+    "prefill_page64_row": (64, 3, ("prefill", 0)),
+    "decode_page1_8_splits": (1, 48, ("decode", 8)),
+    "decode_page16_8_splits": (16, 3, ("decode", 8)),
+    "decode_page3_long": (3, 1_000_000, ("decode", 1)),
+    "decode_page64_long": (64, 50_000, ("decode", 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGE_FLOOR))
+def test_stage_pages_hold_one_loop_step(case):
+    """The wrappers' staging is one the launch takes (kv_cols.cuh's
+    `valid`): at least one page, at most STAGE_PAGES and the row, and
+    when it holds less than the row, at least MAX_STEP columns past its
+    first page, so each segment of a cut span holds a loop step; and a
+    sliding window's span, window + reach columns from any column, fits
+    one staging."""
+    page, n_lp, (op, arg) = STAGE_FLOOR[case]
+    if op == "decode":
+        stages = [(dec.stage_pages(n_lp, page, arg), 0)]
+    else:
+        # a CTA's span reaches 63 columns past the window in bf16, 15 rows
+        # and a tile (32 columns, 16 at hd 160) less one in f32
+        stages = [(pre.stage_pages(hd, dt, n_lp, page, arg),
+                   63 if dt == torch.bfloat16 else 15 + (
+                       16 if hd > 128 else 32) - 1)
+                  for hd in build.HEAD_DIMS
+                  for dt in (torch.bfloat16, torch.float32)]
+    for stage, reach in stages:
+        assert 1 <= stage <= min(n_lp, build.STAGE_PAGES)
+        assert stage == n_lp or (stage - 1) * page >= build.MAX_STEP
+        if op == "prefill" and arg:
+            # window + reach columns from any column touch at most
+            # ceil(span / page) + 1 pages
+            assert stage == n_lp or stage >= -(-(arg + reach) // page) + 1
