@@ -3739,10 +3739,11 @@ def _peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
 
 
-def _counted(scheme, kinds: list, step_losses=None):
+def _counted(scheme, kinds: list, step_losses=None, aux_losses=None):
     """Wrap `scheme.round` / `scheme.evaluate` (and `scheme._step`) so
     every call appends (kind, launches by kernel, seconds) to `kinds`
-    (and each step's loss to `step_losses`)."""
+    (and each step's loss to `step_losses`, its load-balance loss to
+    `aux_losses`)."""
     import torch
     counters = _all_counters()
 
@@ -3767,6 +3768,8 @@ def _counted(scheme, kinds: list, step_losses=None):
             st, m = step(*a, **kw)
             if not m["loss"].is_meta:     # not the FLOP count's pass
                 step_losses.append(float(m["loss"]))
+                if aux_losses is not None:
+                    aux_losses.append(float(m["aux_loss"]))
             return st, m
         scheme._step = logged
 
@@ -4258,7 +4261,21 @@ def scaled_phase(seed: int, card_name: str, shapes: dict) -> tuple:
 # card and on the CPU: bills
 # equal, losses within LOSS_TOL, accuracy within ACC_TOL, the load-balance
 # loss of every CL / SL step finite and > 0, K1 at the SL legs and the FL
-# sync by shape, no K3-K10 launch.
+# sync by shape, no K3-K10 launch. (e) qwen3-moe-235b-a22b,
+# llama4-scout-17b-a16e and internvl2-76b at full width through the
+# scaled CL and SL schemes, as phases 13 and 14 run theirs
+# (`_family_run`: AdamW at lr 3e-5, 2 steps, the training CLI's 512
+# rows, batch 8 and seq 128, 4 eval slices of 8 rows; SL split 2,
+# compress 4, Q8, 20 dB), the depth cut to fit one card: the in-place step holds 16 bytes a
+# parameter (f32 weights, two AdamW moments, one gradient) besides its
+# activations, so the MoE configs run 1 layer (3.07 / 3.24 G parameters;
+# SL's cut is then layer 0: the user holds the embedding and the codec)
+# and the vlm 2 (2.83 G; cut at layer 1, 512 patch tokens a row: S 640).
+# Bills exact, K1 twice an SL step and once an SL eval slice at [B x S x
+# d_model / 4 / 256, 256], none in CL, no K2-K10; losses finite and
+# falling from step 1 to 2; the MoE load-balance loss finite and > 0 on
+# every step; it prints the MoE dropped fraction, max_memory_allocated,
+# bytes a parameter and seconds a round and an eval.
 MOE_TRACE = dict(prompt_lens=(32, 128), new_tokens=(8, 32))
 # (arch, layers served (0: all), requests, first-chunk reference)
 SERVED = (("qwen3-moe-235b-a22b", 4, 16, "prefill"),
@@ -4269,6 +4286,27 @@ SERVED = (("qwen3-moe-235b-a22b", 4, 16, "prefill"),
           ("internvl2-76b", 4, 8, "forward"))
 ROUTER_TIE = 2 ** -5
 MOE_TRAINED = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+# (e): name -> layers kept; (CL's corpus bits once: token_bits(vocab) x
+# 512 x 128, SL's bits a step: 2 legs x 8 bits x 8 x S x d_model / 4);
+# the model's parameters at that depth
+WIDE_LAYERS = {"qwen3-moe-235b-a22b": dict(n_layers=1),
+               "llama4-scout-17b-a16e": dict(n_layers=1),
+               "internvl2-76b": dict(n_layers=2)}
+WIDE_BILLS = {
+    "qwen3-moe-235b-a22b": (512 * 128 * 18, 16_777_216),    # vocab 151,936
+    "llama4-scout-17b-a16e": (512 * 128 * 18, 20_971_520),  # vocab 202,048
+    "internvl2-76b": (512 * 128 * 17, 167_772_160),         # vocab 128,256
+}
+WIDE_PARAMS = {"qwen3-moe-235b-a22b": 3_074_437_120,
+               "llama4-scout-17b-a16e": 3_236_592_640,
+               "internvl2-76b": 2_829_099_008}
+# (e) trains at a tenth of the scaled schemes' lr, 3e-5 (`Experiment`'s
+# lr_scale). AdamW's first step moves every weight by lr (m / sqrt(v) is
+# +-1 at step 1), so a layer's output moves by about lr x its fan-in,
+# 4,096-29,568 here: at 3e-4 every run's loss rose from step 1 to step 2
+# (12.8-13.4 -> 16.3-37.8 on an H100 80GB HBM3 at 700 W; the JAX
+# package's AdamW makes the same update); at 3e-5 each falls
+WIDE_LR_SCALE = 0.1
 
 
 def ulp_tol(x, ulps: int = 8) -> float:
@@ -4605,6 +4643,71 @@ def reduced_training(seed: int, card_name: str, shapes: dict,
     return launches, summary, failures
 
 
+@contextlib.contextmanager
+def one_draw():
+    """While open, `init_train_state`'s weight draws
+    (runtime/train_step.py's `init_tree`) are made once on the host per
+    (specs, generator state) and handed out again: the tensors a fresh
+    draw gives, moved to the asked device as `init_tree` moves them, and
+    the generator left where that draw leaves it. Phase 12 (e)'s CL and
+    SL runs of a config draw the same ~3 G model weights from one seed
+    (SL's codec after them), ~30 s a draw on one CPU generator."""
+    from repro_torch.nn import tree_map
+    from repro_torch.runtime import train_step as TS
+    kept, made = TS.init_tree, {}
+
+    def init_tree(specs, generator, device="cuda"):
+        key = (repr(specs), generator.get_state().numpy().tobytes())
+        if key not in made:
+            made[key] = (kept(specs, generator, generator.device),
+                         generator.get_state())
+        tree, after = made[key]
+        generator.set_state(after)
+        return tree_map(lambda t: t.to(device, copy=True), tree)
+    TS.init_tree = init_tree
+    try:
+        yield
+    finally:
+        TS.init_tree = kept
+        made.clear()
+
+
+def wide_training(seed: int, card_name: str, shapes: dict) -> tuple:
+    """Phase 12 (e): WIDE_LAYERS's configs at full width through the
+    scaled CL and SL schemes (`_family_run`), the counters set to 0
+    before each run and read after it. Returns ({kernel: launches},
+    summary, failures)."""
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    launches = dict.fromkeys(counters, 0)
+    summary, failures, want_k1 = {}, [], {}
+    with launch_shapes({}) as phase_shapes:
+        for name in WIDE_LAYERS:
+            runs = {}
+            with one_draw():
+                for mode in ("cl", "sl"):
+                    runs[mode] = _family_run(name, mode, seed, card_name)
+                    for k, f in counters.items():
+                        launches[k] += f.launches
+                        f.launches = 0
+            failures += _family_checks(name, runs)
+            summary[name] = runs
+            # one leg's rows of 256: a step's bits / (2 legs x 8 bits)
+            rows = WIDE_BILLS[name][1] // (2 * 8 * 256)
+            want_k1[(rows, 256)] = 2 * FAMILY_STEPS + FAMILY_N_TEST // 8
+    failures += merge_shapes(shapes, phase_shapes, launches,
+                             "phase 12 (e)")
+    k1 = dict(phase_shapes.get("packed_wire_2d", {}))
+    if k1 != want_k1:
+        failures.append(f"phase 12 (e): K1 by shape {k1}, want {want_k1}")
+    summary["k1_by_shape"] = {str(list(k)): v for k, v in k1.items()}
+    print(f"phase 12 (e) full-width training: launches "
+          f"{ {k: v for k, v in launches.items() if v} }; K1 by shape "
+          f"{summary['k1_by_shape']} ({card_name})", flush=True)
+    return launches, summary, failures
+
+
 def wide_phase(seed: int, card_name: str, shapes: dict) -> tuple:
     """Phase 12. Returns ({kernel: launches}, {kernel: {(Hkv, G, hd):
     launches}}, summary, failures)."""
@@ -4625,6 +4728,13 @@ def wide_phase(seed: int, card_name: str, shapes: dict) -> tuple:
     train_launches, summary["training"], f = reduced_training(
         seed, card_name, shapes, steps=FAMILY_STEPS)
     secs["training"] = time.perf_counter() - t0
+    failures += f
+    for k, v in train_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    t0 = time.perf_counter()
+    train_launches, summary["full_width_training"], f = wide_training(
+        seed, card_name, shapes)
+    secs["full-width training"] = time.perf_counter() - t0
     failures += f
     for k, v in train_launches.items():
         launches[k] = launches.get(k, 0) + v
@@ -4665,14 +4775,14 @@ FAMILY_STEPS, FAMILY_FL_STEPS, FAMILY_N_TEST = 2, 1, 32
 # encoder and 12 decoder layers; SL still cuts at super-block 2 or the
 # encoder output, with the server's blocks after it
 FAMILY_LAYERS = {XLSTM: dict(n_layers=18), HYBRID: dict(n_layers=20),
-                 AUDIO: dict(n_layers=6, enc_layers=6)}
+                 AUDIO: dict(n_layers=6, enc_layers=6), **WIDE_LAYERS}
 # (CL's corpus bits once: token_bits(vocab) x 512 x 128; SL's bits a
 # step: 2 legs x 8 bits x crossing_elems) at full width
 FAMILY_BILLS = {
     XLSTM: (512 * 128 * 16, 4_194_304),     # vocab 50,304; 8 x 128 x 256
     HYBRID: (512 * 128 * 15, 8_388_608),    # vocab 32,000; 8 x 128 x 512
     AUDIO: (512 * 128 * 18, 16_777_216),    # vocab 256,256; 8 x 512 x 256
-}
+    **WIDE_BILLS}
 # the FL run goes through the training CLI, as a user types it
 FAMILY_FL_CLI = ["--mode", "fl", "--steps", str(FAMILY_FL_STEPS),
                  "--local-steps", str(FAMILY_FL_STEPS), "--n-test",
@@ -4830,16 +4940,21 @@ def static_serve(name: str, seed: int, card_name: str) -> tuple:
 def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
     """One full-width cycle of `name` on the card: CL / SL through
     `build_scheme` + `Experiment` at FAMILY_LAYERS's depth (AdamW,
-    FAMILY_STEPS steps; SL cut at layer / super-block 2, or the encoder
-    output), FL through the training CLI at full depth (3 users x
+    FAMILY_STEPS steps, phase 12 (e)'s configs at WIDE_LR_SCALE of the
+    lr; SL cut at layer / super-block 2, or the encoder output, where
+    the depth allows), FL through the training CLI at full depth (3 users x
     FAMILY_FL_STEPS local steps, Q8, K1 sync). Returns its record."""
     import dataclasses
     import torch
     from repro_torch.configs import WirelessConfig, get_arch
+    from repro_torch.models import api as M
+    from repro_torch.nn import count_params
     from repro_torch.schemes import Experiment, build_scheme
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kinds, losses, clock = [], [], {}
+    kinds, losses, aux, drops, clock = [], [], [], [], {}
+    params = None
     t0 = time.perf_counter()
     if mode == "fl":
         from repro_torch.launch import train
@@ -4863,15 +4978,21 @@ def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
                 WirelessConfig(mode="sl", quant_bits=8, snr_db=20.0,
                                split_layer=2, compress_factor=4))
         cfg = dataclasses.replace(get_arch(name), **FAMILY_LAYERS[name])
+        params = count_params(M.train_param_specs(cfg))
         scheme = build_scheme(wcfg, cfg=cfg, device="cuda",
                               optimizer="adamw",
                               steps_per_cycle=FAMILY_STEPS)
-        _counted(scheme, kinds, losses)
+        _counted(scheme, kinds, losses, aux)
         exp = Experiment(scheme, cycles=1, seed=seed,
-                         n_train=SCALED_N_TRAIN, n_test=FAMILY_N_TEST)
-        with _sync_clock(clock):
+                         n_train=SCALED_N_TRAIN, n_test=FAMILY_N_TEST,
+                         lr_scale=WIDE_LR_SCALE if name in WIDE_LAYERS
+                         else 1.0)
+        with _sync_clock(clock), drop_log(drops):
             res = exp.run()
     wall = time.perf_counter() - t0
+    # the MoE layers' dropped fractions of the run's steps and eval
+    # slices (the FLOP count's meta pass has none)
+    drops = [float(d) for _, d in drops if not d.is_meta]
     main, step_losses = list(kinds), list(losses)
     prof = _profile_eval(exp, seed, name) if mode == "cl" else None
     rec = dict(layers=exp.scheme.cfg.n_layers,
@@ -4885,10 +5006,14 @@ def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
                rounds=[c for k, c, _ in main if k == "round"],
                evals=[c for k, c, _ in main if k == "eval"],
                wall_s=wall, max_memory_gib=torch.cuda.max_memory_allocated()
-               / 2 ** 30, peak_rss_gib=_peak_rss_gib(), **clock)
+               / 2 ** 30, peak_rss_gib=_peak_rss_gib(), params=params,
+               lb_loss=aux, dropped_frac=drops, **clock)
+    if params:
+        rec["bytes_per_param"] = torch.cuda.max_memory_allocated() / params
     if prof is not None:
         rec["profile"] = prof
     del exp
+    gc.collect()
     torch.cuda.empty_cache()
     print(f"{name} {mode}: {rec['layers']} layers, 1 cycle, {wall:.1f} s "
           f"(round "
@@ -4901,6 +5026,13 @@ def _family_run(name: str, mode: str, seed: int, card_name: str) -> dict:
           f"{rec['n_tx']}; init {rec['init_bits']}; loss {res.loss} (steps "
           f"{[round(x, 4) for x in step_losses]}); accuracy "
           f"{res.accuracy} ({card_name})", flush=True)
+    if params:
+        print(f"{name} {mode}: {params:,} parameters, "
+              f"{rec['bytes_per_param']:.2f} bytes a parameter at "
+              f"max_memory_allocated; lb_loss {aux}; MoE dropped fraction "
+              + (f"mean {sum(drops) / len(drops):.4f}, max {max(drops):.4f}"
+                 f" over {len(drops)} layer calls" if drops else "none")
+              + f" ({card_name})", flush=True)
     return rec
 
 
@@ -4922,9 +5054,11 @@ def _profile_eval(exp, seed: int, name: str) -> dict:
 
 
 def _family_checks(name: str, runs: dict) -> list:
-    """The gates on the full-width runs of phases 13 and 14: exact
-    bills, finite losses, CL's and SL's loss falling, K1 twice an SL
-    step, once an SL eval slice and once an FL cycle, no K3-K10."""
+    """The gates on the full-width runs of phases 12 (e), 13 and 14:
+    exact bills, finite losses, CL's and SL's loss falling, K1 twice an
+    SL step, once an SL eval slice and once an FL cycle, no K3-K10; for
+    phase 12 (e) the parameter count, and a MoE's load-balance loss
+    finite and > 0 on every step."""
     import math
     from repro_torch.configs import get_arch
     from repro_torch.models import api as M
@@ -4963,6 +5097,13 @@ def _family_checks(name: str, runs: dict) -> list:
         want(mode, len(r["step_losses"]) == FAMILY_STEPS
              and r["step_losses"][-1] < r["step_losses"][0],
              f"loss did not fall {r['step_losses']}")
+        if name in WIDE_PARAMS:
+            want(mode, r["params"] == WIDE_PARAMS[name],
+                 f"{r['params']} parameters")
+        if get_arch(name).is_moe:
+            want(mode, len(r["lb_loss"]) == FAMILY_STEPS
+                 and all(math.isfinite(x) and x > 0 for x in r["lb_loss"]),
+                 f"load-balance loss {r['lb_loss']}")
     if "fl" in runs:
         fl, n_leaves = runs["fl"], len(tree_leaves(specs))
         per_user = [b / 3 for b in fl["bits"]]

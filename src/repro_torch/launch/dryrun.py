@@ -52,11 +52,11 @@ from repro_torch.configs.base import WirelessConfig
 from repro_torch.launch.mesh import Mesh, abstract_mesh
 from repro_torch.models import api as M
 from repro_torch.nn import axes_tree, shapes_tree, use_mesh
-from repro_torch.runtime.serve_step import cache_specs, window_for
+from repro_torch.runtime.serve_step import cache_specs
 from repro_torch.runtime.train_step import (Lowered, key_sds,
                                             make_prefill_step,
                                             train_state_axes,
-                                            train_state_sds)
+                                            train_state_sds, window_for)
 from repro_torch.schemes import build_scheme
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"

@@ -21,15 +21,7 @@ import torch
 
 from repro_torch.models import api as M
 from repro_torch.models import transformer
-
-
-def window_for(cfg, shape_cfg) -> int:
-    """long_500k needs sub-quadratic attention: attention families run a
-    sliding window; SSM/hybrid are natively O(1)-state."""
-    if shape_cfg.name == "long_500k" and cfg.family in ("dense", "moe",
-                                                        "vlm", "audio"):
-        return 8192
-    return 0
+from repro_torch.runtime.train_step import window_for
 
 
 def make_decode_step(cfg, shape_cfg):

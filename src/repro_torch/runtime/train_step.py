@@ -6,10 +6,11 @@ wireless mode is woven in here: SL routes the forward through the split +
 channel link (core/split.py); CL with a noisy link corrupts the tiny
 model's raw uplink tokens. FL wraps these in runtime/fl_runtime.py.
 
-Gradients come from autograd: a step differentiates detached copies of
+Gradients come from autograd: a step differentiates detached aliases of
 the trainable tree's leaves (`torch.autograd.grad`) and applies the
 plain-tensor optimizer update (optim/sgd.py, optim/adamw.py), in the
-JAX step's order.
+JAX step's order. A train step owns the state it is given: AdamW
+updates it in place (see `make_train_step`).
 
 The sharding helpers (`trainable_axes`, `train_state_axes`,
 `train_state_sds`, `key_sds`) give a train state's logical axes and
@@ -171,6 +172,23 @@ def trainable_axes(cfg, wcfg=None) -> dict:
                       if (wcfg is not None and wcfg.mode == "sl") else {})}
 
 
+def _accumulator(grads) -> list:
+    """The first microbatch's gradient leaves as the step's float32
+    accumulator, written in place from here on: autograd's own tensors
+    where they are float32, dense and not shared with another leaf (a
+    leaf used only through an expand, or two leaves handed one tensor,
+    get a copy), a float32 copy of any other dtype. `+ 0.0` turns a -0.0
+    entry into +0.0, as the JAX step's `zeros + g` accumulator does."""
+    out, seen = [], set()
+    for b in tree_leaves(grads):
+        a = b.float()
+        if a is b and (not a.is_contiguous() or a.data_ptr() in seen):
+            a = a.clone(memory_format=torch.contiguous_format)
+        seen.add(a.data_ptr())
+        out.append(a.add_(0.0))
+    return out
+
+
 def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
                     lr: float = 3e-4, momentum: float = 0.9,
                     n_data_shards: int = LIVE_DATA_SHARDS):
@@ -178,7 +196,13 @@ def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
     gradients summed over `auto_microbatch` microbatches in float32
     accumulators (microbatch i on key.fold_in(i)), divided by their
     count, then one optimizer update. `key` is a `core.draws.Key`; the
-    SL link draws from it."""
+    SL link draws from it.
+
+    The step takes ownership of `state`, as the JAX step's donated
+    argument: AdamW updates the weights and its moments in place and
+    returns the same tensors, so a caller that reads the old state after
+    the step clones it first. The accumulator is the first microbatch's
+    gradient, summed into and divided in place."""
     _check_family(cfg)
     window = window_for(cfg, shape_cfg)
     n_micro = auto_microbatch(cfg, shape_cfg, n_data_shards)
@@ -198,19 +222,19 @@ def make_train_step(cfg, shape_cfg, wcfg=None, optimizer: str = "adamw",
             metrics, g = value_and_grad(state.trainable, mb, cfg, wcfg,
                                         key.fold_in(i), window)
             if g_acc is None:
-                g_acc = tree_map(lambda b: torch.zeros_like(b) + b.float(),
-                                 g)
+                g_acc = tree_unflatten(g, _accumulator(g))
                 m_acc = {k: torch.zeros_like(v) + v
                          for k, v in metrics.items()}
             else:
-                g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
+                for a, b in zip(tree_leaves(g_acc), tree_leaves(g)):
+                    a.add_(b.float())
                 m_acc = {k: m_acc[k] + v for k, v in metrics.items()}
             g_acc = constrain_tree(g_acc, tax)
             del g
-        grads = tree_map(lambda g: g / n_micro, g_acc)
-        del g_acc
+        for a in tree_leaves(g_acc):
+            a.div_(n_micro)
         metrics = {k: v / n_micro for k, v in m_acc.items()}
-        trainable, opt_state = opt_update(grads, state.opt_state,
+        trainable, opt_state = opt_update(g_acc, state.opt_state,
                                           state.trainable, lr)
         return TrainState(trainable, opt_state, state.step + 1), metrics
 

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from _torch_parity import attn_fixture, cuda_device  # noqa: F401
-from _torch_parity import paged_from_dense
+from _torch_parity import check_adamw_in_place, paged_from_dense
 from repro_torch.kernels.decode_attention import ops as dec
 from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.prefill_attention import ops as pre
@@ -1321,3 +1321,15 @@ def test_warmup_compile_cold_then_warm(cuda_device, tmp_path,
     assert build.library_path("quant_channel").exists()
     warm = scheme.warmup_compile()
     assert warm < 0.2 * cold, (warm, cold)
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_adamw_in_place_equals_functional_on_card(weight_decay,
+                                                  cuda_device):
+    """The in-place AdamW on the card over 3 steps: weights, mu and nu
+    bit for bit the functional expression's on the card (each product
+    and sum rounded on its own: nothing fused into an FMA), -0.0, +0.0
+    and subnormal gradient entries included, in the storage they came
+    in."""
+    check_adamw_in_place({"w": (1024, 1024), "b": (1000,),
+                          "e": (3, 257, 129)}, 1, cuda_device, weight_decay)
